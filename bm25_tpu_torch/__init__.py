@@ -3,9 +3,10 @@
 A second package beside the JAX reference ``bm25_tpu``.  It keeps that
 package's module layout and names, runs eagerly on an explicit
 ``torch.device``, and launches hand-written CUDA kernels (``csrc/``) on
-the query path.  It never imports JAX: the host layer (tokenizer, scoring
-maths, index builders, bm25s index I/O, the oracle and ``Retriever``) is
-``bm25_tpu``'s JAX-free modules, re-exported here.
+the query paths of both engines and in the top-k op library.  It never
+imports JAX: the host layer (tokenizer, scoring maths, index builders,
+bm25s index I/O, the oracle and ``Retriever``) is ``bm25_tpu``'s JAX-free
+modules, re-exported here.
 """
 
 from bm25_tpu.index.builder import build_index
@@ -15,12 +16,16 @@ from bm25_tpu.retriever import Retriever
 from bm25_tpu.scoring import BM25Params, ScoredIndex, build_scored_index
 from bm25_tpu.text.tokenizer import Tokenizer
 from bm25_tpu_torch.models.auto import create_engine
+from bm25_tpu_torch.models.dense import DenseEngine
 from bm25_tpu_torch.models.sparse import SparseEngine
+from bm25_tpu_torch.ops.registry import custom
+from bm25_tpu_torch.ops.topk import top_k
 from bm25_tpu_torch.runtime.session import Session, get_session
 
 __all__ = [
     "BM25Params", "ScoredIndex", "build_scored_index",
     "ReferenceEngine", "topk_descending", "Tokenizer",
     "build_index", "load_index", "save_index", "MMapCorpus", "Retriever",
-    "Session", "get_session", "SparseEngine", "create_engine",
+    "Session", "get_session", "SparseEngine", "DenseEngine", "create_engine",
+    "top_k", "custom",
 ]

@@ -1,6 +1,7 @@
 """Device engines of the PyTorch port."""
 
 from bm25_tpu_torch.models.auto import create_engine
+from bm25_tpu_torch.models.dense import DenseEngine
 from bm25_tpu_torch.models.sparse import SparseEngine
 
-__all__ = ["SparseEngine", "create_engine"]
+__all__ = ["DenseEngine", "SparseEngine", "create_engine"]

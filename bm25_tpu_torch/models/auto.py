@@ -1,31 +1,74 @@
 """Engine selection — PyTorch counterpart of ``bm25_tpu/models/auto.py``.
 
-Only ``SparseEngine`` is ported so far, so ``mode="auto"`` builds it for
-every index until ``DenseEngine`` is ported (ROADMAP A7); the dense and
-sharded modes raise.
+Dense (the token-major table and kernel B3) when the table fits the
+device budget; beyond that the sparse ELL + hot-tier engine keeps device
+memory near the CSC footprint.
 """
 
 from __future__ import annotations
 
+import inspect
+
 from bm25_tpu.scoring import ScoredIndex
-from bm25_tpu_torch.models.sparse import SparseEngine
+from bm25_tpu_torch.models.dense import DenseEngine, table_bytes
+from bm25_tpu_torch.models.sparse import SparseEngine, device_hbm_bytes
+from bm25_tpu_torch.runtime.session import get_session
 
 
-def create_engine(index: ScoredIndex, mode: str = "auto", **kwargs):
-    """Build a device engine for this index.
+def _build(cls, index, kwargs, filter_kwargs: bool):
+    if not filter_kwargs:
+        # explicit modes keep strict kwargs: a typo or an option the
+        # chosen engine doesn't support must raise, not silently no-op
+        return cls.from_scored_index(index, **kwargs)
+    # mode="auto": keep only the kwargs the chosen engine understands, so
+    # engine-specific options (e.g. the sparse engine's hot_tokens) compose
+    params = inspect.signature(cls.from_scored_index).parameters
+    return cls.from_scored_index(
+        index, **{k: v for k, v in kwargs.items() if k in params})
 
-    mode: "auto" / "sparse" build ``SparseEngine`` (``auto`` picks it for
-    every index until DenseEngine is ported, ROADMAP A7); "dense",
-    "sharded" and "sharded_sparse" raise ``NotImplementedError``.  Extra
-    kwargs pass through to ``SparseEngine.from_scored_index`` and an
-    unknown one raises.
+
+def create_engine(
+    index: ScoredIndex,
+    mode: str = "auto",
+    dense_budget_bytes: int | None = None,
+    **kwargs,
+):
+    """Build the device engine for this index.
+
+    mode: "auto" / "dense" / "sparse"; "sharded" and "sharded_sparse"
+    raise ``NotImplementedError`` (not ported yet, ROADMAP A14).  Extra
+    kwargs pass through to the chosen engine's ``from_scored_index``.
+    Under mode="auto" kwargs the chosen engine doesn't take are dropped;
+    explicit modes keep strict kwargs and raise on unknown options.
+
+    ``mode="auto"`` picks ``DenseEngine`` when its real table, (V+1
+    rounded to 8) x ``doc_pad(D)`` x the dtype's size, fits
+    ``dense_budget_bytes``: by default half of the session device's
+    memory, capped by a ``max_bytes`` kwarg, and forwarded as the dense
+    engine's ``max_bytes``.
     """
-    if mode in ("auto", "sparse"):
-        return SparseEngine.from_scored_index(index, **kwargs)
-    if mode == "dense":
-        raise NotImplementedError("DenseEngine is not ported yet (ROADMAP A7)")
     if mode in ("sharded", "sharded_sparse"):
         raise NotImplementedError(
             f"mode={mode!r}: the sharded engines are not ported yet "
             "(ROADMAP A14)")
-    raise ValueError(f"unknown engine mode {mode!r}")
+    if mode == "dense":
+        return _build(DenseEngine, index, kwargs, filter_kwargs=False)
+    if mode == "sparse":
+        return _build(SparseEngine, index, kwargs, filter_kwargs=False)
+    if mode != "auto":
+        raise ValueError(f"unknown engine mode {mode!r}")
+
+    if dense_budget_bytes is None:
+        session = kwargs.get("session") or get_session()
+        dense_budget_bytes = device_hbm_bytes(session.device) // 2
+    # a user's max_bytes is a hard cap on the dense engine: the decision
+    # respects it, or auto would pick dense and then fail on its MemoryError
+    if kwargs.get("max_bytes") is not None:
+        dense_budget_bytes = min(dense_budget_bytes, kwargs["max_bytes"])
+    need = table_bytes(index.vocab_size, index.num_docs,
+                       kwargs.get("dtype") or "float32")
+    if need <= dense_budget_bytes:
+        kw = dict(kwargs)
+        kw["max_bytes"] = dense_budget_bytes
+        return _build(DenseEngine, index, kw, filter_kwargs=True)
+    return _build(SparseEngine, index, kwargs, filter_kwargs=True)

@@ -19,9 +19,11 @@ rows are in doc-id order and every merge is stable.
 The host layout (``build_ell_buckets_from_csr``, ``split_hot_cold_csr``,
 ``hot_ell_for_rows``, ``_filter_csr``) is copied function for function from
 the JAX package, which cannot be imported without JAX, so that both
-engines build bit-equal arrays.  This slice serves unweighted, unmasked
+engines build bit-equal arrays.  This engine serves unweighted, unmasked
 queries through the ELL and hot tiers; weights, doc masks, dedup, the tail
 tier, cold-width routing and the layout cost model are ROADMAP items.
+``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
+other copied helpers; only ``DenseEngine`` uses it so far.
 """
 
 from __future__ import annotations
@@ -295,6 +297,24 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
         return -neg[:, :kk] + qoff[:, None], docs.to(torch.int32)
 
     return step
+
+
+def prepare_doc_mask(doc_mask, num_docs: int, session: Session):
+    """Validate and upload a (num_docs,) bool eligibility mask.
+
+    A tensor passes through (moved to the session's device if it is not
+    there: callers can upload a reused tenancy mask once); anything else
+    converts to bool and uploads per call.
+    """
+    if isinstance(doc_mask, torch.Tensor):
+        if tuple(doc_mask.shape) != (num_docs,):
+            raise ValueError(
+                f"doc_mask shape {tuple(doc_mask.shape)} != ({num_docs},)")
+        return doc_mask.to(session.device, torch.bool)
+    m = np.asarray(doc_mask)
+    if m.shape != (num_docs,):
+        raise ValueError(f"doc_mask shape {m.shape} != ({num_docs},)")
+    return session.put(np.ascontiguousarray(m.astype(bool)))
 
 
 def plan_query_dispatch(queries: np.ndarray, max_q: int,

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -64,6 +65,13 @@ def build(name: str) -> str:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all(names) -> dict[str, str]:
+    """``build`` for several sources at once, one nvcc process each, all
+    started together; returns {name: library path}."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 @functools.cache

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
 CUDA device, ``nvcc`` and the repository's sources; it imports no JAX.
@@ -7,20 +7,40 @@ CUDA device, ``nvcc`` and the repository's sources; it imports no JAX.
 Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. environment: the card's name and power limit;
-2. build: the CUDA kernels compile from ``bm25_tpu_torch/csrc``;
+2. build: every CUDA kernel compiles from ``bm25_tpu_torch/csrc``, one
+   nvcc per source, all started together;
 3. kernels vs their plain PyTorch twins on the card, at small edge-case
-   shapes (pad rows, pad/OOV ids, ragged Q, a bucket wider than 512 slots,
-   with and without the hot tier, with and without per-token weights): the
-   ELL-only base bit-equal, hot results within 2e-5 * max(1, |row max|);
-4. main path: ``SparseEngine`` at the benchmark shape (524,288 docs,
-   32,768-token Zipf vocabulary, hot_tokens=1024, 2 buckets) built and
-   searched with 512 queries of 8 tokens at k=1000 and k=100, checked
+   shapes: B1/B2 (pad rows, pad/OOV ids, ragged Q, a bucket wider than 512
+   slots, with and without the hot tier and per-token weights: the
+   ELL-only base bit-equal, hot results within 2e-5 * max(1, |row max|));
+   B3 (empty grids, ragged D, bf16, weights, duplicate ids: bit-equal);
+   B4 (ties inside and across chunks, -inf rows, k = N, a ragged last
+   chunk, a merge in two passes, k wider than a stage-1 chunk (the tree,
+   counted), largest=False: values and indices equal to the twin and the
+   tree); B5 (membership, determinism per seed, greedy
+   at temperature -> 0, the twin's choices up to float noise in z);
+4. sparse main path: ``SparseEngine`` at the benchmark shape (524,288
+   docs, 32,768-token Zipf vocabulary, hot_tokens=1024, 2 buckets) built
+   and searched with 512 queries of 8 tokens at k=1000 and k=100, checked
    against ``ReferenceEngine`` under the fuzz campaign's comparator, with
-   every kernel's launch count taken over this phase alone; then each
-   kernel against its twin at the main path's own shapes, both timed;
-5. library entry: ``Retriever`` over a small corpus with a port engine.
+   B1/B2's launch counts taken over this phase alone; then each kernel
+   against its twin at the main path's own shapes, both timed;
+5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
+   corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
+   at k=1000 and k=100, plus a weighted batch and a half-masked batch,
+   against ``ReferenceEngine``, with B3's launch count over this phase;
+   then 64 queries with ``scoring="matmul"`` while TF32 is allowed
+   process-wide, which must still match at the f32 tolerance;
+6. op-library main path: ``top_k(..., implementation="pallas")`` (B4) on
+   the dense step's (512, 131,072) masked scores at k=1000 and k=100, and
+   ``top_k_fused_sampling(..., implementation="pallas")`` (B5 on (512,
+   100) logits), with B4/B5's launch counts over this phase; then B3, B4
+   and B5 against their twins at these shapes, and B4 on (512, 524,288)
+   random scores at k=1000, all timed;
+7. library entry: ``Retriever`` over a small corpus with the engine
+   ``create_engine`` picks (dense).
 
-The last two lines are the kernels' JSON record and the card line from
+The last lines are the kernels' JSON record and the card line from
 nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
 """
 
@@ -36,18 +56,44 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = "bm25_tpu_torch/csrc/ell_score.cu"
+SOURCES = {
+    "ell_score_fused": "bm25_tpu_torch/csrc/ell_score.cu",
+    "ell_score": "bm25_tpu_torch/csrc/ell_score.cu",
+    "gather_add_rows": "bm25_tpu_torch/csrc/gather_rows.cu",
+    "top_k_two_stage": "bm25_tpu_torch/csrc/topk.cu",
+    "gumbel_choice": "bm25_tpu_torch/csrc/topk.cu",
+}
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
     "ell_score": "bm25_tpu/ops/ell_score.py:161",
+    "gather_add_rows": "bm25_tpu/ops/gather_rows.py:56",
+    "top_k_two_stage": "bm25_tpu/ops/topk.py:241",
+    "gumbel_choice": "bm25_tpu/ops/topk.py:620",
 }
 HOT_TOKENS = 1024
 MAX_BUCKETS = 2
 CHECKED_QUERIES = 64
+DENSE_DOCS = 131072  # the JAX bench's sharded_docs corpus
+SPARSE_DOCS = 524288  # BenchConfig's default corpus
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Phase:
+    """Logs a phase's wall seconds when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"[phase] {self.name}: {time.perf_counter() - self.t0:.1f} s")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -64,13 +110,19 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def reset(*counters) -> None:
+    for c in counters:
+        for name in c:
+            c[name] = 0
+
+
 def compare(torch, got, want, exact: bool, what: str) -> float:
     """Kernel output vs plain twin: bit-equal, or within 2e-5 x the row's
     largest |value| (at least 1); -inf positions must agree.  Returns the
     largest absolute difference over finite entries."""
-    if got.shape != want.shape:
-        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
-                             f"{tuple(want.shape)}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
     if exact:
         if not torch.equal(got, want):
             bad = (got != want).sum().item()
@@ -158,44 +210,142 @@ def phase_kernel_cases(torch, ops, split_bf16, dev) -> None:
             + (", B2 bit-equal" if l_pad else ""))
 
 
-def drive(torch, dev, cfg) -> dict:
-    """Phases 2-5 on device ``dev`` at the benchmark shape ``cfg``;
-    returns the kernels' record."""
-    from bm25_tpu_torch import (ReferenceEngine, Retriever, Session,
-                                Tokenizer, build_index, create_engine)
+def phase_gather_cases(torch, gr, dev) -> None:
+    """B3 vs its twin: empty grids, ragged D, bf16, weights, duplicates."""
+    rng = np.random.default_rng(1)
+    cases = [
+        # v, d, q, t, dtype, weighted
+        (50, 1024, 13, 8, torch.float32, False),
+        (50, 1024, 13, 8, torch.float32, True),
+        (50, 1001, 7, 5, torch.float32, False),  # ragged D: scalar path
+        (50, 1001, 7, 5, torch.float32, True),
+        (50, 2048, 9, 8, torch.bfloat16, False),
+        (50, 2048, 9, 8, torch.bfloat16, True),
+        (30, 333, 4, 3, torch.bfloat16, True),
+        (10, 512, 5, 0, torch.float32, False),  # T = 0: zeros
+        (10, 512, 0, 4, torch.float32, False),  # Q = 0: empty
+    ]
+    for v, d, q, t, dtype, weighted in cases:
+        table = torch.from_numpy(rng.standard_normal((v, d)).astype(
+            np.float32)).to(dtype).to(dev)
+        ids = rng.integers(0, v, (q, t)).astype(np.int32)
+        if q > 1 and t > 2:
+            ids[1, :3] = ids[1, 0]  # duplicate ids
+        ids = torch.from_numpy(ids).to(dev)
+        w = (torch.from_numpy(rng.uniform(-2.0, 3.0, (q, t)).astype(
+            np.float32)).to(dev) if weighted else None)
+        got = gr.gather_add_rows(table, ids, w)
+        compare(torch, got, gr.gather_add_rows_plain(table, ids, w), True,
+                f"B3 v={v} d={d} q={q} t={t}")
+        if t == 0 and got.any():
+            raise AssertionError("B3 with T=0 is not all zeros")
+        log(f"[kernels] B3 table ({v}, {d}) {str(dtype)[6:]} ids ({q}, {t})"
+            f"{' weighted' if weighted else ''}: bit-equal to twin")
+
+
+def phase_topk_cases(torch, tk, dev) -> None:
+    """B4 vs its twin and the tree: ties, -inf rows, tail chunks, k = N,
+    a merge in two passes, k wider than a stage-1 chunk (counted tree
+    calls), largest=False."""
+    rng = np.random.default_rng(2)
+    cases = [(5, 100, 7), (4, 16384, 100), (4, 16385, 64), (3, 40000, 16),
+             (6, 131072, 1000), (3, 300, 300), (2, 50000, 1),
+             (3, 131072, 7300)]
+    for b, n, k in cases:
+        x = rng.integers(0, 6, (b, n)).astype(np.float32)  # heavy ties
+        x[0] = -np.inf  # exhausted row
+        x[1, ::3] = -np.inf
+        if b > 2:
+            x[2, : n // 2] = -np.inf
+        x = torch.from_numpy(x).to(dev)
+        v, i = tk.top_k_two_stage(x, k)
+        for name, (wv, wi) in (("twin", tk.topk_two_stage_plain(x, k)),
+                               ("tree", tk.top_k_tree(x, k))):
+            compare(torch, v, wv, True, f"B4 ({b}, {n}) k={k} vs {name}")
+            compare(torch, i, wi, True, f"B4 idx ({b}, {n}) k={k} vs {name}")
+        if any(len(set(r)) != k for r in i.cpu().numpy().tolist()):
+            raise AssertionError(f"B4 ({b}, {n}) k={k}: repeated indices")
+        log(f"[kernels] B4 ({b}, {n}) k={k} (plan {tk.two_stage_plan(n, k)})"
+            ": equal to twin and tree, distinct indices")
+    x = torch.from_numpy(rng.standard_normal((4, 40000)).astype(
+        np.float32).round(1)).to(dev)
+    for k in (50, 6000, 14000):
+        tree_before = tk.tree_calls["top_k_two_stage"]
+        v, i = tk.top_k(x, k, largest=False, implementation="pallas")
+        tv, ti = tk.top_k(x, k, largest=False, implementation="tree")
+        compare(torch, v, tv, True, f"B4 largest=False k={k}")
+        compare(torch, i, ti, True, f"B4 idx largest=False k={k}")
+        beyond = tk.two_stage_plan(40000, k) is None
+        if tk.tree_calls["top_k_two_stage"] != tree_before + beyond:
+            raise AssertionError("B4's tree calls are not counted")
+        log(f"[kernels] B4 largest=False (4, 40000) k={k}: equal to the tree"
+            + (" (k wider than a stage-1 chunk: served by the tree, counted)"
+               if beyond else f" (plan {tk.two_stage_plan(40000, k)})"))
+
+
+def choice_err(torch, tk, logits, seed, got, want) -> float:
+    """|z(got) - z(want)| on the twin's z: 0 where the choices agree.
+    Choices may differ only where the top two z are within float noise
+    (1e-5 x max(1, |z|)): logf on the card vs torch.log."""
+    z = logits + tk.gumbel_noise_plain(seed, *logits.shape, logits.device)
+    zg = z.gather(1, got[:, None])[:, 0]
+    zw = z.gather(1, want[:, None])[:, 0]
+    diff = (zg - zw).abs()
+    if not bool((diff <= 1e-5 * zw.abs().clamp_min(1.0)).all()):
+        raise AssertionError(f"B5: choices differ beyond float noise "
+                             f"({int((got != want).sum())} rows)")
+    return float(diff.max().item())
+
+
+def phase_gumbel_cases(torch, tk, dev) -> None:
+    """B5: twin agreement, determinism per seed, membership, greedy."""
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((300, 100)).astype(
+        np.float32)).to(dev)
+    logits[0, 50:] = float("-inf")
+    for seed in (0, 1, 2**32 - 1):
+        got = tk.gumbel_choice(logits, seed)
+        if not torch.equal(got, tk.gumbel_choice(logits, seed)):
+            raise AssertionError("B5: same seed, different choices")
+        choice_err(torch, tk, logits, seed, got,
+                   tk.gumbel_choice_plain(logits, seed))
+        if int(got[0]) >= 50:
+            raise AssertionError("B5 chose a -inf column")
+    x = torch.from_numpy(rng.random((64, 2000), np.float32)).to(dev)
+    _, ti = tk.top_k_tree(x, 10)
+    gen = torch.Generator(device=dev)
+    _, s1 = tk.top_k_fused_sampling(x, 10, implementation="pallas",
+                                    generator=gen.manual_seed(7))
+    _, s2 = tk.top_k_fused_sampling(x, 10, implementation="pallas",
+                                    generator=gen.manual_seed(7))
+    if not torch.equal(s1, s2) or not bool((s1 == ti).any(dim=1).all()):
+        raise AssertionError("B5 sampling: not deterministic per seed, or "
+                             "a choice outside the top k")
+    _, greedy = tk.top_k_fused_sampling(x, 10, temperature=0.0,
+                                        implementation="pallas",
+                                        generator=gen)
+    if not torch.equal(greedy[:, 0], ti[:, 0]):
+        raise AssertionError("B5 at temperature 0 is not greedy")
+    log("[kernels] B5: twin's choices up to float noise, deterministic per "
+        "seed, members of the top k, greedy at temperature 0")
+
+
+def sparse_main(torch, dev, cfg, ops, session, record) -> None:
+    """Phase 4: the sparse engine at the benchmark shape."""
+    from bm25_tpu_torch import ReferenceEngine, create_engine
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
     from bm25_tpu_torch.models.sparse import (hot_counts_for,
                                               hot_ell_for_rows,
                                               split_hot_cold_csr)
-    from bm25_tpu_torch.ops import _build
-    from bm25_tpu_torch.ops import ell_score as ops
-    from bm25_tpu_torch.utils.counts import split_bf16
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
-    # 2. build
-    t0 = time.perf_counter()
-    lib_path = _build.build("ell_score")
-    build_s = time.perf_counter() - t0
-    log(f"[build] {os.path.relpath(lib_path, HERE)} in {build_s:.1f} s")
-    with open(lib_path[:-3] + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
-
-    # 3. kernels vs plain twins, edge cases
-    phase_kernel_cases(torch, ops, split_bf16, dev)
-
-    # 4. main path
     t0 = time.perf_counter()
     index = make_synthetic_index(cfg)
     queries = make_queries(cfg)[: cfg.batch]
-    log(f"[main] corpus {index.num_docs} docs, vocab {index.vocab_size}, "
+    log(f"[sparse] corpus {index.num_docs} docs, vocab {index.vocab_size}, "
         f"{index.nnz} postings ({time.perf_counter() - t0:.1f} s); "
         f"{len(queries)} queries x {queries.shape[1]} tokens")
-    session = Session(dev)
-    for name in ops.launches:
-        ops.launches[name] = 0
-        ops.plain_calls[name] = 0
+    reset(ops.launches, ops.plain_calls)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = create_engine(
@@ -207,35 +357,32 @@ def drive(torch, dev, cfg) -> dict:
     if engine.hot_h != HOT_TOKENS:
         raise AssertionError(f"hot_h {engine.hot_h} != {HOT_TOKENS}")
     widths = [tuple(b["tokT"].shape) for b in engine.buckets if "tokT" in b]
-    log(f"[main] engine built in {engine_s:.2f} s: hot_h={engine.hot_h}, "
+    log(f"[sparse] engine built in {engine_s:.2f} s: hot_h={engine.hot_h}, "
         f"buckets (L, rows) {widths}, device bytes {engine.device_bytes()}")
     ref = ReferenceEngine.from_scored_index(index)
-    step_ms = {}
     for k in (cfg.top_k, cfg.top_k2):
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
             docs, scores = engine.search(queries, top_k=k)  # synchronises
             times.append((time.perf_counter() - t0) * 1e3)
-        step_ms[k] = statistics.median(times)
         if docs.shape != (len(queries), k) or not np.isfinite(scores).all():
             raise AssertionError(f"k={k}: bad result {docs.shape}")
         od, os_ = ref.search(queries[:CHECKED_QUERIES], top_k=k)
         assert_matches_oracle(docs[:CHECKED_QUERIES],
                               scores[:CHECKED_QUERIES], od, os_)
-        log(f"[main] k={k}: {len(queries)}-query batch {step_ms[k]:.2f} ms "
-            f"median of 5 "
+        log(f"[sparse] k={k}: {len(queries)}-query batch "
+            f"{statistics.median(times):.2f} ms median of 5 "
             f"(runs {', '.join(f'{x:.2f}' for x in times)} ms); first "
             f"{CHECKED_QUERIES} queries match ReferenceEngine")
-    launches = dict(ops.launches)
-    plain = dict(ops.plain_calls)
-    log(f"[main] kernel launches {launches}, plain twin runs {plain}, "
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    log(f"[sparse] kernel launches {launches}, plain twin runs {plain}, "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
     if not all(launches.values()) or any(plain.values()):
-        raise AssertionError("the main path did not run every kernel, or "
+        raise AssertionError("the sparse path did not run every kernel, or "
                              "ran a plain twin")
 
-    # 4b. each kernel vs its twin at the main path's shapes: B1 on every
+    # each kernel vs its twin at the main path's shapes: B1 on every
     # bucket (its ms is the batch's total), B2 on bucket 0's hot ELL
     chunk = engine.plan_chunks(queries)[0][1]
     ids = session.put(chunk)
@@ -274,9 +421,211 @@ def drive(torch, dev, cfg) -> dict:
     log(f"[kernels] B2 at hot ids ({engine.hot_h}, 1) x hot ELL "
         f"{tuple(htok.shape)}: kernel {b2_ms:.3f} ms, plain "
         f"{b2_plain_ms:.3f} ms, bit-equal")
-    del engine
+    record["ell_score_fused"] = (launches["ell_score_fused"], b1_err, b1_ms,
+                                 b1_plain_ms)
+    record["ell_score"] = (launches["ell_score"], b2_err, b2_ms, b2_plain_ms)
 
-    # 5. library entry: Retriever over a small corpus with a port engine
+
+def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
+    """Phases 5 and 6: the dense engine, then the top-k op library on the
+    dense step's scores, then B3-B5 against their twins there."""
+    from bm25_tpu.eval import engine_device_bytes
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, create_engine,
+                                top_k)
+    from bm25_tpu_torch.bench import make_queries, make_synthetic_index
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    with Phase("5. dense main path"):
+        t0 = time.perf_counter()
+        index = make_synthetic_index(cfg)
+        queries = make_queries(cfg)[: cfg.batch]
+        rng = np.random.default_rng(4)
+        weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
+        doc_mask = rng.random(index.num_docs) < 0.5
+        log(f"[dense] corpus {index.num_docs} docs, vocab "
+            f"{index.vocab_size}, {index.nnz} postings "
+            f"({time.perf_counter() - t0:.1f} s); {len(queries)} queries x "
+            f"{queries.shape[1]} tokens")
+        reset(gr.launches, gr.plain_calls)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = create_engine(index, session=session)  # mode="auto"
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not isinstance(engine, DenseEngine):
+            raise AssertionError(f"auto picked {type(engine).__name__}, not "
+                                 "DenseEngine")
+        log(f"[dense] create_engine(mode='auto') picked DenseEngine in "
+            f"{build_s:.2f} s: table {tuple(engine.st.shape)} "
+            f"{engine.st.dtype}, engine_device_bytes "
+            f"{engine_device_bytes(engine)} B")
+        ref = ReferenceEngine.from_scored_index(index)
+        for k in (cfg.top_k, cfg.top_k2):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                docs, scores = engine.search(queries, top_k=k)
+                times.append((time.perf_counter() - t0) * 1e3)
+            if docs.shape != (len(queries), k) or \
+                    not np.isfinite(scores).all():
+                raise AssertionError(f"k={k}: bad result {docs.shape}")
+            assert_matches_oracle(
+                docs[:CHECKED_QUERIES], scores[:CHECKED_QUERIES],
+                *ref.search(queries[:CHECKED_QUERIES], top_k=k))
+            log(f"[dense] k={k}: {len(queries)}-query batch "
+                f"{statistics.median(times):.2f} ms median of 5 (runs "
+                f"{', '.join(f'{x:.2f}' for x in times)} ms); first "
+                f"{CHECKED_QUERIES} queries match ReferenceEngine")
+        sub = slice(0, CHECKED_QUERIES)
+        k = cfg.top_k
+        docs, scores = engine.search(queries, top_k=k, weights=weights)
+        assert_matches_oracle(docs[sub], scores[sub], *ref.search(
+            queries[sub], top_k=k, weights=weights[sub]))
+        docs, scores = engine.search(queries, top_k=k, doc_mask=doc_mask)
+        assert_matches_oracle(docs[sub], scores[sub], *ref.search(
+            queries[sub], top_k=k, doc_mask=doc_mask))
+        if not doc_mask[docs[docs >= 0]].all():
+            raise AssertionError("a masked doc was returned")
+        log(f"[dense] k={k}: a weighted batch and a half-masked batch "
+            f"({int(doc_mask.sum())} docs eligible) match ReferenceEngine")
+        b3_launches = gr.launches["gather_add_rows"]
+        log(f"[dense] B3 launches {b3_launches}, plain twin runs "
+            f"{gr.plain_calls['gather_add_rows']}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+        if b3_launches == 0 or gr.plain_calls["gather_add_rows"]:
+            raise AssertionError("the dense path did not run B3, or ran its "
+                                 "plain twin")
+
+        # matmul scoring while TF32 is allowed process-wide: the step pins
+        # its product to full f32 and leaves the setting as it found it
+        matmul = torch.backends.cuda.matmul
+        engine.scoring = "matmul"
+        matmul.allow_tf32 = True
+        try:
+            t0 = time.perf_counter()
+            docs, scores = engine.search(queries[sub], top_k=k)
+            mm_ms = (time.perf_counter() - t0) * 1e3
+            left_on = matmul.allow_tf32
+        finally:
+            matmul.allow_tf32 = False
+            engine.scoring = "gather"
+        assert_matches_oracle(docs, scores,
+                              *ref.search(queries[sub], top_k=k))
+        if not left_on:
+            raise AssertionError("matmul scoring did not restore TF32")
+        log(f"[dense] k={k}: scoring='matmul' with TF32 allowed, "
+            f"{CHECKED_QUERIES} queries in {mm_ms:.2f} ms (first run), "
+            "match ReferenceEngine at the f32 tolerance; TF32 setting "
+            "restored")
+
+    # the dense step's masked scores, the op library's input
+    ids = session.put(queries)
+    st = engine.st
+    safe = torch.where(ids >= 0, ids, st.shape[0] - 1).to(torch.int32)
+    scores = gr.gather_add_rows(st, safe)
+    elig = torch.arange(st.shape[1], device=dev) < index.num_docs
+    masked = torch.where(elig, scores, float("-inf"))
+
+    with Phase("6. op-library main path"):
+        reset(tk.launches, tk.plain_calls, tk.tree_calls)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        picked = {}
+        for k in (cfg.top_k, cfg.top_k2):
+            picked[k] = top_k(masked, k, implementation="pallas")
+        vals, sampled = tk.top_k_fused_sampling(
+            masked, cfg.top_k2, implementation="pallas", generator=gen)
+        torch.cuda.synchronize()
+        op_launches = {n: tk.launches[n] for n in tk.launches}
+        log(f"[ops] top_k(pallas) at k={cfg.top_k} and k={cfg.top_k2} and "
+            f"top_k_fused_sampling(pallas) at k={cfg.top_k2}: launches "
+            f"{op_launches}, plain twin runs {tk.plain_calls}, tree calls "
+            f"{tk.tree_calls}")
+        if not all(op_launches.values()) or any(tk.plain_calls.values()) \
+                or tk.tree_calls["top_k_two_stage"]:
+            raise AssertionError("the op library did not run B4 and B5 on "
+                                 "the card")
+        for k, (v, i) in picked.items():
+            tv, ti = tk.select_top_k(masked, k)
+            compare(torch, v, tv, True, f"B4 k={k} vs select_top_k")
+            compare(torch, i, ti, True, f"B4 idx k={k} vs select_top_k")
+        if not bool((sampled == picked[cfg.top_k2][1]).any(dim=1).all()):
+            raise AssertionError("a sampled doc is outside the top k")
+        log(f"[ops] B4 equals select_top_k in values and indices at both "
+            "k; every sample is a top-k doc")
+
+    with Phase("6b. kernels vs twins at the main path's shapes"):
+        w = session.put(weights)
+        compare(torch, gr.gather_add_rows(st, safe),
+                gr.gather_add_rows_plain(st, safe), True, "B3, main shape")
+        compare(torch, gr.gather_add_rows(st, safe, w),
+                gr.gather_add_rows_plain(st, safe, w), True,
+                "B3 weighted, main shape")
+        b3_ms = cuda_ms(torch, lambda: gr.gather_add_rows(st, safe), 20)
+        b3w_ms = cuda_ms(torch, lambda: gr.gather_add_rows(st, safe, w), 20)
+        b3_plain_ms = cuda_ms(torch, lambda: gr.gather_add_rows_plain(st,
+                                                                     safe), 5)
+        moved = ids.numel() * st.shape[1] * 4 + scores.numel() * 4
+        log(f"[kernels] B3 at ids {tuple(ids.shape)} x table "
+            f"{tuple(st.shape)}: kernel {b3_ms:.3f} ms ({moved / b3_ms / 1e6:.0f}"
+            f" GB/s of {moved} B), weighted {b3w_ms:.3f} ms, plain "
+            f"{b3_plain_ms:.3f} ms; bit-equal (both)")
+        b4 = {}
+        for k in (cfg.top_k, cfg.top_k2):
+            pv, pi = tk.topk_two_stage_plain(masked, k)
+            kv, ki = tk.top_k_two_stage(masked, k)
+            err = compare(torch, kv, pv, True, f"B4 k={k} vs twin")
+            compare(torch, ki, pi, True, f"B4 idx k={k} vs twin")
+            ms = cuda_ms(torch, lambda: tk.top_k_two_stage(masked, k), 5)
+            tree_ms = cuda_ms(torch, lambda: tk.select_top_k(masked, k), 5)
+            plain_ms = cuda_ms(torch, lambda: tk.topk_two_stage_plain(masked,
+                                                                      k), 1)
+            b4[k] = (err, ms, plain_ms)
+            log(f"[kernels] B4 at ({masked.shape[0]}, {masked.shape[1]}) "
+                f"k={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, tree "
+                f"(select_top_k) {tree_ms:.3f} ms; equal to the twin")
+        # B4 at the sparse corpus's width: 32 stage-1 chunks, and a merge
+        # of 32,000 candidates in one block
+        k = cfg.top_k
+        wide = torch.rand((masked.shape[0], SPARSE_DOCS), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+        kv, ki = tk.top_k_two_stage(wide, k)
+        for name, (wv, wi) in (("twin", tk.topk_two_stage_plain(wide, k)),
+                               ("tree", tk.select_top_k(wide, k))):
+            compare(torch, kv, wv, True, f"B4 wide k={k} vs {name}")
+            compare(torch, ki, wi, True, f"B4 wide idx k={k} vs {name}")
+        ms = cuda_ms(torch, lambda: tk.top_k_two_stage(wide, k), 3)
+        tree_ms = cuda_ms(torch, lambda: tk.select_top_k(wide, k), 3)
+        log(f"[kernels] B4 at ({wide.shape[0]}, {wide.shape[1]}) random "
+            f"k={k} (plan {tk.two_stage_plan(wide.shape[1], k)}): kernel "
+            f"{ms:.3f} ms, tree (select_top_k) {tree_ms:.3f} ms; equal to "
+            "the twin and the tree")
+        del wide, kv, ki
+        logits = (vals - vals[:, :1]).contiguous()
+        b5_err = choice_err(torch, tk, logits, 12345,
+                            tk.gumbel_choice(logits, 12345),
+                            tk.gumbel_choice_plain(logits, 12345))
+        b5_ms = cuda_ms(torch, lambda: tk.gumbel_choice(logits, 12345), 20)
+        b5_plain_ms = cuda_ms(torch, lambda: tk.gumbel_choice_plain(logits,
+                                                                    12345), 5)
+        log(f"[kernels] B5 at logits {tuple(logits.shape)}: kernel "
+            f"{b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, max z gap of "
+            f"differing choices {b5_err:.3e}")
+    record["gather_add_rows"] = (b3_launches, 0.0, b3_ms, b3_plain_ms)
+    record["top_k_two_stage"] = (op_launches["top_k_two_stage"],
+                                 *b4[cfg.top_k])
+    record["gumbel_choice"] = (op_launches["gumbel_choice"], b5_err, b5_ms,
+                               b5_plain_ms)
+
+
+def library_entry(session) -> None:
+    """Phase 7: Retriever over a small corpus with the engine the library
+    picks (``mode="auto"``: DenseEngine; hot_tokens is a sparse-only
+    option and is filtered out)."""
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Retriever,
+                                Tokenizer, build_index, create_engine)
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
     corpus = [
         "a cat is a feline and likes to purr",
         "a dog is the human's best friend and loves to play",
@@ -287,28 +636,65 @@ def drive(torch, dev, cfg) -> dict:
     ]
     tokenizer = Tokenizer(stemmer=None)  # the Snowball stemmer needs nltk
     small, _ = build_index(corpus, tokenizer=tokenizer)
-    retriever = Retriever(
-        index=small, tokenizer=tokenizer,
-        engine=create_engine(small, hot_tokens=4, session=session))
+    engine = create_engine(small, hot_tokens=4, session=session)
+    if not isinstance(engine, DenseEngine):
+        raise AssertionError(f"auto picked {type(engine).__name__}")
+    retriever = Retriever(index=small, tokenizer=tokenizer, engine=engine)
     texts = ["does the fish purr like a cat?", "lazy brown dog", "zebra"]
     docs, scores = retriever.retrieve(texts, k=3)
     od, os_ = ReferenceEngine.from_scored_index(small).search(
         tokenizer.tokenize_queries(texts, small.vocab), top_k=3)
     assert_matches_oracle(docs, scores, od, os_)
-    log(f"[library] Retriever: top docs {docs[:, 0].tolist()} scores "
+    log(f"[library] Retriever with create_engine's DenseEngine: top docs "
+        f"{docs[:, 0].tolist()} scores "
         f"{[round(float(s), 4) for s in scores[:, 0]]} match ReferenceEngine")
 
-    record = {"kernels": [
-        {"name": "ell_score_fused", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["ell_score_fused"],
-         "launches": launches["ell_score_fused"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms},
-        {"name": "ell_score", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES["ell_score"],
-         "launches": launches["ell_score"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms},
-    ]}
-    return record
+
+def drive(torch, dev) -> dict:
+    """Phases 2-7 on device ``dev``; returns the kernels' record."""
+    from bm25_tpu_torch import Session
+    from bm25_tpu_torch.bench import BenchConfig
+    from bm25_tpu_torch.ops import _build
+    from bm25_tpu_torch.ops import ell_score as ops
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.ops import topk as tk
+    from bm25_tpu_torch.utils.counts import split_bf16
+
+    with Phase("2. build"):
+        t0 = time.perf_counter()
+        libs = _build.build_all(["ell_score", "gather_rows", "topk"])
+        log(f"[build] {len(libs)} libraries in "
+            f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+        for name, path in libs.items():
+            log(f"[build] {os.path.relpath(path, HERE)}")
+            with open(path[:-3] + ".log") as f:
+                for line in f.read().splitlines():
+                    if "registers" in line or "spill" in line:
+                        log(f"[build] {name}: {line.strip()}")
+
+    with Phase("3. kernel edge cases"):
+        phase_kernel_cases(torch, ops, split_bf16, dev)
+        phase_gather_cases(torch, gr, dev)
+        phase_topk_cases(torch, tk, dev)
+        phase_gumbel_cases(torch, tk, dev)
+
+    session = Session(dev)
+    record = {}
+    with Phase("4. sparse main path"):
+        sparse_main(torch, dev, BenchConfig(), ops, session, record)
+        torch.cuda.empty_cache()
+    dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
+               record)
+    torch.cuda.empty_cache()
+    with Phase("7. library entry"):
+        library_entry(session)
+
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": record[name][0],
+         "max_abs_err": record[name][1], "ms": record[name][2],
+         "plain_ms": record[name][3]}
+        for name in SOURCES]}
 
 
 def main() -> int:
@@ -327,7 +713,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     import bm25_tpu_torch
-    from bm25_tpu_torch.bench import BenchConfig
 
     pkg_dir = os.path.dirname(os.path.abspath(bm25_tpu_torch.__file__))
     if os.path.dirname(pkg_dir) != HERE:
@@ -335,6 +720,7 @@ def main() -> int:
                            "this checkout")
 
     # 1. environment
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -344,7 +730,8 @@ def main() -> int:
         f"device {kind} count {torch.cuda.device_count()}")
     log(f"[env] nvidia-smi: {smi}")
 
-    record = drive(torch, torch.device("cuda"), BenchConfig())
+    record = drive(torch, torch.device("cuda"))
+    log(f"[phase] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

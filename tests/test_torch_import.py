@@ -23,19 +23,38 @@ BLOCKED_RUN = textwrap.dedent("""
 
     sys.meta_path.insert(0, BlockJax())
     import numpy as np
+    import torch
     import bm25_tpu_torch
-    from bm25_tpu_torch import ReferenceEngine, Session, create_engine
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Session,
+                                create_engine, custom, top_k)
     from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
+    from bm25_tpu_torch.entry import entry
+    from bm25_tpu_torch.models import dense
+    from bm25_tpu_torch.ops import gather_rows, registry, topk
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
+    cpu = Session("cpu")
     cfg = BenchConfig(num_docs=2000, vocab=300)
     index = make_synthetic_index(cfg)
-    engine = create_engine(index, session=Session("cpu"), hot_tokens=16,
-                           hot_budget_bytes=1 << 20, max_buckets=2)
+    ref = ReferenceEngine.from_scored_index(index)
     q = np.random.default_rng(0).integers(-1, 300, (6, 8))
-    assert_matches_oracle(*engine.search(q, top_k=25),
-                          *ReferenceEngine.from_scored_index(index).search(
-                              q, top_k=25))
+    engine = create_engine(index, mode="sparse", session=cpu, hot_tokens=16,
+                           hot_budget_bytes=1 << 20, max_buckets=2)
+    assert_matches_oracle(*engine.search(q, top_k=25), *ref.search(q, top_k=25))
+    engine = create_engine(index, session=cpu, dense_budget_bytes=1 << 30)
+    assert isinstance(engine, dense.DenseEngine)
+    assert_matches_oracle(*engine.search(q, top_k=25), *ref.search(q, top_k=25))
+    x = torch.rand((3, 500), generator=torch.Generator().manual_seed(0))
+    v, i = top_k(x, 5, implementation="pallas")
+    assert torch.equal(i, custom("top_k", x, 5)[1])
+    assert torch.equal(i, topk.top_k_blockwise(x, 5)[1])
+    _, s = topk.top_k_fused_sampling(x, 5, implementation="pallas",
+                                     generator=torch.Generator())
+    assert bool((s == i).any(dim=1).all())
+    assert "gather_add_rows" in registry.list_ops()
+    fn, args = entry(cpu)
+    assert fn(*args)[1].shape == (4, 8)
+    assert gather_rows.plain_calls["gather_add_rows"] > 0
     assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
     print("NO_JAX_OK")
 """)

@@ -1,0 +1,369 @@
+"""Port top-k op library (ops/topk.py) against the JAX one, on the CPU.
+
+B4's twin (``top_k(implementation="pallas")`` on CPU tensors) is held to
+the JAX Pallas kernel, run in interpret mode as the JAX package's own
+tests run it, on the golden cases of ``tests/test_ops_topk.py``: values
+and indices equal.  ``top_k`` and ``top_k_blockwise`` are held to JAX
+over axis, largest and integer dtypes.  B5's draws cannot match the TPU
+PRNG, so its twin is held to membership, determinism per seed, the
+sampling distribution (a chi-square test) and greedy choice as the
+temperature goes to 0.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy import stats
+
+from bm25_tpu.ops import topk as jax_topk
+from bm25_tpu_torch import custom, top_k
+from bm25_tpu_torch.ops import list_ops
+from bm25_tpu_torch.ops import topk as port
+
+NINF = float("-inf")
+
+
+def assert_same(got, want):
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def both(x, k, impl="pallas", **kw):
+    return (top_k(torch.from_numpy(x), k, implementation=impl, **kw),
+            jax_topk.top_k(jnp.asarray(x), k, implementation=impl, **kw))
+
+
+# -- B4's twin vs the JAX Pallas kernel (interpreted) --------------------------
+
+
+def golden_inputs():
+    rng = np.random.default_rng(0)
+    ties = rng.integers(0, 6, (4, 40000)).astype(np.float32)
+    ties[0] = NINF
+    ties[1, ::3] = NINF
+    lane = rng.normal(size=(4, 16384 * 3 + 100)).astype(np.float32)
+    dup = np.zeros((2, 40000), np.float32)
+    dup[:, [5, 20000, 39999]] = 3.0
+    return {
+        "arange": (np.arange(12, dtype=np.float32), 3),
+        "identical_33x33": (np.full((33, 33), 7.0, np.float32), 5),
+        "k_equals_axis": (np.array([3.0, 1.0, 2.0], np.float32), 3),
+        "rank5": (rng.random((2, 3, 2, 2, 6)).astype(np.float32), 2),
+        "two_stage_large_n": (rng.random((4, 40000)).astype(np.float32), 16),
+        "duplicates_across_blocks": (dup, 4),
+        "exhausted_rows": (np.array([[5.0, NINF, NINF, NINF],
+                                     [NINF, 7.0, 3.0, NINF]], np.float32), 3),
+        "multiblock_lane_padding": (lane, 16),
+        "ties_and_inf_rows": (ties, 40),
+        "negative_zero": (np.array([[0.0, -0.0, 1.0, -0.0, 0.0]],
+                                   np.float32), 4),
+        "nan_ranks_largest": (np.array([[1.0, np.nan, 3.0, np.nan, 2.0]],
+                                       np.float32), 4),
+    }
+
+
+GOLDEN = golden_inputs()
+
+
+@pytest.mark.parametrize("name", list(GOLDEN))
+def test_pallas_twin_matches_jax_pallas(name):
+    x, k = GOLDEN[name]
+    got, want = both(x, k)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_pallas_exhausted_rows_distinct_indices():
+    _, i = top_k(torch.from_numpy(GOLDEN["exhausted_rows"][0]), 3,
+                 implementation="pallas")
+    for row in i.numpy():
+        assert len(set(row.tolist())) == 3
+
+
+@pytest.mark.parametrize("largest", [True, False])
+@pytest.mark.parametrize("n,k", [(100, 7), (16385, 64), (40000, 16),
+                                 (20000, 300)])
+def test_pallas_twin_two_stage_vs_jax(n, k, largest):
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((3, n)).astype(np.float32).round(1)  # ties
+    x[0, : n // 2] = NINF
+    got, want = both(x, k, largest=largest)
+    assert_same(got, want)
+
+
+def test_pallas_k_beyond_one_block_takes_the_tree():
+    """k wider than a stage-1 chunk: the tree serves it (counted), as the
+    JAX wrapper hands k > chunk to its tree; indices stay distinct."""
+    x = np.full((4, 20000), NINF, np.float32)
+    x[:, :40] = np.random.default_rng(0).random((4, 40))
+    assert port.two_stage_plan(20000, 10001) is None
+    before = port.tree_calls["top_k_two_stage"]
+    v, i = top_k(torch.from_numpy(x), 10001, implementation="pallas")
+    assert port.tree_calls["top_k_two_stage"] == before + 1
+    for row in i.numpy():
+        assert len(set(row.tolist())) == 10001
+    lv, li = jax_topk.top_k(jnp.asarray(x), 10001, implementation="tree")
+    assert_same((v, i), (lv, li))
+
+
+def test_two_stage_plan_and_twin_agree_with_tree():
+    assert port.two_stage_plan(16384, 16384) == [16384]
+    assert port.two_stage_plan(16385, 64) == [8193, 128]
+    assert port.two_stage_plan(131072, 1000) == [16384, 8000]
+    assert port.two_stage_plan(131072, 2049) == [16384, 16392]
+    assert port.two_stage_plan(524288, 1000) == [16384, 32000]
+    # more candidates than one merge block: merged in passes
+    assert port.two_stage_plan(131072, 7300) == [16384, 29200, 14600]
+    assert port.two_stage_plan(524288, 16384) == [16384, 52429, 54614,
+                                                  49152]
+    assert port.two_stage_plan(131072, 16385) is None
+    x = np.random.default_rng(1).integers(0, 4, (5, 131072)).astype(
+        np.float32)
+    x[0] = NINF
+    got = port.topk_two_stage_plain(torch.from_numpy(x), 100)
+    assert_same(got, jax_topk.top_k_tree(jnp.asarray(x), 100))
+    with pytest.raises(ValueError, match="wider than a chunk"):
+        port.topk_two_stage_plain(torch.from_numpy(x), 16385)
+
+
+def test_multipass_merge_equals_tree_at_full_width():
+    """7,300 of 131,072: 8 x 7,300 candidates exceed one merge block, so
+    the twin merges in two passes; the result is the tree's."""
+    rng = np.random.default_rng(12)
+    x = rng.integers(0, 50, (2, 131072)).astype(np.float32)  # heavy ties
+    x[1, 5000:] = NINF  # fewer finite values than k
+    got = port.topk_two_stage_plain(torch.from_numpy(x), 7300)
+    assert_same(got, jax_topk.top_k_tree(jnp.asarray(x), 7300))
+    assert len(set(got[1][1].tolist())) == 7300
+
+
+@pytest.mark.parametrize("largest", [True, False])
+def test_multipass_merge_matches_jax_pallas(monkeypatch, largest):
+    """Narrow chunks force four passes (a ragged last stage-1 chunk
+    narrower than k included); the answer is the JAX kernel's."""
+    monkeypatch.setattr(port, "STAGE1_LEN", 64)
+    monkeypatch.setattr(port, "MERGE_LEN", 256)
+    assert port.two_stage_plan(5000, 40) == [64, 244, 174, 120]
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((4, 5000)).astype(np.float32).round(1)  # ties
+    x[0] = NINF
+    x[1, 30:] = NINF
+    x[2, ::7] = np.inf
+    got, want = both(x, 40, largest=largest)
+    assert_same(got, want)
+
+
+def test_order_key_is_the_float_order():
+    vals = np.array([NINF, -3.5, -1e-40, -0.0, 0.0, 1e-40, 2.0, np.inf,
+                     np.nan], np.float32)
+    keys = port.order_key(torch.from_numpy(vals)).numpy()
+    assert (keys > 0).all()
+    assert (np.diff(keys[:3]) > 0).all() and keys[3] == keys[4]
+    assert (np.diff(keys[4:]) > 0).all()
+
+
+def test_pallas_rejects_int_inputs():
+    with pytest.raises(TypeError, match="float"):
+        top_k(torch.arange(64, dtype=torch.int32)[None, :], 4,
+              implementation="pallas")
+
+
+def test_pallas_bf16_input_is_exact():
+    x = np.random.default_rng(2).standard_normal((3, 5000)).astype(np.float32)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    v, i = top_k(xt, 50, implementation="pallas")
+    tv, ti = top_k(xt, 50, implementation="tree")
+    assert v.dtype == torch.bfloat16
+    assert torch.equal(v, tv) and torch.equal(i, ti)
+
+
+# -- the public dispatcher vs JAX ------------------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["auto", "lax", "tree"])
+@pytest.mark.parametrize("axis", [0, 1, -1])
+@pytest.mark.parametrize("largest", [True, False])
+def test_top_k_matches_jax_over_axis_and_largest(impl, axis, largest):
+    rng = np.random.default_rng(5)
+    x = rng.integers(0, 9, (7, 30, 11)).astype(np.float32)
+    got, want = both(x, 4, impl, axis=axis, largest=largest)
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int16, np.uint8, np.int8])
+@pytest.mark.parametrize("largest", [True, False])
+def test_top_k_int_dtypes_match_jax(dtype, largest):
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(6)
+    x = rng.integers(info.min, info.max, (3, 5001), dtype=dtype,
+                     endpoint=True)
+    x[0, :5] = info.min
+    x[1, :5] = info.max
+    v, i = top_k(torch.from_numpy(x), 7, largest=largest)
+    want_v, want_i = jax_topk.top_k(jnp.asarray(x), 7, largest=largest,
+                                    implementation="tree")
+    np.testing.assert_array_equal(v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+    assert v.dtype == torch.from_numpy(x).dtype
+
+
+def test_top_k_bool_matches_jax():
+    x = np.zeros((2, 5001), dtype=bool)
+    x[0, [7, 4999]] = True
+    x[1, 0] = True
+    for largest in (True, False):
+        v, i = top_k(torch.from_numpy(x), 3, largest=largest)
+        want = jax_topk.top_k(jnp.asarray(x), 3, largest=largest)
+        assert v.dtype == torch.bool
+        assert_same((v, i), want)
+
+
+def test_top_k_validates():
+    with pytest.raises(ValueError, match="out of range"):
+        top_k(torch.zeros(4), 5)
+    with pytest.raises(ValueError, match="unknown implementation"):
+        top_k(torch.zeros(4), 2, implementation="nope")
+
+
+@pytest.mark.parametrize("n,k,block", [(50000, 50, 256), (30000, 40, 128),
+                                       (1000, 100, 128), (33333, 20, 256),
+                                       (20000, 10, None)])
+def test_top_k_blockwise_matches_jax(n, k, block):
+    rng = np.random.default_rng(n)
+    x = rng.choice([0.0, 1.0, 2.0], size=(4, n)).astype(np.float32)
+    got = port.top_k_blockwise(torch.from_numpy(x), k, block=block)
+    want = jax_topk.top_k_blockwise(jnp.asarray(x), k, block=block)
+    assert_same(got, want)
+
+
+def test_top_k_blockwise_int_matches_jax():
+    x = np.random.default_rng(3).integers(-1000, 1000, (3, 20001),
+                                          dtype=np.int32)
+    got = port.top_k_blockwise(torch.from_numpy(x), 25, block=128)
+    want = jax_topk.top_k_blockwise(jnp.asarray(x), 25, block=128)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_registry_resolves_by_device_and_names_targets():
+    for name in ("top_k", "top_k_blockwise", "top_k_fused_sampling",
+                 "gather_add_rows"):
+        assert name in list_ops()
+    x = torch.from_numpy(np.random.default_rng(4).random((3, 50),
+                                                          np.float32))
+    assert_same(custom("top_k", x, 5, implementation="pallas"),
+                top_k(x, 5))
+    assert_same(custom("top_k", x, 5, target="cuda"), top_k(x, 5))
+    with pytest.raises(ValueError, match="target"):
+        custom("top_k", [1.0, 2.0], 1)
+
+
+def test_registry_per_target_implementations():
+    from bm25_tpu_torch.ops import get_op, register_op
+
+    @register_op("test_torch_triple", target="cpu")
+    def _triple(x):
+        return x * 3
+
+    assert custom("test_torch_triple", torch.ones(2)).tolist() == [3.0, 3.0]
+    with pytest.raises(KeyError, match="no implementation"):
+        get_op("test_torch_triple", "cuda")
+    with pytest.raises(KeyError, match="unknown op"):
+        get_op("never_registered", "cpu")
+    with pytest.raises(ValueError, match="duplicate"):
+        register_op("test_torch_triple", target="cpu")(_triple)
+
+
+# -- B5's twin and fused sampling ---------------------------------------------------
+
+
+def test_gumbel_noise_hash_matches_integer_reference():
+    """The twin's int64 hash equals a plain-Python uint32 hash."""
+    def mix(x):
+        x ^= x >> 16
+        x = (x * 0x7FEB352D) & 0xFFFFFFFF
+        x ^= x >> 15
+        x = (x * 0x846CA68B) & 0xFFFFFFFF
+        return x ^ (x >> 16)
+
+    for seed in (0, 7, 2**32 - 1):
+        g = port.gumbel_noise_plain(seed, 3, 5)
+        for r in range(3):
+            for c in range(5):
+                bits = mix(mix(mix(seed) ^ r) ^ c)
+                u = np.float32(bits >> 8) * np.float32(2**-24) \
+                    + np.float32(1e-12)
+                want = -np.log(-np.log(np.float32(u)))
+                assert abs(float(g[r, c]) - float(want)) <= 1e-5 * max(
+                    1.0, abs(float(want)))
+
+
+def test_gumbel_choice_deterministic_per_seed_and_seed_sensitive():
+    logits = torch.from_numpy(np.random.default_rng(9).random(
+        (32, 60), np.float32)) * 5
+    a = port.gumbel_choice(logits, 1)
+    assert torch.equal(a, port.gumbel_choice(logits, 1))
+    assert not torch.equal(a, port.gumbel_choice(logits, 2))
+    assert a.dtype == torch.int64 and a.shape == (32,)
+
+
+@pytest.mark.parametrize("impl", ["torch", "pallas"])
+def test_sampling_member_shapes_and_determinism(impl):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.random((6, 50)).astype(np.float32))
+    vals, s1 = port.top_k_fused_sampling(
+        x, 5, implementation=impl, generator=torch.Generator().manual_seed(1))
+    _, s2 = port.top_k_fused_sampling(
+        x, 5, implementation=impl, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(s1, s2) and s1.shape == (6, 1)
+    jv, _ = jax_topk.top_k_fused_sampling(jax.random.PRNGKey(1),
+                                          jnp.asarray(x.numpy()), k=5)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(jv))
+    _, ti = top_k(x, 5)
+    assert bool((s1 == ti).any(dim=1).all())
+    x3 = torch.from_numpy(rng.random((2, 20, 3)).astype(np.float32))
+    v3, s3 = port.top_k_fused_sampling(x3, 4, implementation=impl, axis=1)
+    assert v3.shape == (2, 4, 3) and s3.shape == (2, 1, 3)
+    _, i3 = top_k(x3, 4, axis=1)
+    assert bool((s3 == i3).any(dim=1).all())
+
+
+@pytest.mark.parametrize("impl", ["torch", "pallas"])
+def test_sampling_temperature_zero_is_greedy(impl):
+    x = np.random.default_rng(3).random((4, 30)).astype(np.float32)
+    _, s = port.top_k_fused_sampling(torch.from_numpy(x), 5, temperature=0.0,
+                                     implementation=impl,
+                                     generator=torch.Generator().manual_seed(7))
+    np.testing.assert_array_equal(s.numpy()[:, 0], np.argmax(x, axis=1))
+
+
+@pytest.mark.parametrize("impl", ["torch", "pallas"])
+def test_sampling_dominant_logit(impl):
+    x = np.zeros((8, 30), np.float32)
+    x[:, 7] = 50.0
+    _, s = port.top_k_fused_sampling(torch.from_numpy(x), 5,
+                                     implementation=impl,
+                                     generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(s.numpy()[:, 0], 7)
+
+
+@pytest.mark.parametrize("impl", ["torch", "pallas"])
+def test_sampling_distribution_chi_square(impl):
+    """20,000 draws over 5 logits follow softmax(logits / T)."""
+    logits = np.array([2.0, 1.5, 1.0, 0.0, -1.0], np.float32)
+    t = 0.8
+    x = torch.from_numpy(np.tile(logits, (20000, 1)))
+    _, s = port.top_k_fused_sampling(x, 5, temperature=t,
+                                     implementation=impl,
+                                     generator=torch.Generator().manual_seed(3))
+    counts = np.bincount(s.numpy()[:, 0], minlength=5)
+    p = np.exp(logits.astype(np.float64) / t)
+    p /= p.sum()
+    assert stats.chisquare(counts, p * counts.sum()).pvalue > 1e-3
+
+
+def test_sampling_rejects_unknown_implementation():
+    with pytest.raises(ValueError, match="unknown implementation"):
+        port.top_k_fused_sampling(torch.zeros((1, 4)), 2,
+                                  implementation="jax")

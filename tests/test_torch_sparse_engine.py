@@ -18,7 +18,7 @@ import bm25_tpu.models.sparse as jax_sparse
 from bm25_tpu.reference import ReferenceEngine
 from bm25_tpu.scoring import BM25Params, build_scored_index
 from bm25_tpu.text.tokenizer import Tokenizer
-from bm25_tpu_torch import Session, create_engine, load_index
+from bm25_tpu_torch import DenseEngine, Session, create_engine, load_index
 from bm25_tpu_torch.models import sparse as port_sparse
 from bm25_tpu_torch.models.sparse import SparseEngine
 from bm25_tpu_torch.utils.parity import assert_matches_oracle
@@ -187,8 +187,8 @@ def test_empty_batch_and_chunking(lucene_index):
 def test_all_hot_vocab_has_no_cold_bucket():
     """Every token hot: one identity bucket without ELL slots."""
     idx = build(5, "lucene", num_docs=600, vocab=40)
-    eng = create_engine(idx, session=CPU, hot_tokens=idx.vocab_size,
-                        hot_budget_bytes=1 << 24)
+    eng = create_engine(idx, mode="sparse", session=CPU,
+                        hot_tokens=idx.vocab_size, hot_budget_bytes=1 << 24)
     assert eng.hot_h == idx.vocab_size
     assert [sorted(b) for b in eng.buckets] == [["doc_ids", "hotLo", "hotT"]]
     q = np.random.default_rng(5).integers(-1, idx.vocab_size, (8, 4))
@@ -220,12 +220,21 @@ def test_unported_options_raise(lucene_index):
                                        hot_tokens="auto")
     with pytest.raises(ValueError, match="out of range"):
         eng.search(np.array([[lucene_index.vocab_size]]))
-    for mode in ("dense", "sharded", "sharded_sparse"):
+    for mode in ("sharded", "sharded_sparse"):
         with pytest.raises(NotImplementedError):
             create_engine(lucene_index, mode=mode, session=CPU)
     with pytest.raises(ValueError, match="unknown engine mode"):
         create_engine(lucene_index, mode="nope", session=CPU)
-    assert isinstance(create_engine(lucene_index, session=CPU), SparseEngine)
+    # auto routes by the dense table's size: sparse past the budget, dense
+    # within it (the sparse-only hot_tokens is dropped there)
+    assert isinstance(create_engine(lucene_index, session=CPU,
+                                    dense_budget_bytes=1 << 10,
+                                    hot_tokens=4), SparseEngine)
+    assert isinstance(create_engine(lucene_index, session=CPU,
+                                    dense_budget_bytes=1 << 40,
+                                    hot_tokens=4), DenseEngine)
+    assert isinstance(create_engine(lucene_index, mode="dense", session=CPU),
+                      DenseEngine)
 
 
 def test_animal_corpus_end_to_end(animal_corpus):
@@ -233,7 +242,7 @@ def test_animal_corpus_end_to_end(animal_corpus):
     out = tok.tokenize_corpus(animal_corpus)
     idx = build_scored_index(out.ids, vocab_size=len(out.vocab),
                              vocab=out.vocab)
-    eng = create_engine(idx, session=CPU, hot_tokens=3)
+    eng = create_engine(idx, mode="sparse", session=CPU, hot_tokens=3)
     q = tok.tokenize_queries(["does the fish purr like a cat?"], out.vocab)
     docs, scores = eng.search(q, top_k=2)
     assert docs[0, 0] == 0
@@ -242,7 +251,7 @@ def test_animal_corpus_end_to_end(animal_corpus):
 
 def test_reference_index_end_to_end(reference_index_dir):
     idx = load_index(reference_index_dir)
-    eng = create_engine(idx, session=CPU, hot_tokens=4)
+    eng = create_engine(idx, mode="sparse", session=CPU, hot_tokens=4)
     q = Tokenizer().tokenize_queries(["does the fish purr like a cat?"],
                                      idx.vocab)
     docs, scores = eng.search(q, top_k=2)
