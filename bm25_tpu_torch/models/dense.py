@@ -27,7 +27,6 @@ and ``SparseEngine`` otherwise.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,7 +38,8 @@ from bm25_tpu.utils.validate import empty_results, validate_query_batch
 from bm25_tpu_torch.ops.gather_rows import doc_pad, gather_add_rows
 from bm25_tpu_torch.ops.topk import select_top_k
 from bm25_tpu_torch.models.sparse import device_hbm_bytes, prepare_doc_mask
-from bm25_tpu_torch.runtime.session import Session, get_session
+from bm25_tpu_torch.runtime.session import (Session, full_f32_matmul,
+                                             get_session)
 from bm25_tpu_torch.utils.counts import weighted_counts
 
 NEG_INF = float("-inf")
@@ -64,21 +64,6 @@ def table_bytes(vocab_size: int, num_docs: int, dtype=torch.float32) -> int:
     """Device bytes of the (V+1 rounded to 8) x doc_pad(D) table."""
     v_pad = next_multiple(vocab_size + 1, 8)
     return v_pad * doc_pad(num_docs) * table_dtype(dtype).itemsize
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """cuBLAS float32 products in full f32 inside the block, whatever the
-    process allowed (``allow_tf32``, ``set_float32_matmul_precision`` or
-    ``fp32_precision``); the caller's setting is restored on exit.  The
-    setting is process-wide while the block runs."""
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.fp32_precision
-    matmul.fp32_precision = "ieee"
-    try:
-        yield
-    finally:
-        matmul.fp32_precision = saved
 
 
 def make_query_step(num_docs: int, k: int, scoring: str = "gather"):

@@ -5,8 +5,11 @@ PyTorch counterpart of ``bm25_tpu/ops/registry.py``.  A target is a
 that serves every device (the built-in ops pick their kernel or plain
 twin from their tensors' device themselves).  ``custom(name, ...)``
 resolves the implementation for the target named with ``target=``, or
-else for the device of the first tensor argument; there is no default
-device to fall back on.
+else for the type of a ``device=`` parameter (a ``torch.device`` or a
+string, passed on to the op: the way to place an op with no tensor
+argument, such as ``arange``), or else for the device of the first
+tensor argument (or tensor in a list or tuple argument); there is no
+default device to fall back on.
 """
 
 from __future__ import annotations
@@ -63,15 +66,19 @@ def get_op(name: str, target: str) -> Callable:
 
 
 def _target_of(args, params) -> str:
+    if params.get("device") is not None:
+        return torch.device(params["device"]).type
     for x in (*args, *params.values()):
-        if isinstance(x, torch.Tensor):
-            return x.device.type
+        for t in (x if isinstance(x, (list, tuple)) else (x,)):
+            if isinstance(t, torch.Tensor):
+                return t.device.type
     raise ValueError("custom(): no tensor argument to take the target from; "
-                     "pass target=")
+                     "pass target= or device=")
 
 
 def custom(name: str, *args, target: str | None = None, **params):
-    """Invoke a registered op by name, for ``target`` or the device of the
+    """Invoke a registered op by name, for ``target``, else the type of the
+    ``device=`` parameter (passed on to the op), else the device of the
     first tensor argument."""
     if target is None:
         target = _target_of(args, params)

@@ -18,6 +18,9 @@ ties to the smaller index, distinct indices.  Indices are int64.
   on the CPU runs their plain twins (``topk_two_stage_plain``,
   ``gumbel_choice_plain``), which follow the kernels step for step.
 * ``top_k_blockwise`` and ``top_k_fused_sampling``.
+* ``union_group_select`` / ``gather_group_candidates``: one group
+  tournament across buckets, and the candidates of the won groups (plain
+  PyTorch on the tree, as in JAX; not wired into ``SparseEngine`` yet).
 
 NaN: the tree ranks NaN smallest, B4 (like the Pallas kernel) largest;
 callers mask non-finite scores first, as every engine does.
@@ -150,6 +153,60 @@ def top_k_tree_with_maxes(x2: torch.Tensor, maxes: torch.Tensor, k: int,
     if base is None:
         base = max(2 * k, 4096)
     return _tree_level(x2, k, branch, base, maxes=maxes)
+
+
+def union_group_select(gmaxes: list[torch.Tensor], k: int):
+    """One group tournament over every bucket's (Q, rows_b / branch) group
+    maxima, concatenated: ``(gpos, ok)``, the (Q, k) int64 winning group
+    positions in concatenated group space and a 0-d bool tensor.
+
+    ``ok`` is true when, for every query, the (k+1)-th group max is
+    strictly below the k-th (theta): then no doc outside the k selected
+    groups can reach the top k, even by a tie.  A tie straddling the k
+    boundary makes it false, and the caller must take the exact
+    per-bucket path.  ``ok`` stays on the device (nothing here syncs).
+    """
+    gm = torch.cat(list(gmaxes), dim=1)
+    gv, gpos = top_k_tree(gm, k + 1)
+    theta = gv[:, k - 1]
+    ok = torch.all(gv[:, k] < theta)
+    return gpos[:, :k], ok
+
+
+def gather_group_candidates(bases: list[torch.Tensor],
+                            dids: list[torch.Tensor], gpos: torch.Tensor,
+                            branch: int = 8):
+    """Flat (Q, k*branch) candidate (f32 values, int32 doc ids) of the won
+    groups: per bucket, (Q, rows_b) f32 scores (pads -inf) and (rows_b,)
+    int32 doc ids (-1 pads); ``gpos`` (Q, k) in concatenated group space.
+
+    Slots no bucket fills keep ``DOC_SENTINEL``; they and pad rows score
+    -inf, so one (score desc, doc asc) sort of the result gives the exact
+    top k under the smaller-doc-id tie contract.
+    """
+    q, k = gpos.shape
+    dev = gpos.device
+    vals = torch.full((q, k, branch), NEG_INF, dtype=torch.float32,
+                      device=dev)
+    docs = torch.full((q, k, branch), DOC_SENTINEL, dtype=torch.int32,
+                      device=dev)
+    off = 0
+    for base, did in zip(bases, dids):
+        gb = base.shape[1] // branch
+        b3 = base.reshape(q, gb, branch)
+        dg = did.reshape(gb, branch)
+        rel = gpos - off
+        in_b = ((rel >= 0) & (rel < gb))[:, :, None]
+        relc = rel.clamp(0, gb - 1)
+        v = torch.gather(b3, 1, relc[:, :, None].expand(q, k, branch))
+        vals = torch.where(in_b, v, vals)
+        docs = torch.where(in_b, dg[relc], docs)
+        off += gb
+    flat_v = vals.reshape(q, k * branch)
+    flat_d = docs.reshape(q, k * branch)
+    flat_v = torch.where((flat_d < 0) | (flat_d == DOC_SENTINEL), NEG_INF,
+                         flat_v)
+    return flat_v, flat_d
 
 
 # ---------------------------------------------------------------------------
@@ -504,5 +561,7 @@ register_op("top_k")(top_k)
 register_op("top_k_tree")(top_k_tree)
 register_op("select_top_k")(select_top_k)
 register_op("top_k_tree_with_maxes")(top_k_tree_with_maxes)
+register_op("union_group_select")(union_group_select)
+register_op("gather_group_candidates")(gather_group_candidates)
 register_op("top_k_blockwise")(top_k_blockwise)
 register_op("top_k_fused_sampling")(top_k_fused_sampling)

@@ -6,10 +6,15 @@ by itself: the default is ``"cuda"`` and it raises when CUDA is absent, so a
 run that was meant for the GPU cannot quietly measure the CPU.  CPU tests
 pass ``Session("cpu")`` explicitly.  PyTorch runs eagerly, so there is no
 compile cache to own.
+
+``full_f32_matmul`` is the one place that sets the precision of cuBLAS
+float32 products: the dense engine's matmul scoring and the op library's
+``matmul(algorithm="xla")`` run under it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -55,6 +60,21 @@ class Session:
         if x.dtype == torch.bfloat16:
             x = x.float()
         return x.detach().cpu().numpy()
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """cuBLAS float32 products in full f32 inside the block, whatever the
+    process allowed (``allow_tf32``, ``set_float32_matmul_precision`` or
+    ``fp32_precision``); the caller's setting is restored on exit.  The
+    setting is process-wide while the block runs."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = saved
 
 
 _default_session: Session | None = None

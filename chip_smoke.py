@@ -38,7 +38,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and B5 against their twins at these shapes, and B4 on (512, 524,288)
    random scores at k=1000, all timed;
 7. library entry: ``Retriever`` over a small corpus with the engine
-   ``create_engine`` picks (dense).
+   ``create_engine`` picks (dense);
+8. op library, matmul and the named ops: ``custom("matrix_multiplication",
+   ...)`` (B6) with ``algorithm="naive"``, ``"optimized"`` and ``"xla"`` at
+   the reference's 1028^3 in f32 and bf16, and ``bench_matmul()`` there
+   (its JSON on one line), with B6's launch counts over these calls; then
+   both kernels against their twin (bit-equal) and against ``"xla"``
+   (within ``2 K 2^-24 (|A| @ |B|)``, plus one bf16 ulp for bf16), all
+   timed; ``"optimized"`` at 4096^3 f32 against ``"xla"``; B6 edge cases
+   (ragged M, N and K, 1 x 1 x 1, empty M or N, K = 0, bf16, every tile
+   override, the analytic corner case, which is exact); and each
+   gather/scatter/shape/union op through ``custom`` on CUDA tensors, equal
+   to the same call on CPU tensors.
 
 The last lines are the kernels' JSON record and the card line from
 nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
@@ -46,6 +57,7 @@ nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import statistics
@@ -62,6 +74,8 @@ SOURCES = {
     "gather_add_rows": "bm25_tpu_torch/csrc/gather_rows.cu",
     "top_k_two_stage": "bm25_tpu_torch/csrc/topk.cu",
     "gumbel_choice": "bm25_tpu_torch/csrc/topk.cu",
+    "matmul_naive": "bm25_tpu_torch/csrc/matmul.cu",
+    "matmul_tiled": "bm25_tpu_torch/csrc/matmul.cu",
 }
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
@@ -69,12 +83,16 @@ REPLACES = {
     "gather_add_rows": "bm25_tpu/ops/gather_rows.py:56",
     "top_k_two_stage": "bm25_tpu/ops/topk.py:241",
     "gumbel_choice": "bm25_tpu/ops/topk.py:620",
+    "matmul_naive": "bm25_tpu/ops/matmul.py:127",
+    "matmul_tiled": "bm25_tpu/ops/matmul.py:127",
 }
 HOT_TOKENS = 1024
 MAX_BUCKETS = 2
 CHECKED_QUERIES = 64
 DENSE_DOCS = 131072  # the JAX bench's sharded_docs corpus
 SPARSE_DOCS = 524288  # BenchConfig's default corpus
+MATMUL_N = 1028  # the reference's matmul benchmark: M = K = N
+MATMUL_BIG = 4096
 
 
 def log(msg: str) -> None:
@@ -650,19 +668,216 @@ def library_entry(session) -> None:
         f"{[round(float(s), 4) for s in scores[:, 0]]} match ReferenceEngine")
 
 
+def order_bound(torch, got, want, a, b) -> float:
+    """|got - want| within 2 K 2^-24 (|A| @ |B|) elementwise, plus one bf16
+    ulp of the result for bf16: two f32 sums of the same products in
+    different orders.  Returns the largest |got - want|."""
+    k = a.shape[1]
+    bound = 2 * k * 2.0**-24 * (a.abs().double() @ b.abs().double())
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(got.abs(), want.abs()).double().clamp_min(
+            2.0**-126)
+        bound += torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (got.double() - want.double()).abs()
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"B6 {tuple(a.shape)} @ {tuple(b.shape)} "
+                             f"{got.dtype}: |diff| beyond the order bound "
+                             f"(max excess {(diff - bound).max().item():.3e})")
+    return float(diff.max().item())
+
+
+def matmul_operands(torch, dev, m, k, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    return (torch.from_numpy(a).to(dev).to(dtype),
+            torch.from_numpy(b).to(dev).to(dtype))
+
+
+def matmul_main(torch, pm, dev, record) -> None:
+    """Phase 8, B6: the op library's entry point and the benchmark suite
+    at 1028^3 (launches counted over these calls alone), then each kernel
+    against its twin and against ``"xla"``, all timed, and 4096^3."""
+    from bm25_tpu_torch import custom
+    from bm25_tpu_torch.bench.matmul_bench import bench_matmul
+
+    n = MATMUL_N
+    flops = n * n * (2 * n - 1)
+    inputs = {dt: matmul_operands(torch, dev, n, n, n, dt, 5)
+              for dt in pm.DTYPES}
+    reset(pm.launches, pm.plain_calls)
+    outs = {(dt, algo): custom("matrix_multiplication", a, b,
+                               algorithm=algo)
+            for dt, (a, b) in inputs.items()
+            for algo in ("naive", "optimized", "xla")}
+    bench = bench_matmul(n, n, n, log=lambda *_: None, device=dev)
+    torch.cuda.synchronize()
+    launches, plain = dict(pm.launches), dict(pm.plain_calls)
+    log(f"[matmul] custom('matrix_multiplication') at {n}^3 f32 and bf16, "
+        f"each algorithm, and bench_matmul(): launches {launches}, plain "
+        f"twin runs {plain}")
+    if not all(launches.values()) or any(plain.values()):
+        raise AssertionError("the matmul path did not run both B6 kernels, "
+                             "or ran the plain twin")
+    log("[matmul] bench_matmul " + json.dumps(bench))
+
+    times = {}
+    for dt, (a, b) in inputs.items():
+        twin = pm.matmul_plain(a, b)
+        xla = outs[(dt, "xla")]
+        name = str(dt)[6:]
+        for algo in ("naive", "optimized"):
+            got = outs[(dt, algo)]
+            compare(torch, got, twin, True, f"B6 {algo} {n}^3 {name} vs twin")
+            err = order_bound(torch, got, xla, a, b)
+            ms = cuda_ms(torch, lambda: pm.matmul(a, b, algorithm=algo), 20)
+            times[(dt, algo)] = ms
+            log(f"[kernels] B6 {algo} at {n}^3 {name}: {ms:.4f} ms "
+                f"({flops / ms / 1e6:.1f} GFLOP/s); bit-equal to the twin, "
+                f"max |diff| vs xla {err:.3e} (within the order bound)")
+        xla_ms = cuda_ms(torch, lambda: pm.matmul(a, b, algorithm="xla"), 20)
+        plain_ms = cuda_ms(torch, lambda: pm.matmul_plain(a, b), 1)
+        times[(dt, "xla")], times[(dt, "plain")] = xla_ms, plain_ms
+        log(f"[kernels] B6 at {n}^3 {name}: xla (torch.matmul, full f32) "
+            f"{xla_ms:.4f} ms ({flops / xla_ms / 1e6:.1f} GFLOP/s), plain "
+            f"twin {plain_ms:.3f} ms")
+    del inputs, outs
+
+    big = MATMUL_BIG
+    a, b = matmul_operands(torch, dev, big, big, big, torch.float32, 6)
+    got = pm.matmul(a, b)
+    err = order_bound(torch, got, pm.matmul(a, b, algorithm="xla"), a, b)
+    ms = cuda_ms(torch, lambda: pm.matmul(a, b), 5)
+    xla_ms = cuda_ms(torch, lambda: pm.matmul(a, b, algorithm="xla"), 5)
+    big_flops = big * big * (2 * big - 1)
+    log(f"[kernels] B6 optimized at {big}^3 f32 (tile "
+        f"{tuple(pm.pick_tile(big, big, torch.float32))}): {ms:.3f} ms "
+        f"({big_flops / ms / 1e6:.1f} GFLOP/s), xla {xla_ms:.3f} ms "
+        f"({big_flops / xla_ms / 1e6:.1f} GFLOP/s); max |diff| vs xla "
+        f"{err:.3e} (within the order bound)")
+    del a, b, got
+    f32 = torch.float32
+    record["matmul_naive"] = (launches["matmul_naive"], 0.0,
+                              times[(f32, "naive")], times[(f32, "plain")])
+    record["matmul_tiled"] = (launches["matmul_tiled"], 0.0,
+                              times[(f32, "optimized")],
+                              times[(f32, "plain")])
+
+
+def phase_matmul_cases(torch, pm, dev) -> None:
+    """B6 edge cases: both kernels bit-equal to the twin at every tile
+    override, f32 and bf16, and the exact analytic corner case."""
+    shapes = [(67, 130, 200),  # the JAX test's ragged shape
+              (1, 1, 1),
+              (33, 13, 70),  # K off every K-step
+              (100, 64, 136),  # M, N off the tiles, 16-byte loads
+              (130, 24, 129),  # M, N off the tiles, scalar loads
+              (0, 5, 7), (5, 7, 0),  # empty M, empty N
+              (3, 0, 4)]  # K = 0: zeros
+    for m, k, n in shapes:
+        for dt in pm.DTYPES:
+            a, b = matmul_operands(torch, dev, m, k, n, dt, m + k + n)
+            want = pm.matmul_plain(a, b)
+            tiles = [("naive", {}), ("optimized", {}),
+                     *[("optimized", t._asdict()) for t in pm.TILES[dt]]]
+            for algo, kw in tiles:
+                kw = {f"tile_{d}": v for d, v in kw.items()}
+                compare(torch, pm.matmul(a, b, algorithm=algo, **kw), want,
+                        True, f"B6 {algo} {kw} ({m}, {k}, {n}) {dt}")
+        log(f"[kernels] B6 ({m}, {k}, {n}): both kernels bit-equal to the "
+            f"twin in f32 and bf16, the default and each tile of the dtype")
+    r = torch.arange(32, dtype=torch.float32, device=dev)
+    a = r[:, None] - r[None, :]
+    b = r[:, None] + r[None, :]
+    exact = a.double() @ b.double()
+    for algo in ("naive", "optimized"):
+        got = pm.matmul(a, b, algorithm=algo)
+        if not torch.equal(got.double(), exact):
+            raise AssertionError(f"B6 {algo}: analytic corner case inexact")
+    log("[kernels] B6 analytic corner case (a[r, c] = r - c, b[r, c] = "
+        "r + c, n = 32): both kernels equal a @ b exactly")
+
+
+def named_ops_cases(torch, dev) -> None:
+    """Each gather/scatter/shape/union op once through ``custom`` on CUDA
+    tensors, bit-equal (NaN fills included) to the call on CPU tensors."""
+    from bm25_tpu_torch import custom
+
+    rng = np.random.default_rng(7)
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x))
+
+    data = t(rng.standard_normal((6, 5)).astype(np.float32))
+    idx = t(rng.integers(-13, 13, (4, 3)))
+    col = t(rng.integers(-11, 11, (6, 1)))
+    nd = t(rng.integers(-8, 8, (7, 1)))
+    upd = t(rng.standard_normal((4, 3)).astype(np.float32))
+    ints = t(rng.integers(-9, 9, (6, 5)).astype(np.int32))
+    nd_upd = t(rng.standard_normal((7, 5)).astype(np.float32))
+    gmax = [t(rng.standard_normal((4, 16)).astype(np.float32))]
+    bases = [t(rng.standard_normal((4, 128)).astype(np.float32))]
+    dids = [t(np.arange(128, dtype=np.int32))]
+    calls = [
+        ("gather", (data, idx), {"axis": 1}),
+        ("gather_reduce", (data, idx), {"reduce_fn": "mean"}),
+        ("gather_reduce", (data, idx), {"reduce_fn": "max"}),
+        ("gather_elements", (data, col), {"axis": 1}),
+        ("gather_nd", (data, nd), {}),
+        ("scatter_elements", (data, idx, upd), {"reduction": "add"}),
+        ("scatter_elements", (data, idx, upd), {}),
+        ("scatter_elements", (data, idx, upd), {"reduction": "max"}),
+        ("scatter_elements", (ints, idx, ints[:4, :3]), {"reduction": "mul"}),
+        ("scatter_elements", (ints, idx, ints[:4, :3]), {"reduction": "min"}),
+        ("scatter_nd", (data, nd, nd_upd), {"reduction": "mul"}),
+        ("scatter_nd", (data, nd, nd_upd), {}),
+        ("reshape", (data, (-1, 3)), {}),
+        ("union_group_select", (gmax, 3), {}),
+        ("gather_group_candidates", (bases, dids, t(np.array(
+            [[0, 5], [15, 1], [2, 2], [9, 3]]))), {}),
+    ]
+
+    def to(x, d):
+        if isinstance(x, (list, tuple)):
+            return type(x)(to(y, d) for y in x)
+        return x.to(d) if isinstance(x, torch.Tensor) else x
+
+    def same(x, y, what):
+        for p, q in zip(x if isinstance(x, tuple) else (x,),
+                        y if isinstance(y, tuple) else (y,)):
+            if p.device.type != dev.type:
+                raise AssertionError(f"{what} did not run on {dev}")
+            torch.testing.assert_close(p.cpu(), q, rtol=0, atol=0,
+                                       equal_nan=True, msg=what)
+
+    for name, args, kw in calls:
+        same(custom(name, *to(args, dev), **kw), custom(name, *args, **kw),
+             name)
+    same(custom("arange", 0.0, 3.0, 0.1, dtype=torch.float32, device=dev),
+         custom("arange", 0.0, 3.0, 0.1, dtype=torch.float32, device="cpu"),
+         "arange")
+    log(f"[ops] {len(calls) + 1} named-op calls through custom() on CUDA "
+        "tensors (gather/scatter family, reshape, arange with device=, the "
+        "union ops) equal the same calls on CPU tensors")
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-7 on device ``dev``; returns the kernels' record."""
+    """Phases 2-8 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
-    from bm25_tpu_torch.ops import ell_score as ops
     from bm25_tpu_torch.ops import gather_rows as gr
     from bm25_tpu_torch.ops import topk as tk
     from bm25_tpu_torch.utils.counts import split_bf16
 
+    # bm25_tpu_torch.ops re-exports a function of each module's name
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    pm = importlib.import_module("bm25_tpu_torch.ops.matmul")
+
     with Phase("2. build"):
         t0 = time.perf_counter()
-        libs = _build.build_all(["ell_score", "gather_rows", "topk"])
+        libs = _build.build_all(["ell_score", "gather_rows", "topk",
+                                 "matmul"])
         log(f"[build] {len(libs)} libraries in "
             f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
         for name, path in libs.items():
@@ -688,6 +903,10 @@ def drive(torch, dev) -> dict:
     torch.cuda.empty_cache()
     with Phase("7. library entry"):
         library_entry(session)
+    with Phase("8. op library: matmul and the named ops"):
+        matmul_main(torch, pm, dev, record)
+        phase_matmul_cases(torch, pm, dev)
+        named_ops_cases(torch, dev)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -6,6 +6,8 @@ imports no JAX, so it also runs on a machine without it:
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -13,11 +15,14 @@ import torch
 from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Session,
                             create_engine)
 from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
-from bm25_tpu_torch.ops import ell_score as port
 from bm25_tpu_torch.ops import gather_rows as gr
 from bm25_tpu_torch.ops import topk as tk
 from bm25_tpu_torch.utils.counts import split_bf16
 from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+# bm25_tpu_torch.ops re-exports a function of each module's name
+port = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+pm = importlib.import_module("bm25_tpu_torch.ops.matmul")
 
 # q, t, rows, l_pad, vocab, h, pad_rows, weighted
 CASES = {
@@ -317,3 +322,130 @@ def test_cuda_matmul_scoring_is_full_f32_with_tf32_allowed(cuda_device):
         assert matmul.allow_tf32
     finally:
         matmul.allow_tf32 = saved
+
+
+# -- B6 matmul ---------------------------------------------------------------------
+
+# m, k, n: the JAX test's ragged shape, 1 x 1 x 1, K off the K-steps and M,
+# N off the tiles (scalar loads), aligned (16-byte loads), K = 1028
+MATMUL_SHAPES = [(67, 130, 200), (1, 1, 1), (33, 13, 70), (128, 64, 128),
+                 (300, 1028, 260), (3, 0, 4)]
+
+
+def matmul_tiles(dtype):
+    """(algorithm, tile arguments): each kernel's default and every tile
+    of ``dtype``."""
+    return [("naive", {}), ("optimized", {}),
+            *[("optimized", {"tile_m": t.m, "tile_n": t.n, "tile_k": t.k})
+              for t in pm.TILES[dtype]]]
+
+
+def matmul_operands(m, k, n, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    return (torch.from_numpy(a).to(dtype).to(dev),
+            torch.from_numpy(b).to(dtype).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+@pytest.mark.parametrize("m,k,n", MATMUL_SHAPES)
+def test_cuda_matmul_kernels_bit_equal_to_twin(cuda_device, m, k, n, dtype):
+    a, b = matmul_operands(m, k, n, dtype, cuda_device)
+    want = pm.matmul_plain(a, b)
+    plain = dict(pm.plain_calls)
+    for algo, tiles in matmul_tiles(dtype):
+        name = "matmul_naive" if algo == "naive" else "matmul_tiled"
+        before = pm.launches[name]
+        got = pm.matmul(a, b, algorithm=algo, **tiles)
+        assert pm.launches[name] == before + 1, (algo, tiles)
+        assert got.dtype == dtype and torch.equal(got, want), (algo, tiles)
+    assert pm.plain_calls == plain  # CUDA tensors never reach the twin
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_scalar_path_on_misaligned_pointers(cuda_device):
+    """K and N allow 16-byte loads, the pointers do not: the scalar
+    instantiation runs, with the same bits."""
+    for dtype in pm.DTYPES:
+        a, b = matmul_operands(96, 64, 80, dtype, cuda_device, seed=1)
+        flat = torch.empty(a.numel() + 1, dtype=dtype, device=cuda_device)
+        a_off = flat[1:].view(a.shape)
+        a_off.copy_(a)
+        assert a_off.is_contiguous() and a_off.data_ptr() % 16
+        assert torch.equal(pm.matmul(a_off, b), pm.matmul_plain(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_empty_and_checks(cuda_device):
+    for m, n in ((0, 5), (5, 0)):
+        a, b = matmul_operands(m, 7, n, torch.float32, cuda_device)
+        before = dict(pm.launches)
+        assert pm.matmul(a, b).shape == (m, n)
+        assert pm.launches == before  # nothing to launch
+    a, b = matmul_operands(4, 6, 8, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="is on"):
+        pm.matmul(a, b.cpu())
+    with pytest.raises(TypeError):
+        pm.matmul(a.half(), b.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        pm.matmul(a, b.T.contiguous().T)
+    with pytest.raises(ValueError, match="instantiation"):
+        pm.matmul(a, b, tile_k=32)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_xla_is_full_f32_with_tf32_allowed(cuda_device):
+    a, b = matmul_operands(256, 512, 192, torch.float32, cuda_device)
+    want = pm.matmul_plain(a, b)
+    bound = 2 * 512 * 2.0**-24 * (a.abs().double() @ b.abs().double())
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        got = pm.matmul(a, b, algorithm="xla")
+        assert matmul.allow_tf32
+    finally:
+        matmul.allow_tf32 = saved
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+# -- the named ops on CUDA tensors -----------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_named_ops_equal_cpu(cuda_device):
+    from bm25_tpu_torch import custom
+
+    rng = np.random.default_rng(5)
+    data = torch.from_numpy(rng.standard_normal((6, 5)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-13, 13, (4, 3)))
+    col = torch.from_numpy(rng.integers(-11, 11, (6, 1)))
+    nd = torch.from_numpy(rng.integers(-13, 13, (7, 1)))
+    upd = torch.from_numpy(rng.standard_normal((4, 3)).astype(np.float32))
+    nd_upd = torch.from_numpy(rng.standard_normal((7, 5)).astype(np.float32))
+    calls = [
+        ("gather", (data, idx), {"axis": 1}),
+        ("gather_reduce", (data, idx), {"reduce_fn": "mean"}),
+        ("gather_elements", (data, col), {"axis": 1}),
+        ("gather_nd", (data, nd), {}),
+        ("scatter_elements", (data, idx, upd), {"reduction": "add"}),
+        ("scatter_elements", (data, idx, upd), {}),
+        ("scatter_nd", (data, nd, nd_upd), {"reduction": "max"}),
+        ("scatter_nd", (data, nd, nd_upd), {}),
+        ("reshape", (data, (-1, 3)), {}),
+    ]
+    for name, args, kw in calls:
+        on_card = custom(name, *[a.to(cuda_device)
+                                 if isinstance(a, torch.Tensor) else a
+                                 for a in args], **kw)
+        assert on_card.device.type == "cuda", name
+        # bit-equal, NaN (an out-of-range gather's fill) included
+        torch.testing.assert_close(on_card.cpu(), custom(name, *args, **kw),
+                                   rtol=0, atol=0, equal_nan=True)
+    got = custom("arange", 0.0, 3.0, 0.1, dtype=torch.float32,
+                 device=cuda_device)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), custom("arange", 0.0, 3.0, 0.1,
+                                         dtype=torch.float32, device="cpu"))

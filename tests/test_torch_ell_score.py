@@ -15,9 +15,9 @@ import torch
 
 import jax.numpy as jnp
 
-from bm25_tpu_torch.ops import ell_score as port
-
-# bm25_tpu.ops re-exports a function of the module's name
+# bm25_tpu.ops and bm25_tpu_torch.ops re-export a function of the
+# module's name
+port = importlib.import_module("bm25_tpu_torch.ops.ell_score")
 jax_ell = importlib.import_module("bm25_tpu.ops.ell_score")
 
 # q, t, rows, l_pad, vocab, h, pad_rows, weighted

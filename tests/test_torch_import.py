@@ -28,9 +28,12 @@ BLOCKED_RUN = textwrap.dedent("""
     from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Session,
                                 create_engine, custom, top_k)
     from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
+    from bm25_tpu_torch.bench.matmul_bench import bench_matmul
     from bm25_tpu_torch.entry import entry
     from bm25_tpu_torch.models import dense
-    from bm25_tpu_torch.ops import gather_rows, registry, topk
+    from bm25_tpu_torch.ops import (gather_rows, gather_scatter, registry,
+                                    shape_ops, topk)
+    from bm25_tpu_torch.ops.matmul import launches, plain_calls
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     cpu = Session("cpu")
@@ -52,6 +55,19 @@ BLOCKED_RUN = textwrap.dedent("""
                                      generator=torch.Generator())
     assert bool((s == i).any(dim=1).all())
     assert "gather_add_rows" in registry.list_ops()
+    a = torch.rand((5, 7), generator=torch.Generator().manual_seed(1))
+    c = custom("matrix_multiplication", a, a.T.contiguous(), algorithm="naive")
+    assert c.shape == (5, 5) and plain_calls["matmul"] == 1
+    assert not any(launches.values())
+    assert len(bench_matmul(4, 4, 4, iters=1, device="cpu", log=len)) == 3
+    assert custom("arange", 4, device="cpu").tolist() == [0, 1, 2, 3]
+    assert custom("gather", a, torch.tensor([4, -1])).shape == (2, 7)
+    assert custom("scatter_nd", a, torch.tensor([[0]]),
+                  torch.ones(1, 7))[0].eq(1).all()
+    assert gather_scatter.gather_shape((5, 7), (2,)) == (2, 7)
+    assert shape_ops.reshape(a, (-1,)).shape == (35,)
+    gpos, ok = custom("union_group_select", [x], 2)
+    assert gpos.shape == (3, 2) and ok.dim() == 0
     fn, args = entry(cpu)
     assert fn(*args)[1].shape == (4, 8)
     assert gather_rows.plain_calls["gather_add_rows"] > 0
