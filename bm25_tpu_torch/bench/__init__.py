@@ -1,8 +1,9 @@
-"""The headline corpus and queries of ``bm25_tpu/bench/query_bench.py``
-(host-only numpy), for driving the port at the benchmark shape.  The
-benchmark harness itself is not ported yet (ROADMAP A4)."""
+"""The headline corpus and queries of the benchmark (``query_bench``, the
+port's copy of the host-only part of ``bm25_tpu/bench/query_bench.py``),
+for driving the port at the benchmark shape.  The benchmark harness itself
+is not ported yet (ROADMAP A4)."""
 
-from bm25_tpu.bench.query_bench import (BenchConfig, make_queries,
-                                        make_synthetic_index)
+from bm25_tpu_torch.bench.query_bench import (BenchConfig, make_queries,
+                                              make_synthetic_index)
 
 __all__ = ["BenchConfig", "make_queries", "make_synthetic_index"]

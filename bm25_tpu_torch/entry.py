@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bm25_tpu.scoring import build_scored_index
+from bm25_tpu_torch.scoring import build_scored_index
 from bm25_tpu_torch.models.dense import DenseEngine, make_query_step
 from bm25_tpu_torch.runtime.session import Session, get_session
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import inspect
 
-from bm25_tpu.scoring import ScoredIndex
+from bm25_tpu_torch.scoring import ScoredIndex
 from bm25_tpu_torch.models.dense import DenseEngine, table_bytes
 from bm25_tpu_torch.models.sparse import SparseEngine, device_hbm_bytes
 from bm25_tpu_torch.runtime.session import get_session

@@ -32,9 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bm25_tpu.scoring import ScoredIndex
-from bm25_tpu.utils.padding import next_multiple
-from bm25_tpu.utils.validate import empty_results, validate_query_batch
+from bm25_tpu_torch.scoring import ScoredIndex
+from bm25_tpu_torch.utils.padding import next_multiple
+from bm25_tpu_torch.utils.validate import empty_results, validate_query_batch
 from bm25_tpu_torch.ops.gather_rows import doc_pad, gather_add_rows
 from bm25_tpu_torch.ops.topk import select_top_k
 from bm25_tpu_torch.models.sparse import device_hbm_bytes, prepare_doc_mask

@@ -35,9 +35,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from bm25_tpu.scoring import ScoredIndex
-from bm25_tpu.utils.padding import next_multiple, next_pow2_at_least
-from bm25_tpu.utils.validate import empty_results, validate_query_batch
+from bm25_tpu_torch.scoring import ScoredIndex
+from bm25_tpu_torch.utils.padding import next_multiple, next_pow2_at_least
+from bm25_tpu_torch.utils.validate import empty_results, validate_query_batch
 from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, ell_score,
                                           ell_score_fused)
 from bm25_tpu_torch.ops.topk import select_top_k, top_k_tree_with_maxes

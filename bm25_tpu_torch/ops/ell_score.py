@@ -33,7 +33,7 @@ import functools
 
 import torch
 
-from bm25_tpu.utils.padding import cdiv, next_multiple
+from bm25_tpu_torch.utils.padding import cdiv, next_multiple
 from bm25_tpu_torch.ops import _build
 
 # bucket rows are padded to this multiple (the JAX engine's layout, kept

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from bm25_tpu.utils.padding import next_multiple
+from bm25_tpu_torch.utils.padding import next_multiple
 from bm25_tpu_torch.ops import _build
 from bm25_tpu_torch.ops.ell_score import _fma_f32
 from bm25_tpu_torch.ops.registry import register_op

@@ -37,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from bm25_tpu.utils.padding import cdiv
+from bm25_tpu_torch.utils.padding import cdiv
 from bm25_tpu_torch.ops import _build
 from bm25_tpu_torch.ops.ell_score import _fma_f32
 from bm25_tpu_torch.ops.registry import register_op

@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from bm25_tpu.utils.padding import cdiv, next_multiple
+from bm25_tpu_torch.utils.padding import cdiv, next_multiple
 from bm25_tpu_torch.ops import _build
 from bm25_tpu_torch.ops.registry import register_op
 

@@ -1,3 +1,2 @@
-"""Device-side helpers of the PyTorch port (the host helpers are
-``bm25_tpu.utils.padding`` and ``bm25_tpu.utils.validate``, used as they
-are)."""
+"""Helpers of the PyTorch port: shape padding and the query-batch contract
+(copies of ``bm25_tpu/utils``), device counts and the oracle comparator."""

@@ -38,7 +38,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and B5 against their twins at these shapes, and B4 on (512, 524,288)
    random scores at k=1000, all timed;
 7. library entry: ``Retriever`` over a small corpus with the engine
-   ``create_engine`` picks (dense);
+   ``create_engine`` picks (dense), then ``Retriever.fit`` building the
+   port's engine itself, both against ``ReferenceEngine``;
 8. op library, matmul and the named ops: ``custom("matrix_multiplication",
    ...)`` (B6) with ``algorithm="naive"``, ``"optimized"`` and ``"xla"`` at
    the reference's 1028^3 in f32 and bf16, and ``bench_matmul()`` there
@@ -49,9 +50,21 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (ragged M, N and K, 1 x 1 x 1, empty M or N, K = 0, bf16, every tile
    override, the analytic corner case, which is exact); and each
    gather/scatter/shape/union op through ``custom`` on CUDA tensors, equal
-   to the same call on CPU tensors.
+   to the same call on CPU tensors;
+9. selection gather (E5-E7): the three ``super_row_gather`` kernels
+   against their twin (bit-equal) at edge cases (rows 0 and R - 1, the
+   window clamped to R - W, duplicates, a span wider than the window so
+   the fallback tile runs and is counted, KP off a multiple of 32, H = 8
+   resident, and R < W and an H above the shared-memory limit, which must
+   raise); then ``gather_bench``'s three experiments at the scripts' shapes
+   (inputs from ``default_rng(0)``), with the kernels' launch counts over
+   these runs, each kernel timed beside its twin and ``torch.gather``.
 
-The last lines are the kernels' JSON record and the card line from
+After the last phase no module of the JAX package may have been imported.
+The last lines are the kernels' JSON record (each kernel's launches on its
+main path, max error against its twin, kernel / twin / one-call library ms
+and its bound: the larger of the bytes it must move over 3.35 TB/s and
+its operations over the peak rate of their type), and the card line from
 nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
 """
 
@@ -76,6 +89,9 @@ SOURCES = {
     "gumbel_choice": "bm25_tpu_torch/csrc/topk.cu",
     "matmul_naive": "bm25_tpu_torch/csrc/matmul.cu",
     "matmul_tiled": "bm25_tpu_torch/csrc/matmul.cu",
+    "super_row_gather": "bm25_tpu_torch/csrc/super_row_gather.cu",
+    "super_row_gather_window": "bm25_tpu_torch/csrc/super_row_gather.cu",
+    "super_row_gather_resident": "bm25_tpu_torch/csrc/super_row_gather.cu",
 }
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
@@ -85,6 +101,9 @@ REPLACES = {
     "gumbel_choice": "bm25_tpu/ops/topk.py:620",
     "matmul_naive": "bm25_tpu/ops/matmul.py:127",
     "matmul_tiled": "bm25_tpu/ops/matmul.py:127",
+    "super_row_gather": "scripts/exp_r4_pallas_gather.py:64",
+    "super_row_gather_window": "scripts/exp_r4_window_gather.py:87",
+    "super_row_gather_resident": "scripts/exp_r4_dyngather.py:100",
 }
 HOT_TOKENS = 1024
 MAX_BUCKETS = 2
@@ -93,6 +112,12 @@ DENSE_DOCS = 131072  # the JAX bench's sharded_docs corpus
 SPARSE_DOCS = 524288  # BenchConfig's default corpus
 MATMUL_N = 1028  # the reference's matmul benchmark: M = K = N
 MATMUL_BIG = 4096
+RESIDENT_H = 256  # the tallest of the dyngather tables that fits
+# H100 SXM data-sheet peaks: memory rate, f32 on the CUDA cores, bf16 on
+# the tensor cores (dense)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -126,6 +151,25 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops=()) -> tuple[float, str]:
+    """The least time (ms) the card could take for work that must move
+    ``nbytes`` and do ``ops``, (count, peak rate per s) pairs, and which of
+    the two bounds it."""
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = sum(n / rate for n, rate in ops) * 1e3
+    return (mem_ms, "bytes") if mem_ms >= op_ms else (op_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_record(launches, err, ms, plain_ms, bnd, library_ms=None) -> dict:
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms}
 
 
 def reset(*counters) -> None:
@@ -406,7 +450,21 @@ def sparse_main(torch, dev, cfg, ops, session, record) -> None:
     ids = session.put(chunk)
     hc = hot_counts_for(ids, engine.hot_table, engine.hot_h)
     b1_err = b1_ms = b1_plain_ms = 0.0
+    # B1's bound per batch: every ELL input, the hot rows some query uses
+    # (the kernel skips the others), the outputs; one FMA per matching cold
+    # posting (f32) and two bf16 products per used (query, hot token, row)
+    hot_used = int((hc != 0).any(dim=0).sum())
+    hot_pairs = int((hc != 0).sum())
+    cold = chunk[(chunk >= 0)]
+    cold = cold[session.get(engine.hot_table)[cold] < 0]
+    cold_postings = int(np.diff(index.indptr.astype(np.int64))[cold].sum())
+    b1_bytes = b1_ops = 0
     for i, b in enumerate(engine.buckets):
+        rows = b["doc_ids"].shape[0]
+        b1_bytes += (nbytes(ids, b["tokT"], b["valT"], b["doc_ids"], hc)
+                     + 2 * hot_used * rows * 2 + chunk.shape[0] * rows * 4
+                     + chunk.shape[0] * (rows // 8) * 4)
+        b1_ops += 2 * 2 * hot_pairs * rows
         args = (ids, b["tokT"], b["valT"], b["doc_ids"], hc, b["hotT"],
                 b["hotLo"])
         compare(torch, ops.ell_score_fused(*args[:4])[0],
@@ -433,21 +491,26 @@ def sparse_main(torch, dev, cfg, ops, session, record) -> None:
     b2_err = compare(torch, ops.ell_score(*b2_args),
                      ops.ell_score_plain(*b2_args), True, "B2, main shape")
     b2_ms = cuda_ms(torch, lambda: ops.ell_score(*b2_args), 10)
+    b2_bound = bound(nbytes(*b2_args) + engine.hot_h * htok.shape[1] * 4,
+                     [(2 * int((b2_args[1] >= 0).sum()), F32_OPS_PER_S)])
     b2_plain_ms = cuda_ms(torch, lambda: ops.ell_score_plain(*b2_args), 3)
     log(f"[kernels] B1 per batch (all buckets): kernel {b1_ms:.3f} ms, "
         f"plain {b1_plain_ms:.3f} ms, max_abs_err {b1_err:.3e}")
     log(f"[kernels] B2 at hot ids ({engine.hot_h}, 1) x hot ELL "
         f"{tuple(htok.shape)}: kernel {b2_ms:.3f} ms, plain "
         f"{b2_plain_ms:.3f} ms, bit-equal")
-    record["ell_score_fused"] = (launches["ell_score_fused"], b1_err, b1_ms,
-                                 b1_plain_ms)
-    record["ell_score"] = (launches["ell_score"], b2_err, b2_ms, b2_plain_ms)
+    record["ell_score_fused"] = kernel_record(
+        launches["ell_score_fused"], b1_err, b1_ms, b1_plain_ms,
+        bound(b1_bytes, [(2 * cold_postings, F32_OPS_PER_S),
+                         (b1_ops, BF16_TC_OPS_PER_S)]))
+    record["ell_score"] = kernel_record(launches["ell_score"], b2_err,
+                                        b2_ms, b2_plain_ms, b2_bound)
 
 
 def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
     """Phases 5 and 6: the dense engine, then the top-k op library on the
     dense step's scores, then B3-B5 against their twins there."""
-    from bm25_tpu.eval import engine_device_bytes
+    from bm25_tpu_torch.eval import engine_device_bytes
     from bm25_tpu_torch import (DenseEngine, ReferenceEngine, create_engine,
                                 top_k)
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
@@ -583,11 +646,23 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
         b3w_ms = cuda_ms(torch, lambda: gr.gather_add_rows(st, safe, w), 20)
         b3_plain_ms = cuda_ms(torch, lambda: gr.gather_add_rows_plain(st,
                                                                      safe), 5)
-        moved = ids.numel() * st.shape[1] * 4 + scores.numel() * 4
+        # the library's one call: a sum of embedding rows per query
+        ids64 = safe.long()
+        bag = torch.nn.functional.embedding_bag(ids64, st, mode="sum")
+        torch.testing.assert_close(bag, scores, rtol=1e-5, atol=1e-5)
+        b3_lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
+            ids64, st, mode="sum"), 20)
+        del bag, ids64
+        # each distinct row read once, the ids, the output written once
+        moved = (torch.unique(safe).numel() * st.shape[1] * 4
+                 + nbytes(safe, scores))
+        b3_bound = bound(moved, [(safe.numel() * st.shape[1],
+                                  F32_OPS_PER_S)])
         log(f"[kernels] B3 at ids {tuple(ids.shape)} x table "
             f"{tuple(st.shape)}: kernel {b3_ms:.3f} ms ({moved / b3_ms / 1e6:.0f}"
-            f" GB/s of {moved} B), weighted {b3w_ms:.3f} ms, plain "
-            f"{b3_plain_ms:.3f} ms; bit-equal (both)")
+            f" GB/s of {moved} B needed; bound {b3_bound[0]:.3f} ms), "
+            f"weighted {b3w_ms:.3f} ms, plain {b3_plain_ms:.3f} ms, "
+            f"embedding_bag {b3_lib_ms:.3f} ms; bit-equal (both)")
         b4 = {}
         for k in (cfg.top_k, cfg.top_k2):
             pv, pi = tk.topk_two_stage_plain(masked, k)
@@ -598,10 +673,12 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
             tree_ms = cuda_ms(torch, lambda: tk.select_top_k(masked, k), 5)
             plain_ms = cuda_ms(torch, lambda: tk.topk_two_stage_plain(masked,
                                                                       k), 1)
-            b4[k] = (err, ms, plain_ms)
+            lib_ms = cuda_ms(torch, lambda: torch.topk(masked, k), 5)
+            b4[k] = (err, ms, plain_ms, bound(nbytes(masked, kv, ki)), lib_ms)
             log(f"[kernels] B4 at ({masked.shape[0]}, {masked.shape[1]}) "
                 f"k={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, tree "
-                f"(select_top_k) {tree_ms:.3f} ms; equal to the twin")
+                f"(select_top_k) {tree_ms:.3f} ms, torch.topk {lib_ms:.3f} "
+                f"ms, bound {b4[k][3][0]:.4f} ms; equal to the twin")
         # B4 at the sparse corpus's width: 32 stage-1 chunks, and a merge
         # of 32,000 candidates in one block
         k = cfg.top_k
@@ -629,11 +706,13 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
         log(f"[kernels] B5 at logits {tuple(logits.shape)}: kernel "
             f"{b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, max z gap of "
             f"differing choices {b5_err:.3e}")
-    record["gather_add_rows"] = (b3_launches, 0.0, b3_ms, b3_plain_ms)
-    record["top_k_two_stage"] = (op_launches["top_k_two_stage"],
-                                 *b4[cfg.top_k])
-    record["gumbel_choice"] = (op_launches["gumbel_choice"], b5_err, b5_ms,
-                               b5_plain_ms)
+    record["gather_add_rows"] = kernel_record(
+        b3_launches, 0.0, b3_ms, b3_plain_ms, b3_bound, b3_lib_ms)
+    record["top_k_two_stage"] = kernel_record(
+        op_launches["top_k_two_stage"], *b4[cfg.top_k])
+    record["gumbel_choice"] = kernel_record(
+        op_launches["gumbel_choice"], b5_err, b5_ms, b5_plain_ms,
+        bound(nbytes(logits) + logits.shape[0] * 4))
 
 
 def library_entry(session) -> None:
@@ -666,6 +745,15 @@ def library_entry(session) -> None:
     log(f"[library] Retriever with create_engine's DenseEngine: top docs "
         f"{docs[:, 0].tolist()} scores "
         f"{[round(float(s), 4) for s in scores[:, 0]]} match ReferenceEngine")
+    fitted = Retriever.fit(corpus, tokenizer=tokenizer, session=session)
+    if not isinstance(fitted.engine, DenseEngine) or \
+            fitted.engine.st.device.type != "cuda":
+        raise AssertionError(f"Retriever.fit built {type(fitted.engine)}")
+    got = fitted.retrieve(texts, k=3)
+    assert_matches_oracle(*got, od, os_)
+    log(f"[library] Retriever.fit built the port's "
+        f"{type(fitted.engine).__name__} on {fitted.engine.st.device}: "
+        f"matches ReferenceEngine")
 
 
 def order_bound(torch, got, want, a, b) -> float:
@@ -757,11 +845,12 @@ def matmul_main(torch, pm, dev, record) -> None:
         f"{err:.3e} (within the order bound)")
     del a, b, got
     f32 = torch.float32
-    record["matmul_naive"] = (launches["matmul_naive"], 0.0,
-                              times[(f32, "naive")], times[(f32, "plain")])
-    record["matmul_tiled"] = (launches["matmul_tiled"], 0.0,
-                              times[(f32, "optimized")],
-                              times[(f32, "plain")])
+    b6_bound = bound(3 * n * n * 4, [(flops, F32_OPS_PER_S)])
+    for name, algo in (("matmul_naive", "naive"),
+                       ("matmul_tiled", "optimized")):
+        record[name] = kernel_record(
+            launches[name], 0.0, times[(f32, algo)], times[(f32, "plain")],
+            b6_bound, times[(f32, "xla")])
 
 
 def phase_matmul_cases(torch, pm, dev) -> None:
@@ -861,8 +950,113 @@ def named_ops_cases(torch, dev) -> None:
         "union ops) equal the same calls on CPU tensors")
 
 
+def gather_case(torch, srg, dev, q, r, kp, seed, sort=False):
+    """Random (Q, R, 128) rows and (Q, KP) ids holding rows 0 and R - 1,
+    duplicated; sorted within each query for the window kernel."""
+    rng = np.random.default_rng(seed)
+    x3 = torch.from_numpy(rng.random((q, r, srg.ROW), np.float32)).to(dev)
+    rowof = rng.integers(0, r, (q, kp)).astype(np.int32)
+    rowof[0, :3] = [0, r - 1, r - 1]
+    if sort:
+        rowof.sort(axis=1)
+    return x3, torch.from_numpy(rowof).to(dev)
+
+
+def phase_selection_gather_cases(torch, srg, dev) -> None:
+    """E5-E7 vs their twin at edge cases; the raises."""
+    for q, r, kp in ((3, 64, 40), (5, 300, 1024), (1, 1, 7)):
+        x3, rowof = gather_case(torch, srg, dev, q, r, kp, q + r + kp)
+        want = srg.super_row_gather_plain(x3, rowof)
+        for rpw in srg.ROWS_PER_WARP:
+            compare(torch, srg.super_row_gather(x3, rowof, rpw), want, True,
+                    f"E5 ({q}, {r}) x ({q}, {kp}) rows_per_warp={rpw}")
+        log(f"[kernels] E5 ({q}, {r}, 128) x ({q}, {kp}) ids (rows 0 and "
+            f"R-1, duplicates): bit-equal to the twin at every rows_per_warp")
+    for q, r, kp in ((3, 64, 40), (4, 2048, 1024), (2, 48, 8)):
+        x3, rowof = gather_case(torch, srg, dev, q, r, kp, q + r + kp, True)
+        rowof[-1] = r - 1  # a tile of the last row: the window clamps
+        rowof[-1, : kp // 2 + 1] = 0  # a tile spanning more than W
+        rowof = rowof.sort(dim=1).values.contiguous()
+        want = srg.super_row_gather_plain(x3, rowof)
+        for w in (32, 48):
+            if r < w:
+                continue
+            fb = torch.zeros(1, dtype=torch.int32, device=dev)
+            compare(torch, srg.super_row_gather_window(x3, rowof, w, fb),
+                    want, True, f"E6 ({q}, {r}) x ({q}, {kp}) W={w}")
+            tiles = int(srg.window_fallback_tiles(rowof, r, w))
+            if int(fb.item()) != tiles or (tiles == 0 and r > w):
+                raise AssertionError(f"E6 W={w}: {int(fb.item())} fallback "
+                                     f"tiles counted, {tiles} expected")
+            flipped = rowof.flip(1).contiguous()
+            compare(torch, srg.super_row_gather_window(x3, flipped, w),
+                    srg.super_row_gather_plain(x3, flipped), True,
+                    f"E6 unsorted W={w}")
+            log(f"[kernels] E6 ({q}, {r}, 128) x ({q}, {kp}) W={w}: "
+                f"bit-equal (clamped window, duplicates, unsorted ids), "
+                f"{tiles} fallback tiles counted")
+    for h in (8, 100, RESIDENT_H):
+        x3, rowof = gather_case(torch, srg, dev, 6, h, 1000, h)
+        compare(torch, srg.super_row_gather_resident(x3, rowof),
+                srg.super_row_gather_plain(x3, rowof), True, f"E7 H={h}")
+    log(f"[kernels] E7 H=8, 100 (shared-memory opt-in), {RESIDENT_H}, "
+        "KP=1000: bit-equal to the twin")
+    raised = []
+    x3, rowof = gather_case(torch, srg, dev, 2, 16, 8, 0, True)
+    big, big_rows = gather_case(torch, srg, dev, 1, 2048, 16, 0)
+    for what, fn in (
+            ("E6 R < W", lambda: srg.super_row_gather_window(x3, rowof, 32)),
+            ("E7 H=2048",
+             lambda: srg.super_row_gather_resident(big, big_rows))):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"{what} did not raise")
+    log("[kernels] raised as required: " + "; ".join(raised))
+
+
+def selection_gather(torch, dev, record) -> None:
+    """Phase 9: the E5-E7 edge cases, then ``gather_bench``'s experiments
+    at the scripts' shapes with the kernels' launches counted."""
+    from bm25_tpu_torch.bench import gather_bench as gb
+    from bm25_tpu_torch.ops import super_row_gather as srg
+
+    phase_selection_gather_cases(torch, srg, dev)
+    reset(srg.launches, srg.plain_calls)
+    results = [row for e in gb.EXPERIMENTS
+               for row in gb.bench_gather(e, dev, log=log)]
+    torch.cuda.synchronize()
+    launches = dict(srg.launches)
+    log(f"[gather] gather_bench's three experiments: launches {launches}")
+    if not all(launches.values()):
+        raise AssertionError("the gather experiments did not run every "
+                             "E5-E7 kernel")
+    log("[gather] gather_bench " + json.dumps(results))
+
+    def pick(experiment, variant, **key):
+        return next(r for r in results if r["experiment"] == experiment
+                    and r["variant"] == variant
+                    and all(r.get(k) == v for k, v in key.items()))
+
+    for name, exp, variant, key in (
+            ("super_row_gather", "pallas_gather", "direct",
+             {"rows_per_warp": 1}),
+            ("super_row_gather_window", "window_gather", "window",
+             {"window": 32}),
+            ("super_row_gather_resident", "dyngather", "resident",
+             {"h": RESIDENT_H})):
+        where = {k: v for k, v in key.items() if k == "h"}
+        got = pick(exp, variant, **key)
+        record[name] = kernel_record(
+            launches[name], 0.0, got["ms"],
+            pick(exp, "plain", **where)["ms"], bound(got["bytes"]),
+            pick(exp, "torch.gather", **where)["ms"])
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-8 on device ``dev``; returns the kernels' record."""
+    """Phases 2-9 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -877,7 +1071,7 @@ def drive(torch, dev) -> dict:
     with Phase("2. build"):
         t0 = time.perf_counter()
         libs = _build.build_all(["ell_score", "gather_rows", "topk",
-                                 "matmul"])
+                                 "matmul", "super_row_gather"])
         log(f"[build] {len(libs)} libraries in "
             f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
         for name, path in libs.items():
@@ -907,12 +1101,13 @@ def drive(torch, dev) -> dict:
         matmul_main(torch, pm, dev, record)
         phase_matmul_cases(torch, pm, dev)
         named_ops_cases(torch, dev)
+    torch.cuda.empty_cache()
+    with Phase("9. selection gather (E5-E7)"):
+        selection_gather(torch, dev, record)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": record[name][0],
-         "max_abs_err": record[name][1], "ms": record[name][2],
-         "plain_ms": record[name][3]}
+         "replaces": REPLACES[name], **record[name]}
         for name in SOURCES]}
 
 
@@ -950,6 +1145,11 @@ def main() -> int:
     log(f"[env] nvidia-smi: {smi}")
 
     record = drive(torch, torch.device("cuda"))
+    jax_pkg = sorted(m for m in sys.modules
+                     if m == "bm25_tpu" or m.startswith("bm25_tpu."))
+    if jax_pkg:
+        raise AssertionError(f"the JAX package was imported: {jax_pkg}")
+    log("[env] no module of the JAX package (bm25_tpu) was imported")
     log(f"[phase] total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(record))
     print(smi)

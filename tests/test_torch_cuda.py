@@ -16,6 +16,7 @@ from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Session,
                             create_engine)
 from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
 from bm25_tpu_torch.ops import gather_rows as gr
+from bm25_tpu_torch.ops import super_row_gather as srg
 from bm25_tpu_torch.ops import topk as tk
 from bm25_tpu_torch.utils.counts import split_bf16
 from bm25_tpu_torch.utils.parity import assert_matches_oracle
@@ -449,3 +450,71 @@ def test_cuda_named_ops_equal_cpu(cuda_device):
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), custom("arange", 0.0, 3.0, 0.1,
                                          dtype=torch.float32, device="cpu"))
+
+
+def super_row_case(q, r, kp, seed, dev, sort=False):
+    rng = np.random.default_rng(seed)
+    x3 = torch.from_numpy(rng.random((q, r, srg.ROW), np.float32)).to(dev)
+    rowof = rng.integers(0, r, (q, kp)).astype(np.int32)
+    rowof[0, :3] = [0, r - 1, r - 1]  # the first and last row, duplicated
+    if sort:
+        rowof.sort(axis=1)
+    return x3, torch.from_numpy(rowof).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_warp", srg.ROWS_PER_WARP)
+@pytest.mark.parametrize("q,r,kp", [(3, 64, 40), (5, 300, 1024), (1, 1, 7)])
+def test_cuda_super_row_gather_bit_equal(cuda_device, q, r, kp, rows_per_warp):
+    x3, rowof = super_row_case(q, r, kp, q + r + kp, cuda_device)
+    got = srg.super_row_gather(x3, rowof, rows_per_warp)
+    torch.cuda.synchronize()
+    assert torch.equal(got, srg.super_row_gather_plain(x3, rowof))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [32, 48])
+@pytest.mark.parametrize("q,r,kp", [(3, 64, 40), (4, 2048, 1024), (2, 48, 8)])
+def test_cuda_super_row_gather_window_bit_equal(cuda_device, q, r, kp,
+                                                window):
+    if r < window:
+        pytest.skip("R < W raises (test below)")
+    x3, rowof = super_row_case(q, r, kp, q + r + kp, cuda_device, sort=True)
+    rowof[-1] = r - 1  # a tile at the end: the window clamps to R - W
+    rowof[-1, : kp // 2 + 1] = 0  # a tile spanning more than W: fallback
+    rowof = rowof.sort(dim=1).values.contiguous()
+    fb = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    got = srg.super_row_gather_window(x3, rowof, window, fallbacks=fb)
+    torch.cuda.synchronize()
+    assert torch.equal(got, srg.super_row_gather_plain(x3, rowof))
+    want = int(srg.window_fallback_tiles(rowof, r, window))
+    assert int(fb.item()) == want and (want > 0 or r == window)
+    unsorted = rowof.flip(1).contiguous()  # out-of-window rows load directly
+    assert torch.equal(srg.super_row_gather_window(x3, unsorted, window),
+                       srg.super_row_gather_plain(x3, unsorted))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 32, 100, 256])
+def test_cuda_super_row_gather_resident_bit_equal(cuda_device, h):
+    x3, rowof = super_row_case(6, h, 1000, h, cuda_device)
+    got = srg.super_row_gather_resident(x3, rowof)
+    torch.cuda.synchronize()
+    assert torch.equal(got, srg.super_row_gather_plain(x3, rowof))
+
+
+@pytest.mark.cuda
+def test_cuda_super_row_gather_raises(cuda_device):
+    x3, rowof = super_row_case(2, 16, 8, 0, cuda_device, sort=True)
+    with pytest.raises(ValueError, match="R >= 32"):
+        srg.super_row_gather_window(x3, rowof, 32)
+    x3, rowof = super_row_case(2, 64, 12, 0, cuda_device, sort=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        srg.super_row_gather_window(x3, rowof, 32)
+    big, rows = super_row_case(1, 2048, 16, 0, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        srg.super_row_gather_resident(big, rows)
+    with pytest.raises(TypeError):
+        srg.super_row_gather(x3, rowof.long())
+    empty = srg.super_row_gather(x3, rowof[:, :0].contiguous())
+    assert empty.shape == (2, 0, srg.ROW)

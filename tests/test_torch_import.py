@@ -1,6 +1,8 @@
-"""The port never imports JAX, and never picks the CPU by itself."""
+"""The port never imports JAX or the JAX package ``bm25_tpu``, and never
+picks the CPU by itself."""
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -16,23 +18,28 @@ PKG = os.path.join(REPO, "bm25_tpu_torch")
 BLOCKED_RUN = textwrap.dedent("""
     import sys
 
-    class BlockJax:
+    BLOCKED = ("jax", "jaxlib", "bm25_tpu")
+
+    class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"{name} is blocked")
 
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, Block())
     import numpy as np
     import torch
     import bm25_tpu_torch
-    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Session,
-                                create_engine, custom, top_k)
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, Retriever,
+                                Session, Tokenizer, create_engine, custom,
+                                top_k)
     from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
+    from bm25_tpu_torch.bench.gather_bench import bench_gather
     from bm25_tpu_torch.bench.matmul_bench import bench_matmul
+    from bm25_tpu_torch.eval import engine_device_bytes
     from bm25_tpu_torch.entry import entry
     from bm25_tpu_torch.models import dense
     from bm25_tpu_torch.ops import (gather_rows, gather_scatter, registry,
-                                    shape_ops, topk)
+                                    shape_ops, super_row_gather, topk)
     from bm25_tpu_torch.ops.matmul import launches, plain_calls
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
@@ -71,7 +78,17 @@ BLOCKED_RUN = textwrap.dedent("""
     fn, args = entry(cpu)
     assert fn(*args)[1].shape == (4, 8)
     assert gather_rows.plain_calls["gather_add_rows"] > 0
-    assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+    texts = ["a cat likes to purr", "the dog barks", "fish swim in water"]
+    r = Retriever.fit(texts, tokenizer=Tokenizer(stemmer=None), session=cpu)
+    assert isinstance(r.engine, DenseEngine) and engine_device_bytes(r.engine)
+    docs, _ = r.retrieve(["cat purr", "dog"], k=2)
+    assert docs[:, 0].tolist() == [0, 1]
+    for experiment in ("pallas_gather", "window_gather", "dyngather"):
+        assert bench_gather(experiment, "cpu", q=2, n=8192, k=20, kp=32,
+                            iters=1, log=len)
+    assert super_row_gather.plain_calls["super_row_gather"] > 0
+    assert not any(super_row_gather.launches.values())
+    assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_OK")
 """)
 
@@ -84,13 +101,22 @@ def test_port_runs_with_jax_blocked():
     assert "NO_JAX_OK" in res.stdout
 
 
+# an import of jax, or of bm25_tpu but not bm25_tpu_torch
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|bm25_tpu(?!_torch))\b", re.MULTILINE)
+
+
 def test_no_jax_import_in_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(PKG):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    src = f.read()
-                assert "import jax" not in src and "from jax" not in src, name
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert not FORBIDDEN.search(src), (path, FORBIDDEN.findall(src))
+    assert FORBIDDEN.search("    from bm25_tpu.eval import x")
+    assert FORBIDDEN.search("import bm25_tpu")
+    assert not FORBIDDEN.search("from bm25_tpu_torch import eval")
 
 
 def test_session_never_falls_back_to_cpu():
