@@ -10,6 +10,7 @@ helpers) is the port's own copy of ``bm25_tpu``'s JAX-free modules, under
 the same names.
 """
 
+from bm25_tpu_torch.compat import BM25, BM25v
 from bm25_tpu_torch.index.builder import build_index
 from bm25_tpu_torch.index.io import MMapCorpus, load_index, save_index
 from bm25_tpu_torch.models.auto import create_engine
@@ -28,5 +29,5 @@ __all__ = [
     "ReferenceEngine", "topk_descending", "Tokenizer",
     "build_index", "load_index", "save_index", "MMapCorpus", "Retriever",
     "Session", "get_session", "SparseEngine", "DenseEngine", "create_engine",
-    "top_k", "custom",
+    "top_k", "custom", "BM25", "BM25v",
 ]

@@ -19,9 +19,10 @@ rows are in doc-id order and every merge is stable.
 The host layout (``build_ell_buckets_from_csr``, ``split_hot_cold_csr``,
 ``hot_ell_for_rows``, ``_filter_csr``) is copied function for function from
 the JAX package, which cannot be imported without JAX, so that both
-engines build bit-equal arrays.  This engine serves unweighted, unmasked
-queries through the ELL and hot tiers; weights, doc masks, dedup, the tail
-tier, cold-width routing and the layout cost model are ROADMAP items.
+engines build bit-equal arrays.  This engine serves unmasked queries,
+weighted or not and of any width, through the ELL and hot tiers; doc masks,
+dedup, the tail tier, cold-width routing and the layout cost model are
+ROADMAP items.
 ``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
 other copied helpers; only ``DenseEngine`` uses it so far.
 """
@@ -236,37 +237,45 @@ def fit_score_buffer_budget(engine: "SparseEngine") -> None:
 # ---------------------------------------------------------------------------
 
 
-def hot_counts_for(ids: torch.Tensor, hot_table: torch.Tensor,
-                   hot_h: int) -> torch.Tensor:
-    """(Q, H) bf16 per-query hot-token counts: an f32 scatter-add cast to
-    bf16, exact while every count is <= 256 (a query of at most 256 ids)."""
-    if ids.shape[1] > 256:
-        raise NotImplementedError(
-            "queries wider than 256 tokens need the split-count hot path "
-            "(ROADMAP A5)"
-        )
+def hot_counts_for(ids: torch.Tensor, hot_table: torch.Tensor, hot_h: int,
+                   w: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(Q, H) per-query hot-token counts as B1 takes them: ``(counts,
+    None)`` in bf16, exact for unweighted queries of at most 256 ids (a
+    count <= 256 is a bf16 integer); otherwise the exact f32 scatter-add
+    counts (each id weighted by ``w``) as a bf16 high + residual pair, as
+    in JAX (``bm25_tpu/models/sparse.py:876-902``)."""
     valid = ids >= 0
     safe = torch.where(valid, ids, 0).long()
     hot_ids = torch.where(valid, hot_table[safe], -1)
-    return weighted_counts(hot_ids, valid.float(), hot_h).to(torch.bfloat16)
+    cf = weighted_counts(hot_ids, valid.float() if w is None else w, hot_h)
+    if w is None and ids.shape[1] <= 256:
+        return cf.to(torch.bfloat16), None
+    return split_bf16(cf)
 
 
 def make_sparse_query_step(k: int, hot_h: int = 0):
-    """The unweighted, unmasked query step over the ELL and hot tiers.
+    """The unmasked query step over the ELL and hot tiers.
 
-    ``step(ids, buckets, offsets, hot_table) -> (scores (Q, k) f32, docs
-    (Q, k) int32)``; ``buckets`` are dicts of ``doc_ids (rows,)`` and,
+    ``step(ids, buckets, offsets, hot_table, w=None) -> (scores (Q, k) f32,
+    docs (Q, k) int32)``; ``buckets`` are dicts of ``doc_ids (rows,)`` and,
     where present, ``tokT``/``valT`` (L, rows) and ``hotT``/``hotLo``
-    (H, rows).
+    (H, rows).  ``w`` (Q, T) f32 weights each query token: its offset, its
+    hot count and its ELL matches.
     """
 
-    def step(ids, buckets, offsets, hot_table):
+    def step(ids, buckets, offsets, hot_table, w=None):
         valid = ids >= 0
         safe = torch.where(valid, ids, 0).long()
-        qoff = torch.where(valid, offsets[safe],
-                           torch.zeros((), dtype=offsets.dtype,
-                                       device=offsets.device)).sum(dim=1)
-        hot_counts = hot_counts_for(ids, hot_table, hot_h) if hot_h else None
+        zero = torch.zeros((), dtype=offsets.dtype, device=offsets.device)
+        if w is not None:
+            w = torch.where(valid, w.float(), zero)
+            qoff = (offsets[safe] * w).sum(dim=1)
+        else:
+            qoff = torch.where(valid, offsets[safe], zero).sum(dim=1)
+        hot_counts = hot_lo = None
+        if hot_h:
+            hot_counts, hot_lo = hot_counts_for(ids, hot_table, hot_h, w)
 
         cand_s, cand_i = [], []
         for b in buckets:
@@ -274,7 +283,8 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
             rows_b = did.shape[0]
             base, gmax = ell_score_fused(
                 ids, b.get("tokT"), b.get("valT"), did, hot_counts,
-                b.get("hotT"), b.get("hotLo"),
+                b.get("hotT"), b.get("hotLo"), weights=w,
+                hot_counts_lo=hot_lo,
             )
             kk = min(k, rows_b)
             if rows_b > max(2 * kk, 4096) and gmax.shape[1] >= kk:
@@ -318,9 +328,11 @@ def prepare_doc_mask(doc_mask, num_docs: int, session: Session):
 
 
 def plan_query_dispatch(queries: np.ndarray, max_q: int,
-                        q_align: int = 8) -> list[tuple[int, np.ndarray]]:
-    """Cut a batch into ``max_q``-row chunks: ``(cq, padded_ids)`` with rows
-    padded to ``q_align`` and width to a power of two >= 8 (-1 pads).
+                        weights: np.ndarray | None = None, q_align: int = 8,
+                        ) -> list[tuple[int, np.ndarray, np.ndarray | None]]:
+    """Cut a batch into ``max_q``-row chunks: ``(cq, padded_ids,
+    padded_weights)`` with rows padded to ``q_align`` and width to a power
+    of two >= 8 (-1 id pads, 0 weight pads; weights None if not given).
 
     The JAX planner's path without cold-width routing.
     """
@@ -331,10 +343,14 @@ def plan_query_dispatch(queries: np.ndarray, max_q: int,
     for i in range(0, q_real, max_q):
         chunk = queries[i : i + max_q]
         cq = len(chunk)
-        padded = np.full((next_multiple(cq, q_align), t_pad), -1,
-                         dtype=np.int32)
+        q_pad = next_multiple(cq, q_align)
+        padded = np.full((q_pad, t_pad), -1, dtype=np.int32)
         padded[:cq, :t_real] = chunk
-        chunks.append((cq, padded))
+        wpadded = None
+        if weights is not None:
+            wpadded = np.zeros((q_pad, t_pad), dtype=np.float32)
+            wpadded[:cq, :t_real] = weights[i : i + max_q]
+        chunks.append((cq, padded, wpadded))
     return chunks
 
 
@@ -508,17 +524,21 @@ class SparseEngine:
         total = sum(t.nbytes for b in self.buckets for t in b.values())
         return total + self.offsets.nbytes + self.hot_table.nbytes
 
-    def plan_chunks(self, queries: np.ndarray) -> list[tuple[int, np.ndarray]]:
+    def plan_chunks(self, queries: np.ndarray,
+                    weights: np.ndarray | None = None):
         """Chunks small enough that one bucket's (Q, rows) f32 base tile
-        fits the score-buffer budget, at most CHUNK_QUERIES rows."""
+        fits the score-buffer budget, at most CHUNK_QUERIES rows:
+        ``(cq, padded_ids, padded_weights or None)``."""
         base_rows = max(b["doc_ids"].shape[0] for b in self.buckets)
         max_q = max(8, (self.score_buffer_budget // (4 * base_rows)) // 8 * 8)
-        return plan_query_dispatch(queries, min(max_q, CHUNK_QUERIES))
+        return plan_query_dispatch(queries, min(max_q, CHUNK_QUERIES),
+                                   weights)
 
-    def _query_chunk(self, padded: np.ndarray, k: int):
+    def _query_chunk(self, padded: np.ndarray, wpadded, k: int):
         step = make_sparse_query_step(k, self.hot_h)
+        w = None if wpadded is None else self.session.put(wpadded)
         return step(self.session.put(padded), self.buckets, self.offsets,
-                    self.hot_table)
+                    self.hot_table, w)
 
     def search(self, queries: np.ndarray, top_k: int = 100,
                weights: np.ndarray | None = None,
@@ -534,19 +554,25 @@ class SparseEngine:
         return self._search_impl(queries, top_k, weights, doc_mask)[0]
 
     def _search_impl(self, queries, top_k: int, weights, doc_mask):
-        if weights is not None:
-            raise NotImplementedError(
-                "weighted queries are not ported yet (ROADMAP A5)")
         if doc_mask is not None:
             raise NotImplementedError(
                 "doc_mask filtering is not ported yet (ROADMAP A5)")
-        queries, _ = validate_query_batch(queries, self.vocab_size)
+        queries, weights = validate_query_batch(queries, self.vocab_size,
+                                                weights)
         k = min(top_k, self.num_docs)
         if len(queries) == 0 or k <= 0:
             return empty_results(len(queries), k)
         out_docs, out_scores = [], []
-        for cq, padded in self.plan_chunks(queries):
-            scores, docs = self._query_chunk(padded, k)
+        for cq, padded, wpadded in self.plan_chunks(queries, weights):
+            scores, docs = self._query_chunk(padded, wpadded, k)
             out_scores.append(self.session.get(scores)[:cq])
             out_docs.append(self.session.get(docs)[:cq])
         return np.concatenate(out_docs), np.concatenate(out_scores)
+
+    def get_scores(self, query_ids) -> np.ndarray:
+        """(num_docs,) f32 scores of one query (every doc ranked)."""
+        ids = np.asarray(query_ids, dtype=np.int32).reshape(1, -1)
+        docs, scores = self.search(ids, top_k=self.num_docs)
+        out = np.zeros(self.num_docs, dtype=np.float32)
+        out[docs[0]] = scores[0]
+        return out

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes, no torch headers).
 
 Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
-plain C interface, keyed by a hash of its source and flags, under
+plain C interface, keyed by a hash of its source, the headers of ``csrc/``
+(``*.cuh``) and the flags, under
 ``bm25_tpu_torch/_build/``.  A missing ``nvcc`` or a failed build raises:
 nothing falls back to a plain version.  The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -38,12 +40,14 @@ def find_nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library for its source hash
-    exists; returns the library's path."""
+    """Compile ``csrc/<name>.cu`` unless the library for the hash of its
+    source and the headers exists; returns the library's path."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
     if os.path.exists(out):
         return out

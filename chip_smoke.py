@@ -58,7 +58,26 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    resident, and R < W and an H above the shared-memory limit, which must
    raise); then ``gather_bench``'s three experiments at the scripts' shapes
    (inputs from ``default_rng(0)``), with the kernels' launch counts over
-   these runs, each kernel timed beside its twin and ``torch.gather``.
+   these runs, each kernel timed beside its twin and ``torch.gather``;
+10. matmul schedules (E1-E4): the four ``ops/matmul_schedules.py`` kernels
+   against their twins at edge cases (ragged M, N and K, K off every K step,
+   1 x 1 x 1, the analytic corner case: E1-E3 bit-equal at every tile,
+   strip height and stage count; E4's TF32 and bf16 modes within
+   ``K 2^-22 (|A^| @ |B^|)``; the E2 strip that does not fit shared memory
+   and E3 on K % 4 != 0, which must raise); then ``bench_schedules``'s sweep
+   at the scripts' sizes 1028, 2048 and 4096 (each variant checked against
+   ``torch.matmul`` or the float64 product before it is timed), with the
+   kernels' launches counted over the sweep; then every variant against its
+   twin at 1028^3 and 2048^3 (bit-equal, or within E4's bound);
+11. entry points, on the card: the port's CLI (``index``, ``info``,
+   ``query`` with term boosts under ``--engine dense`` and ``sparse``,
+   ``demo``, ``eval`` on ``tests/data/mini_beir``, ``bench --suite matmul``)
+   against the same commands with ``--device cpu`` (no stemmer: the card's
+   machine has no nltk); ``compat.BM25`` on the 13-doc corpus against the
+   oracle; ``compat.BM25v`` over phase 4's 524,288-doc CSC, which must route
+   to ``SparseEngine``: 512 x 8 queries at k=1000, a weighted batch (also
+   on phase 4's hot-tier layout) and ``get_scores`` against
+   ``ReferenceEngine``.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -92,6 +111,10 @@ SOURCES = {
     "super_row_gather": "bm25_tpu_torch/csrc/super_row_gather.cu",
     "super_row_gather_window": "bm25_tpu_torch/csrc/super_row_gather.cu",
     "super_row_gather_resident": "bm25_tpu_torch/csrc/super_row_gather.cu",
+    "matmul_sweep": "bm25_tpu_torch/csrc/matmul_schedules.cu",
+    "matmul_row_strip": "bm25_tpu_torch/csrc/matmul_schedules.cu",
+    "matmul_pipelined": "bm25_tpu_torch/csrc/matmul_schedules.cu",
+    "matmul_mma": "bm25_tpu_torch/csrc/matmul_schedules.cu",
 }
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
@@ -104,6 +127,10 @@ REPLACES = {
     "super_row_gather": "scripts/exp_r4_pallas_gather.py:64",
     "super_row_gather_window": "scripts/exp_r4_window_gather.py:87",
     "super_row_gather_resident": "scripts/exp_r4_dyngather.py:100",
+    "matmul_sweep": "scripts/exp_r4_matmul_tiles3.py:57",
+    "matmul_row_strip": "scripts/exp_r4_matmul_tiles4.py:48",
+    "matmul_pipelined": "scripts/exp_r4_matmul_dma.py:76",
+    "matmul_mma": "scripts/exp_r4_matmul_precision.py:85",
 }
 HOT_TOKENS = 1024
 MAX_BUCKETS = 2
@@ -113,6 +140,8 @@ SPARSE_DOCS = 524288  # BenchConfig's default corpus
 MATMUL_N = 1028  # the reference's matmul benchmark: M = K = N
 MATMUL_BIG = 4096
 RESIDENT_H = 256  # the tallest of the dyngather tables that fits
+SCHEDULE_SIZES = (1028, 2048, 4096)  # the matmul scripts' sizes
+SCHEDULE_TWIN_SIZES = (1028, 2048)  # the twin is a loop over K
 # H100 SXM data-sheet peaks: memory rate, f32 on the CUDA cores, bf16 on
 # the tensor cores (dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -392,8 +421,9 @@ def phase_gumbel_cases(torch, tk, dev) -> None:
         "seed, members of the top k, greedy at temperature 0")
 
 
-def sparse_main(torch, dev, cfg, ops, session, record) -> None:
-    """Phase 4: the sparse engine at the benchmark shape."""
+def sparse_main(torch, dev, cfg, ops, session, record):
+    """Phase 4: the sparse engine at the benchmark shape; returns its
+    index."""
     from bm25_tpu_torch import ReferenceEngine, create_engine
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
     from bm25_tpu_torch.models.sparse import (hot_counts_for,
@@ -448,7 +478,7 @@ def sparse_main(torch, dev, cfg, ops, session, record) -> None:
     # bucket (its ms is the batch's total), B2 on bucket 0's hot ELL
     chunk = engine.plan_chunks(queries)[0][1]
     ids = session.put(chunk)
-    hc = hot_counts_for(ids, engine.hot_table, engine.hot_h)
+    hc, _ = hot_counts_for(ids, engine.hot_table, engine.hot_h)
     b1_err = b1_ms = b1_plain_ms = 0.0
     # B1's bound per batch: every ELL input, the hot rows some query uses
     # (the kernel skips the others), the outputs; one FMA per matching cold
@@ -505,6 +535,7 @@ def sparse_main(torch, dev, cfg, ops, session, record) -> None:
                          (b1_ops, BF16_TC_OPS_PER_S)]))
     record["ell_score"] = kernel_record(launches["ell_score"], b2_err,
                                         b2_ms, b2_plain_ms, b2_bound)
+    return index
 
 
 def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
@@ -1055,8 +1086,325 @@ def selection_gather(torch, dev, record) -> None:
             pick(exp, "torch.gather", **where)["ms"])
 
 
+def mma_within_bound(bs, ms, got, a, b, mode, what, readings) -> float:
+    """E4 against its twin (``bs.mma_readings``: within K 2^-22
+    (|A^| @ |B^|), and at most a quarter of the unrounded inputs' reading
+    of it); keeps the largest reading and the unrounded one per mode in
+    ``readings``; returns the largest |diff|."""
+    err, ratio, unrounded = bs.mma_readings(
+        got, ms.matmul_mma_plain(a, b, mode), a, b, mode, what)
+    if ratio >= readings[mode][0]:
+        readings[mode] = (ratio, unrounded)
+    return err
+
+
+def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
+    """E1-E4 edge cases; returns E4's largest |diff| / bound per mode, with
+    the unrounded inputs' reading of the same case."""
+    readings = {mode: (0.0, 0.0) for mode in ms.ROUNDING}
+    shapes = [(67, 130, 200), (1, 1, 1), (33, 13, 70),  # K off every step
+              (100, 64, 136), (130, 24, 129), (37, 36, 44), (257, 1028, 260)]
+    for m, k, n in shapes:
+        a, b = matmul_operands(torch, dev, m, k, n, torch.float32, m + k + n)
+        want = pm.matmul_plain(a, b)
+        for t in ms.SWEEP_TILES:
+            compare(torch, ms.matmul_sweep(a, b, t), want, True,
+                    f"E1 {tuple(t)} ({m}, {k}, {n})")
+        for h in ms.STRIP_HEIGHTS:
+            for blocks in (None, 1):
+                compare(torch, ms.matmul_row_strip(a, b, h, blocks), want,
+                        True, f"E2 strip {h} blocks {blocks} ({m}, {k}, {n})")
+        e3 = k % 4 == 0 and n % 4 == 0
+        if e3:
+            for t in ms.PIPELINED_TILES:
+                for st in ms.STAGES:
+                    compare(torch, ms.matmul_pipelined(a, b, t, st), want,
+                            True, f"E3 {tuple(t)} stages {st} ({m}, {k}, {n})")
+        for mode in ms.ROUNDING:
+            mma_within_bound(bs, ms, ms.matmul_mma(a, b, mode), a, b, mode,
+                             f"E4 {mode} ({m}, {k}, {n})", readings)
+        log(f"[kernels] E1-E4 ({m}, {k}, {n}): E1 (12 tiles), E2 (3 strips, "
+            f"one block or one per strip){', E3 (2 tiles x 3 stages)' if e3 else ''}"
+            " bit-equal to the twin; E4 within its bound")
+    r = torch.arange(32, dtype=torch.float32, device=dev)
+    a, b = r[:, None] - r[None, :], r[:, None] + r[None, :]
+    exact = a.double() @ b.double()
+    outs = ([ms.matmul_sweep(a, b, t) for t in ms.SWEEP_TILES]
+            + [ms.matmul_row_strip(a, b, h) for h in ms.STRIP_HEIGHTS]
+            + [ms.matmul_pipelined(a, b, t, st) for t in ms.PIPELINED_TILES
+               for st in ms.STAGES])
+    if not all(torch.equal(o.double(), exact) for o in outs):
+        raise AssertionError("E1-E3: analytic corner case inexact")
+    raised = []
+    tall = matmul_operands(torch, dev, 16, 4096, 8, torch.float32, 1)
+    odd = matmul_operands(torch, dev, 8, 30, 8, torch.float32, 2)
+    for what, fn in (("E2 strip 16 at K=4096",
+                      lambda: ms.matmul_row_strip(*tall, 16)),
+                     ("E3 K=30", lambda: ms.matmul_pipelined(*odd))):
+        try:
+            fn()
+        except ValueError as e:
+            raised.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"{what} did not raise")
+    log("[kernels] E1-E3 analytic corner case exact; raised as required: "
+        + "; ".join(raised))
+    log("[kernels] E4 largest |diff| / bound at the edge cases, and the "
+        f"unrounded inputs' reading there: {readings}")
+    return readings
+
+
+def matmul_schedules(torch, pm, dev, record) -> None:
+    """Phase 10: E1-E4 edge cases, the schedule sweep at the scripts' sizes
+    (launches counted), every variant against its twin at 1028^3 and
+    2048^3, and each kernel's record at 1028^3."""
+    from bm25_tpu_torch.bench import matmul_schedules as bs
+    from bm25_tpu_torch.ops import matmul_schedules as ms
+
+    readings = phase_schedule_cases(torch, bs, ms, pm, dev)
+    reset(ms.launches, pm.plain_calls)
+    rows = bs.bench_schedules(SCHEDULE_SIZES, device=dev, log=log)
+    torch.cuda.synchronize()
+    launches = dict(ms.launches)
+    log(f"[schedules] sweep at {SCHEDULE_SIZES}: launches {launches}, plain "
+        f"twin runs {pm.plain_calls}")
+    if not all(launches.values()) or any(pm.plain_calls.values()):
+        raise AssertionError("the sweep did not run every E1-E4 kernel, or "
+                             "ran the plain twin")
+    log("[schedules] bench_schedules " + json.dumps(rows))
+
+    twin_ms, mma_err = {}, {}
+    for s in SCHEDULE_TWIN_SIZES:
+        rng = np.random.default_rng(0)
+        a, b = (torch.from_numpy(rng.standard_normal((s, s), dtype=np.float32))
+                .to(dev) for _ in range(2))
+        t0 = time.perf_counter()
+        want = pm.matmul_plain(a, b)
+        torch.cuda.synchronize()
+        twin_ms[(s, "f32")] = (time.perf_counter() - t0) * 1e3
+        for label, fn in bs.variants(s, dev):
+            mode = label.get("mode", "f32")
+            if mode == "f32":
+                compare(torch, fn(a, b), want, True, f"{s}^3 {label}")
+            else:
+                at_size = {mode: (0.0, 0.0)}
+                mma_err[(s, mode)] = mma_within_bound(
+                    bs, ms, fn(a, b), a, b, mode, f"{s}^3 {label}", at_size)
+                log(f"[kernels] E4 {mode} at {s}^3: |diff| / bound "
+                    f"{at_size[mode][0]:.4g}, unrounded inputs "
+                    f"{at_size[mode][1]:.4g}")
+                if at_size[mode][0] >= readings[mode][0]:
+                    readings[mode] = at_size[mode]
+        for mode in ms.ROUNDING:
+            t0 = time.perf_counter()
+            ms.matmul_mma_plain(a, b, mode)
+            torch.cuda.synchronize()
+            twin_ms[(s, mode)] = (time.perf_counter() - t0) * 1e3
+        log(f"[kernels] {s}^3: every E1-E3 variant and E4 f32 bit-equal to "
+            f"the twin ({twin_ms[(s, 'f32')]:.1f} ms), E4 default and bf16in "
+            f"within their bound; max |diff| / bound so far {readings}")
+        del a, b, want
+
+    def pick(**key):
+        return next(r for r in rows if r["size"] == MATMUL_N
+                    and all(r.get(k) == v for k, v in key.items()))
+
+    for name, row, mode in (
+            ("matmul_sweep", pick(variant="sweep", tile=[128, 128, 16]),
+             "f32"),
+            ("matmul_row_strip", pick(variant="row_strip", strip_m=8), "f32"),
+            ("matmul_pipelined", pick(variant="pipelined",
+                                      tile=[128, 128, 16], stages=2), "f32"),
+            ("matmul_mma", pick(variant="mma", mode="bf16in"), "bf16in")):
+        record[name] = kernel_record(
+            launches[name], mma_err.get((MATMUL_N, mode), 0.0), row["ms"],
+            twin_ms[(MATMUL_N, mode)], (row["bound_ms"], row["bound_by"]),
+            row["library_ms"])
+        log(f"[kernels] {name} at {MATMUL_N}^3 ({row}): {row['ms']:.4f} ms, "
+            f"twin {twin_ms[(MATMUL_N, mode)]:.1f} ms, {row['library']} "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    log(f"[kernels] E4 largest |diff| / (K 2^-22 (|A^| @ |B^|)) over every "
+        f"checked case, with the unrounded inputs' reading there: {readings}")
+
+
+def cli(args: list[str]) -> str:
+    """Run the port's CLI in this process; its standard output."""
+    import contextlib
+    import io
+
+    from bm25_tpu_torch.cli.main import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(args)
+    if rc != 0:
+        raise AssertionError(f"bm25-tpu-torch {' '.join(args)}: exit {rc}")
+    return out.getvalue()
+
+
+def query_results(text: str) -> list[list[tuple[int, float]]]:
+    """The (doc, score) ranks of each query in ``query``'s output."""
+    results = []
+    for line in text.splitlines():
+        if line.startswith("query: "):
+            results.append([])
+        elif line.lstrip()[:1].isdigit() and " doc=" in line:
+            doc = line.split("doc=")[1].split()[0]
+            score = line.split("score=")[1].split()[0]
+            results[-1].append((int(doc), float(score)))
+    return results
+
+
+def same_ranking(got, want, what: str) -> None:
+    """Printed (4-decimal) scores equal within one print step; doc ids
+    equal wherever the printed score is clear of its neighbours."""
+    if [len(r) for r in got] != [len(r) for r in want] or not want:
+        raise AssertionError(f"{what}: result shapes differ")
+    for g, w in zip(got, want):
+        scores = [s for _, s in w]
+        for i, ((gd, gs), (wd, ws)) in enumerate(zip(g, w)):
+            if abs(gs - ws) > 1.5e-4:
+                raise AssertionError(f"{what}: score {gs} != {ws}")
+            near = [abs(scores[i] - scores[j]) <= 2e-4
+                    for j in (i - 1, i + 1) if 0 <= j < len(scores)]
+            if not any(near) and gd != wd:
+                raise AssertionError(f"{what}: doc {gd} != {wd} at rank {i}")
+
+
+def entry_points(torch, session, index) -> None:
+    """Phase 11: the CLI, ``compat.BM25`` and ``compat.BM25v`` on the
+    card."""
+    import shutil
+    import tempfile
+
+    from bm25_tpu_torch import ReferenceEngine, SparseEngine, create_engine
+    from bm25_tpu_torch.bench import BenchConfig, make_queries
+    from bm25_tpu_torch.compat import BM25, BM25v
+    from bm25_tpu_torch.datasets import synthetic_corpus
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    reset(ops.launches, gr.launches)
+    scratch = os.path.join(HERE, "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=scratch)
+    try:
+        docs_file = os.path.join(work, "docs.txt")
+        with open(docs_file, "w") as f:
+            f.write("\n".join(synthetic_corpus(4000, vocab=3000, avg_len=24,
+                                               seed=0)) + "\n")
+        idx = os.path.join(work, "idx")
+        log("[cli] " + cli(["index", docs_file, "-o", idx, "--stemmer",
+                            "none"]).strip())
+        info = json.loads(cli(["info", idx]))
+        if info["num_docs"] != 4000:
+            raise AssertionError(f"info: {info}")
+        log(f"[cli] info: {json.dumps(info)}")
+        queries = ["w000007^2.5 w000120 w001500", "w000017 w000002",
+                   "w000300^0.5 w000044 w002999 w000001"]
+        for engine in ("dense", "sparse"):
+            args = ["query", idx, *queries, "-k", "10", "--engine", engine,
+                    "--explain", "1"]
+            got = cli(["--device", "cuda", *args])
+            same_ranking(query_results(got),
+                         query_results(cli(["--device", "cpu", *args])),
+                         f"query --engine {engine}")
+            log(f"[cli] query --engine {engine} with boosts: {len(queries)} "
+                "queries equal to --device cpu; first lines: "
+                + " | ".join(got.splitlines()[:3]))
+        demo = cli(["--device", "cuda", "demo"])
+        if demo != cli(["--device", "cpu", "demo"]):
+            raise AssertionError("demo differs from --device cpu")
+        log("[cli] demo equal to --device cpu: "
+            + " | ".join(demo.splitlines()[:2]))
+        data = os.path.join(HERE, "tests", "data", "mini_beir")
+        ev = json.loads(cli(["--device", "cuda", "eval", data, "--stemmer",
+                             "none"]))
+        ev_cpu = json.loads(cli(["--device", "cpu", "eval", data,
+                                 "--stemmer", "none"]))
+        if ev != ev_cpu:
+            raise AssertionError(f"eval {ev} != --device cpu {ev_cpu}")
+        log(f"[cli] eval mini_beir equal to --device cpu: {json.dumps(ev)}")
+        bench = cli(["--device", "cuda", "bench", "--suite", "matmul"])
+        if len(bench.strip().splitlines()) != 1:
+            raise AssertionError("bench --suite matmul: not one line")
+        log("[cli] bench --suite matmul " + bench.strip())
+    finally:
+        shutil.rmtree(work)
+    fox = ["The quick brown fox jumps over the lazy dog", "Some other text",
+           "The quick rabbit runs past the brown fox",
+           "The quick rabbit jumps over the brown dog",
+           "The quick dog chases past the lazy fox",
+           "The quick dog runs through the tall trees",
+           "The quick brown fox jumps over the lazy dog",
+           "The brown dog sleeps under the shady tree",
+           "The brown rabbit hops under the tall tree",
+           "The brown fox runs through the forest trees",
+           "The brown fox watches the sleeping rabbit",
+           "The lazy fox watches over the sleeping dog",
+           "The lazy dog watches the quick rabbit"]
+    corpus = [d.lower().split() for d in fox]
+    bm25 = BM25(session=session)
+    bm25.fit(corpus)
+    query = "sleeping rabbit".split()
+    want = ReferenceEngine.from_scored_index(bm25._index).get_scores(
+        np.array([bm25.term_to_id[t] for t in query]))
+    got = bm25.get_scores(query)
+    if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+        raise AssertionError("BM25.get_scores differs from the oracle")
+    top = bm25.get_top_n(query, fox, n=3)
+    if top[0][1] != "The brown fox watches the sleeping rabbit":
+        raise AssertionError(f"BM25.get_top_n: {top}")
+    log(f"[compat] BM25 on {type(bm25._engine).__name__}: get_scores equal "
+        f"to the oracle, top doc {top[0][1]!r}")
+
+    cfg = BenchConfig()
+    queries = make_queries(cfg)[: cfg.batch]
+    rng = np.random.default_rng(11)
+    weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
+    sub = slice(0, CHECKED_QUERIES)
+    ref = ReferenceEngine.from_scored_index(index)
+    t0 = time.perf_counter()
+    model = BM25v(session=session)
+    model.index(index.to_csc(), index.doc_lengths)
+    torch.cuda.synchronize()
+    if not isinstance(model._engine, SparseEngine):
+        raise AssertionError(f"BM25v built {type(model._engine).__name__}")
+    log(f"[compat] BM25v.index over {index.num_docs} docs routed to "
+        f"SparseEngine in {time.perf_counter() - t0:.1f} s")
+    k = cfg.top_k
+    t0 = time.perf_counter()
+    docs, scores = model.search(queries, top_k=k)
+    ms_ = (time.perf_counter() - t0) * 1e3
+    assert_matches_oracle(docs[sub], scores[sub],
+                          *ref.search(queries[sub], top_k=k))
+    hot = create_engine(index, mode="sparse", hot_tokens=HOT_TOKENS,
+                        hot_budget_bytes=HOT_TOKENS * index.num_docs * 4,
+                        max_buckets=MAX_BUCKETS, session=session)
+    want = ref.search(queries[sub], top_k=k, weights=weights[sub])
+    for name, eng in (("BM25v's engine", model._engine),
+                      (f"hot_tokens={HOT_TOKENS}", hot)):
+        d, s = eng.search(queries, top_k=k, weights=weights)
+        assert_matches_oracle(d[sub], s[sub], *want)
+        log(f"[compat] weighted 512 x 8 batch at k={k} on {name}: first "
+            f"{CHECKED_QUERIES} queries match ReferenceEngine")
+    del hot
+    for q in queries[:4]:
+        got = model._engine.get_scores(q)
+        if not np.allclose(got, ref.get_scores(q), rtol=2e-5, atol=1e-5):
+            raise AssertionError("BM25v's get_scores differs from the oracle")
+    launches = {"ell_score_fused": ops.launches["ell_score_fused"],
+                "gather_add_rows": gr.launches["gather_add_rows"]}
+    log(f"[compat] BM25v.search 512 x 8 at k={k}: {ms_:.1f} ms, first "
+        f"{CHECKED_QUERIES} match ReferenceEngine; get_scores of 4 queries "
+        f"equal the oracle; B1/B3 launches over this phase {launches}")
+    if not all(launches.values()):
+        raise AssertionError("the entry points did not run B1 and B3")
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-9 on device ``dev``; returns the kernels' record."""
+    """Phases 2-11 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -1071,7 +1419,8 @@ def drive(torch, dev) -> dict:
     with Phase("2. build"):
         t0 = time.perf_counter()
         libs = _build.build_all(["ell_score", "gather_rows", "topk",
-                                 "matmul", "super_row_gather"])
+                                 "matmul", "super_row_gather",
+                                 "matmul_schedules"])
         log(f"[build] {len(libs)} libraries in "
             f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
         for name, path in libs.items():
@@ -1090,7 +1439,7 @@ def drive(torch, dev) -> dict:
     session = Session(dev)
     record = {}
     with Phase("4. sparse main path"):
-        sparse_main(torch, dev, BenchConfig(), ops, session, record)
+        index = sparse_main(torch, dev, BenchConfig(), ops, session, record)
         torch.cuda.empty_cache()
     dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
                record)
@@ -1104,6 +1453,12 @@ def drive(torch, dev) -> dict:
     torch.cuda.empty_cache()
     with Phase("9. selection gather (E5-E7)"):
         selection_gather(torch, dev, record)
+    torch.cuda.empty_cache()
+    with Phase("10. matmul schedules (E1-E4)"):
+        matmul_schedules(torch, pm, dev, record)
+    torch.cuda.empty_cache()
+    with Phase("11. entry points: CLI, compat, BM25v at full width"):
+        entry_points(torch, session, index)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -52,8 +52,9 @@ def test_hot_counts_equal_one_hot_sum():
     ids = rng.integers(-1, vocab, (13, 8)).astype(np.int32)
     ids[0] = -1
     ids[2] = np.flatnonzero(table >= 0)[0]  # one hot token 8 times
-    got = hot_counts_for(torch.from_numpy(ids), torch.from_numpy(table), h)
-    assert got.dtype == torch.bfloat16
+    got, lo = hot_counts_for(torch.from_numpy(ids), torch.from_numpy(table),
+                             h)
+    assert got.dtype == torch.bfloat16 and lo is None
     valid = ids >= 0
     hot_ids = np.where(valid, table[np.where(valid, ids, 0)], -1)
     want = jax.nn.one_hot(jnp.asarray(hot_ids), h, dtype=jnp.bfloat16).sum(1)
@@ -64,3 +65,29 @@ def test_hot_counts_equal_one_hot_sum():
             oracle[q, r] += 1
     np.testing.assert_array_equal(got.float().numpy(), oracle)
     assert got.float()[2].max() == 8
+
+
+def test_weighted_and_wide_hot_counts_are_jax_split_pairs():
+    """Weighted queries, and unweighted ones wider than 256 ids, take the
+    exact scatter-add counts split into a bf16 high + residual pair, as the
+    JAX step does (a count of 257 would round in bf16)."""
+    rng = np.random.default_rng(3)
+    vocab, h = 40, 10
+    table = np.full(vocab + 1, -1, np.int32)
+    table[rng.choice(vocab, h, replace=False)] = np.arange(h)
+    hot0 = int(np.flatnonzero(table >= 0)[0])
+    for t, weighted in ((8, True), (300, False), (300, True)):
+        ids = rng.integers(-1, vocab, (5, t)).astype(np.int32)
+        ids[1] = hot0  # one hot token t times: a count of 300 when wide
+        w = rng.uniform(0.1, 3.0, ids.shape).astype(np.float32)
+        valid = ids >= 0
+        hot_ids = np.where(valid, table[np.where(valid, ids, 0)], -1)
+        wj = np.where(valid, w, 0.0) if weighted else valid.astype(np.float32)
+        hi_j, lo_j = jax_counts.split_bf16(jax_counts.weighted_counts(
+            jnp.asarray(hot_ids), jnp.asarray(wj), h))
+        hi, lo = hot_counts_for(torch.from_numpy(ids), torch.from_numpy(table),
+                                h, torch.from_numpy(w) if weighted else None)
+        np.testing.assert_array_equal(bits(hi), np.asarray(hi_j).view(np.uint16))
+        np.testing.assert_array_equal(bits(lo), np.asarray(lo_j).view(np.uint16))
+        if not weighted:
+            assert hi.float()[1].max() + lo.float()[1].max() == t

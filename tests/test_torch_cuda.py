@@ -518,3 +518,98 @@ def test_cuda_super_row_gather_raises(cuda_device):
         srg.super_row_gather(x3, rowof.long())
     empty = srg.super_row_gather(x3, rowof[:, :0].contiguous())
     assert empty.shape == (2, 0, srg.ROW)
+
+
+# E1-E4 (ops/matmul_schedules.py): shapes with ragged M, N and K, K off
+# every K step, 1 x 1 x 1; E3 takes only K and N multiples of 4
+SCHEDULE_SHAPES = [(67, 130, 200), (1, 1, 1), (33, 13, 70), (100, 64, 136),
+                   (130, 24, 129), (37, 36, 44), (257, 1028, 260)]
+ms = importlib.import_module("bm25_tpu_torch.ops.matmul_schedules")
+bs = importlib.import_module("bm25_tpu_torch.bench.matmul_schedules")
+
+
+def analytic_operands(dev, n=32):
+    r = torch.arange(n, dtype=torch.float32, device=dev)
+    return r[:, None] - r[None, :], r[:, None] + r[None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", SCHEDULE_SHAPES)
+def test_cuda_matmul_sweep_and_row_strip_bit_equal(cuda_device, m, k, n):
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=m + k)
+    want = pm.matmul_plain(a, b)
+    for tile in ms.SWEEP_TILES:
+        assert torch.equal(ms.matmul_sweep(a, b, tile), want), tile
+    for h in ms.STRIP_HEIGHTS:
+        for blocks in (None, 1, 3):
+            assert torch.equal(ms.matmul_row_strip(a, b, h, blocks), want), (
+                h, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [s for s in SCHEDULE_SHAPES
+                                   if s[1] % 4 == 0 and s[2] % 4 == 0])
+def test_cuda_matmul_pipelined_bit_equal(cuda_device, m, k, n):
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=m + n)
+    want = pm.matmul_plain(a, b)
+    for tile in ms.PIPELINED_TILES:
+        for stages in ms.STAGES:
+            got = ms.matmul_pipelined(a, b, tile, stages)
+            assert torch.equal(got, want), (tile, stages)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_schedules_analytic_corner_case(cuda_device):
+    a, b = analytic_operands(cuda_device)
+    exact = a.double() @ b.double()
+    outs = [ms.matmul_sweep(a, b, t) for t in ms.SWEEP_TILES]
+    outs += [ms.matmul_row_strip(a, b, h) for h in ms.STRIP_HEIGHTS]
+    outs += [ms.matmul_pipelined(a, b, t, s) for t in ms.PIPELINED_TILES
+             for s in ms.STAGES]
+    for got in outs:
+        assert torch.equal(got.double(), exact)
+
+
+def assert_mma_within_bound(got, a, b, mode):
+    """E4 against its twin within K 2^-22 (|A^| @ |B^|) and within a
+    quarter of the unrounded inputs' reading of it (raises past either);
+    returns the largest |diff| / bound."""
+    return bs.mma_readings(got, ms.matmul_mma_plain(a, b, mode), a, b, mode,
+                           f"E4 {mode} {tuple(a.shape)} @ {tuple(b.shape)}")[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+@pytest.mark.parametrize("m,k,n", SCHEDULE_SHAPES)
+def test_cuda_matmul_mma_within_bound(cuda_device, m, k, n, mode):
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=k)
+    before = ms.launches["matmul_mma"]
+    assert_mma_within_bound(ms.matmul_mma(a, b, mode), a, b, mode)
+    assert ms.launches["matmul_mma"] == before + 1
+    # "f32" is B6's tiled kernel, counted as its launch
+    tiled = pm.launches["matmul_tiled"]
+    assert torch.equal(ms.matmul_mma(a, b, "f32"), pm.matmul_plain(a, b))
+    assert pm.launches["matmul_tiled"] == tiled + 1
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_schedules_raise(cuda_device):
+    dev = cuda_device
+    assert ms.smem_optin_bytes(dev) >= 48 * 1024
+    a, b = matmul_operands(16, 4096, 8, torch.float32, dev)
+    ms.matmul_row_strip(a, b, 8)  # 8 x 4096 f32 fits
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.matmul_row_strip(a, b, 16)
+    a, b = matmul_operands(8, 30, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ms.matmul_pipelined(a, b)
+    a, b = matmul_operands(8, 32, 8, torch.float32, dev)
+    shifted = torch.zeros(8 * 32 + 1, device=dev)[1:].view(8, 32)  # +4 bytes
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ms.matmul_pipelined(shifted, b)
+    with pytest.raises(ValueError, match="no tile"):
+        ms.matmul_sweep(a, b, (32, 32, 8))
+    with pytest.raises(TypeError, match="float32"):
+        ms.matmul_mma(a.bfloat16(), b.bfloat16())
+    empty = ms.matmul_sweep(a[:0], b)
+    assert empty.shape == (0, 8)

@@ -42,6 +42,11 @@ BLOCKED_RUN = textwrap.dedent("""
                                     shape_ops, super_row_gather, topk)
     from bm25_tpu_torch.ops.matmul import launches, plain_calls
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
+    from bm25_tpu_torch.bench.matmul_schedules import bench_schedules
+    from bm25_tpu_torch.cli.main import main as cli_main
+    from bm25_tpu_torch.compat import BM25, BM25v
+    from bm25_tpu_torch.datasets import evaluate_dataset, synthetic_beir_dataset
+    from bm25_tpu_torch.ops import matmul_schedules
 
     cpu = Session("cpu")
     cfg = BenchConfig(num_docs=2000, vocab=300)
@@ -51,6 +56,11 @@ BLOCKED_RUN = textwrap.dedent("""
     engine = create_engine(index, mode="sparse", session=cpu, hot_tokens=16,
                            hot_budget_bytes=1 << 20, max_buckets=2)
     assert_matches_oracle(*engine.search(q, top_k=25), *ref.search(q, top_k=25))
+    w = np.random.default_rng(1).uniform(0.1, 3.0, q.shape).astype(np.float32)
+    assert_matches_oracle(*engine.search(q, top_k=25, weights=w),
+                          *ref.search(q, top_k=25, weights=w))
+    assert np.allclose(engine.get_scores(q[1]), ref.get_scores(q[1]),
+                       rtol=2e-5, atol=1e-5)
     engine = create_engine(index, session=cpu, dense_budget_bytes=1 << 30)
     assert isinstance(engine, dense.DenseEngine)
     assert_matches_oracle(*engine.search(q, top_k=25), *ref.search(q, top_k=25))
@@ -88,6 +98,16 @@ BLOCKED_RUN = textwrap.dedent("""
                             iters=1, log=len)
     assert super_row_gather.plain_calls["super_row_gather"] > 0
     assert not any(super_row_gather.launches.values())
+    assert len(bench_schedules([8], iters=1, device="cpu", log=len)) == 28
+    assert not any(matmul_schedules.launches.values())
+    assert cli_main(["--device", "cpu", "demo", "-k", "1"]) == 0
+    bm25 = BM25(session=cpu)
+    bm25.fit([t.split() for t in texts])
+    assert bm25.get_top_n(["dog"], texts, n=1)[0][1] == "the dog barks"
+    ds = synthetic_beir_dataset(num_docs=200, num_queries=4, vocab=500,
+                                avg_len=10)
+    assert evaluate_dataset(ds, top_k=5, log=len, session=cpu,
+                            tokenizer=Tokenizer(stemmer=None))["num_queries"]
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_OK")
 """)

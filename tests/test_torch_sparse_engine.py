@@ -166,6 +166,72 @@ def test_slice_matches_jax_engine_and_oracle(seed, method, hot_tokens):
         port_engine.search(queries, top_k=7)[0])
 
 
+@pytest.mark.parametrize("seed,method,hot_tokens,width", [
+    (0, "lucene", 0, 5),
+    (0, "lucene", 32, 5),
+    (1, "robertson", 16, 6),  # negative idf values
+    (2, "bm25+", 24, 5),  # nonzero token offsets: the weighted qoff
+    (3, "lucene", 24, 300),  # wider than 256 ids: split hot counts
+])
+def test_weighted_search_matches_jax_engine_and_oracle(seed, method,
+                                                       hot_tokens, width):
+    """search(weights=...) against the JAX engine (through from_arrays too,
+    on the JAX engine's own arrays) and the oracle, under the fuzz
+    protocol; the weighted hot counts are split into a bf16 pair."""
+    idx = build(seed, method)
+    kw = dict(hot_tokens=hot_tokens, hot_budget_bytes=1 << 22, max_buckets=2)
+    port_engine = create_engine(idx, mode="sparse", session=CPU, **kw)
+    jax_engine = jax_sparse.SparseEngine.from_scored_index(idx, **kw)
+    carried = SparseEngine.from_arrays(
+        jax_state(jax_engine), num_docs=idx.num_docs,
+        vocab_size=idx.vocab_size, hot_h=jax_engine.hot_h, session=CPU)
+    oracle = ReferenceEngine.from_scored_index(idx)
+    rng = np.random.default_rng(seed + 200)
+    queries = rng.integers(-1, idx.vocab_size, size=(9, width),
+                           dtype=np.int32)
+    queries[0] = -1
+    queries[1, :3] = queries[1, 0]  # duplicates, each with its own weight
+    weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
+    weights[2, :2] = [-1.5, 0.0]  # negative and zero weights
+    for k in (1, 10, 100):
+        dd, ds = port_engine.search(queries, top_k=k, weights=weights)
+        od, os_ = oracle.search(queries, top_k=k, weights=weights)
+        assert_fuzz_protocol(dd, ds, od, os_)
+        assert_matches_oracle(dd, ds, od, os_)
+        jd, js = jax_engine.search(queries, top_k=k, weights=weights)
+        assert_fuzz_protocol(dd, ds, jd, js)
+        cd, cs = carried.search(queries, top_k=k, weights=weights)
+        np.testing.assert_array_equal(cd, dd)
+        np.testing.assert_array_equal(cs, ds)
+    np.testing.assert_array_equal(
+        port_engine.search_ids(queries, top_k=7, weights=weights),
+        port_engine.search(queries, top_k=7, weights=weights)[0])
+    # unit weights are the unweighted search
+    ones = np.ones(queries.shape, np.float32)
+    ud, us = port_engine.search(queries, top_k=10, weights=ones)
+    vd, vs = port_engine.search(queries, top_k=10)
+    np.testing.assert_array_equal(ud, vd)
+    np.testing.assert_allclose(us, vs, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("hot_tokens", [0, 24])
+def test_get_scores_matches_jax_and_oracle(lucene_index, hot_tokens):
+    kw = dict(hot_tokens=hot_tokens, hot_budget_bytes=1 << 22, max_buckets=2)
+    eng = SparseEngine.from_scored_index(lucene_index, session=CPU, **kw)
+    jax_engine = jax_sparse.SparseEngine.from_scored_index(lucene_index, **kw)
+    oracle = ReferenceEngine.from_scored_index(lucene_index)
+    rng = np.random.default_rng(7)
+    for q in ([3, 17, 3, -1], rng.integers(0, lucene_index.vocab_size, 6),
+              [-1, -1]):
+        got = eng.get_scores(q)
+        assert got.shape == (lucene_index.num_docs,)
+        assert got.dtype == np.float32
+        np.testing.assert_allclose(got, jax_engine.get_scores(q), rtol=2e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got, oracle.get_scores(np.asarray(q)),
+                                   rtol=2e-5, atol=1e-5)
+
+
 def test_empty_batch_and_chunking(lucene_index):
     eng = SparseEngine.from_scored_index(lucene_index, session=CPU,
                                          hot_tokens=8)
@@ -210,11 +276,9 @@ def test_unported_options_raise(lucene_index):
                                          hot_tokens=4)
     q = np.zeros((2, 3), np.int32)
     with pytest.raises(NotImplementedError, match="A5"):
-        eng.search(q, weights=np.ones((2, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="A5"):
         eng.search(q, doc_mask=np.ones(lucene_index.num_docs, bool))
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.search(np.zeros((1, 300), np.int32))
+    with pytest.raises(ValueError, match="weights"):
+        eng.search(q, weights=np.ones((2, 4), np.float32))
     with pytest.raises(NotImplementedError, match="A9"):
         SparseEngine.from_scored_index(lucene_index, session=CPU,
                                        hot_tokens="auto")
