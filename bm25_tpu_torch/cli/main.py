@@ -10,9 +10,12 @@ benchmarks``.  What differs:
   commands which run on a device (``query``, ``demo``, ``eval``, ``bench``)
   build their engine or benchmark on; it raises where CUDA is absent
   unless ``--device cpu`` is given;
-* ``index`` and ``eval`` take ``--stemmer snowball-en|none`` (default
-  ``snowball-en``, the JAX CLI's tokenizer): the Snowball stemmer needs
-  ``nltk``, which a GPU machine may not have;
+* ``eval`` takes ``--stemmer snowball-en|none`` (default ``snowball-en``,
+  the JAX CLI's tokenizer): the Snowball stemmer needs ``nltk``, which a
+  GPU machine may not have.  ``index`` builds with the JAX CLI's default
+  tokenizer, as JAX's does; an index without stemming is built through the
+  library (``build_index(..., tokenizer=Tokenizer(stemmer=None),
+  save_to=...)``), and ``query`` reads the saved tokenizer config;
 * ``bench --suite matmul`` runs the port's ``bench_matmul`` on the device;
   ``bench --suite query`` raises ``NotImplementedError``: the query
   benchmark harness is not ported (ROADMAP A4);
@@ -73,8 +76,7 @@ def cmd_index(args) -> int:
 
     corpus = _read_corpus(args.corpus)
     params = BM25Params(k1=args.k1, b=args.b, delta=args.delta, method=args.method)
-    index, stats = build_index(corpus, params=params,
-                               tokenizer=_tokenizer(args), save_to=args.out,
+    index, stats = build_index(corpus, params=params, save_to=args.out,
                                workers=args.workers)
     print(
         f"indexed {stats.num_docs} docs, vocab {stats.vocab_size}, "
@@ -250,8 +252,6 @@ def build_parser() -> argparse.ArgumentParser:
     pi.add_argument("--method", default="lucene")
     pi.add_argument("--workers", type=int, default=1,
                     help="tokenize in N worker processes (multi-core hosts)")
-    pi.add_argument("--stemmer", default="snowball-en", choices=STEMMERS,
-                    help="none: no stemming (the Snowball stemmer needs nltk)")
     pi.set_defaults(fn=cmd_index)
 
     pq = sub.add_parser(

@@ -21,7 +21,8 @@ def _build(cls, index, kwargs, filter_kwargs: bool):
         # chosen engine doesn't support must raise, not silently no-op
         return cls.from_scored_index(index, **kwargs)
     # mode="auto": keep only the kwargs the chosen engine understands, so
-    # engine-specific options (e.g. the sparse engine's hot_tokens) compose
+    # engine-specific options (e.g. the sparse engine's hot_tokens and
+    # score_dtype) compose
     params = inspect.signature(cls.from_scored_index).parameters
     return cls.from_scored_index(
         index, **{k: v for k, v in kwargs.items() if k in params})

@@ -20,7 +20,8 @@ The host layout (``build_ell_buckets_from_csr``, ``split_hot_cold_csr``,
 ``hot_ell_for_rows``, ``_filter_csr``) is copied function for function from
 the JAX package, which cannot be imported without JAX, so that both
 engines build bit-equal arrays.  This engine serves unmasked queries,
-weighted or not and of any width, through the ELL and hot tiers; doc masks,
+weighted or not and of any width, through the ELL and hot tiers, with f32
+or bf16-rounded returned scores (``score_dtype``); doc masks,
 dedup, the tail tier, cold-width routing and the layout cost model are
 ROADMAP items.
 ``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
@@ -327,6 +328,17 @@ def prepare_doc_mask(doc_mask, num_docs: int, session: Session):
     return session.put(np.ascontiguousarray(m.astype(bool)))
 
 
+def _score_sdt(score_dtype: str):
+    """Validated device dtype for returned scores (None = f32 passthrough)."""
+    if score_dtype == "float32":
+        return None
+    if score_dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(
+        f"score_dtype must be 'float32' or 'bfloat16', got {score_dtype!r}"
+    )
+
+
 def plan_query_dispatch(queries: np.ndarray, max_q: int,
                         weights: np.ndarray | None = None, q_align: int = 8,
                         ) -> list[tuple[int, np.ndarray, np.ndarray | None]]:
@@ -373,6 +385,9 @@ class SparseEngine:
     # cap on the transient (Q, rows) score tiles of one chunk; shrunk by
     # fit_score_buffer_budget when the index leaves less room
     score_buffer_budget: int = 4 << 30
+    # "bfloat16": the returned scores are rounded to bf16 on the device
+    # (selection stays f32-exact; doc ids are exact) and come back as f32
+    score_dtype: str = "float32"
 
     @classmethod
     def from_scored_index(
@@ -382,6 +397,7 @@ class SparseEngine:
         max_buckets: int = 4,
         hot_tokens: int = 0,
         hot_budget_bytes: int | None = None,
+        score_dtype: str = "float32",
     ) -> "SparseEngine":
         """Lay the index out on the session's device.
 
@@ -390,7 +406,10 @@ class SparseEngine:
         (token, doc) entry, and by the vocabulary.  The cost model that
         picks H and ``max_buckets`` in the JAX package was measured on a
         TPU and is not ported (ROADMAP A9), so H is always explicit here.
+        ``score_dtype`` ("float32" or "bfloat16") is the type the returned
+        scores are rounded to.
         """
+        _score_sdt(score_dtype)  # validate early, at build time
         session = session or get_session()
         if isinstance(hot_tokens, str) or isinstance(hot_tokens, bool):
             raise NotImplementedError(
@@ -466,6 +485,7 @@ class SparseEngine:
             num_docs=index.num_docs,
             vocab_size=v,
             session=session,
+            score_dtype=score_dtype,
         )
         fit_score_buffer_budget(engine)
         return engine
@@ -562,9 +582,13 @@ class SparseEngine:
         k = min(top_k, self.num_docs)
         if len(queries) == 0 or k <= 0:
             return empty_results(len(queries), k)
+        sdt = _score_sdt(self.score_dtype)
         out_docs, out_scores = [], []
         for cq, padded, wpadded in self.plan_chunks(queries, weights):
             scores, docs = self._query_chunk(padded, wpadded, k)
+            if sdt is not None:
+                # halves the result-transfer bytes; get() hands back f32
+                scores = scores.to(sdt)
             out_scores.append(self.session.get(scores)[:cq])
             out_docs.append(self.session.get(docs)[:cq])
         return np.concatenate(out_docs), np.concatenate(out_scores)

@@ -1,4 +1,4 @@
-"""Top-k op library: exact selection, the two-stage kernel, sampling.
+"""Top-k op library: exact selection, the radix-select kernel, sampling.
 
 PyTorch counterpart of ``bm25_tpu/ops/topk.py``.  The contract is the
 package's: results sorted descending (ascending for ``largest=False``),
@@ -12,7 +12,8 @@ ties to the smaller index, distinct indices.  Indices are int64.
   ``implementation="pallas"`` runs kernel B4; ``"auto"``, ``"lax"`` and
   ``"tree"`` run the tree, an exact stable selection (the JAX package's
   ``_auto_impl`` thresholds are TPU measurements and are not copied).
-* ``top_k_two_stage`` (B4, replaces ``_pallas_topk_lastaxis``) and
+* ``top_k_two_stage`` (B4, replaces ``_pallas_topk_lastaxis``: an exact
+  radix select on this card, routed as JAX routes its kernel) and
   ``gumbel_choice`` (B5, replaces ``_pallas_gumbel_choice``) launch the
   hand-written kernels of ``csrc/topk.cu`` on CUDA tensors; only a tensor
   on the CPU runs their plain twins (``topk_two_stage_plain``,
@@ -44,18 +45,33 @@ logger = logging.getLogger(__name__)
 NEG_INF = float("-inf")
 DOC_SENTINEL = 2**31 - 1
 
-# B4's widest stage-1 chunk (64 KB of order keys: several blocks per SM)
-STAGE1_LEN = 16384
-# B4's most candidates per merge block (the kernel's MAX_LEN: 224 KB of
-# order keys in shared memory)
-MERGE_LEN = 57344
+# JAX's chunk rule for its kernel (bm25_tpu/ops/topk.py:42-43, 251-261):
+# B4 serves exactly the (n, k) that JAX's kernel serves
+_PALLAS_CHUNK = 16384
+_PALLAS_MAX_BLOCKS = 16
+# B4's grid: each block reads at least MIN_SLICE values of its row; a row
+# is cut into at most MAX_SLICES slices (csrc/topk.cu), and ROW_CHUNK rows
+# go to one launch (the histograms take 32 KB per row and slice)
+MIN_SLICE = 32768
+MAX_SLICES = 128
+ROW_CHUNK = 4096
+# the largest k that B4 sorts in shared memory (csrc/topk.cu)
+SORT_SMEM_KEYS = 16384
+# B4's side buffer: after a digit pass, a row whose keys at or above the
+# chosen prefix number at most min(n / SIDE_DIV, SIDE_MAX) has them
+# compacted there, and the passes after it read them instead of the row
+# (read at each call; SIDE_MAX = 0 turns the buffer off)
+SIDE_DIV = 8
+SIDE_MAX = 65536
+# B4's digits, high first: (shift, bits)
+DIGITS = ((19, 13), (8, 11), (0, 8))
 
 # kernel launches, counted only where a kernel is launched (B4 counts one
 # per call, all passes)
 launches = {"top_k_two_stage": 0, "gumbel_choice": 0}
 # plain-twin runs (CPU tensors, or a direct call)
 plain_calls = {"top_k_two_stage": 0, "gumbel_choice": 0}
-# B4 calls whose k is wider than a stage-1 chunk: served by the tree
+# B4 calls whose (n, k) JAX's kernel does not serve: served by the tree
 tree_calls = {"top_k_two_stage": 0}
 
 
@@ -214,93 +230,89 @@ def gather_group_candidates(bases: list[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 
-def two_stage_plan(n: int, k: int) -> list[int] | None:
-    """The chunk widths of B4's passes over an axis of n: stage 1's, then
-    the merge's, or None where k is wider than a stage-1 chunk (a chunk
-    narrower than k cannot supply k distinct candidates; the JAX wrapper
-    hands that case to its tree too).
-
-    Each pass cuts its input row into ceil(width / chunk) chunks and keeps
-    k candidates of each, in chunk order; the merge repeats while the
-    candidates outnumber one block (MERGE_LEN).  Top-k by (value, then
-    position) of a row is the top-k of the per-chunk top-k's kept in chunk
-    order, so every pass count gives the same answer.  A merge chunk is
-    wider than MERGE_LEN / 2 and k is at most STAGE1_LEN, so each pass
-    shrinks the row to under 0.58 of its width.
-    """
-    nblocks = cdiv(n, STAGE1_LEN)
-    chunk = cdiv(n, nblocks)
-    if nblocks > 1 and k > chunk:
-        return None
-    passes = [chunk]
-    while nblocks > 1:
-        m = nblocks * k
-        nblocks = cdiv(m, MERGE_LEN)
-        passes.append(cdiv(m, nblocks))
-    return passes
+def kernel_serves(n: int, k: int) -> bool:
+    """Whether B4 runs its kernel for (n, k): where JAX's kernel does
+    (``_pallas_topk_lastaxis``: balanced chunks of at most 16 blocks,
+    rounded up to 128), i.e. one chunk, or k no wider than a chunk.
+    Routing only: the radix select has no chunk of its own."""
+    chunk = min(_PALLAS_CHUNK, next_multiple(n, 128))
+    nblocks = min(cdiv(n, chunk), _PALLAS_MAX_BLOCKS)
+    chunk = next_multiple(cdiv(n, nblocks), 128)
+    return cdiv(n, chunk) == 1 or k <= chunk
 
 
 def order_key(x: torch.Tensor) -> torch.Tensor:
     """B4's order keys of f32 values, as int64 holding a uint32: unsigned
     order is the float order, NaN is largest, -0 equals +0, and every key
-    is > 0 (0 marks a taken position)."""
+    is > 0."""
     b = x.view(torch.int32).long() & 0xFFFFFFFF
     key = torch.where(b >= 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
     key = torch.where(x == 0, 0x80000000, key)
     return torch.where(torch.isnan(x), 0xFFFFFFFF, key)
 
 
-def _select_rounds_plain(vals: torch.Tensor, cand_idx: torch.Tensor | None,
-                         chunk: int, k: int):
-    """One stage of B4 in torch ops: per chunk of the (R, n) f32 rows, k
-    rounds of (largest key, first position, take); a round on a chunk with
-    every position taken emits (-inf, chunk start).  -> (R, nblocks * k)
-    values and int64 indices (the candidates' own with ``cand_idx``)."""
-    r, n = vals.shape
-    nblocks = cdiv(n, chunk)
-    pad = nblocks * chunk - n
-    keys = order_key(vals)
-    if pad:
-        keys = torch.cat([keys, keys.new_zeros((r, pad))], dim=1)
-        vals = torch.cat([vals, vals.new_full((r, pad), NEG_INF)], dim=1)
-        if cand_idx is not None:
-            cand_idx = torch.cat([cand_idx, cand_idx.new_zeros((r, pad))], 1)
-    keys = keys.reshape(r * nblocks, chunk)
-    vals = vals.reshape(r * nblocks, chunk)
-    start = (torch.arange(nblocks, device=vals.device) * chunk).repeat(r)
-    if cand_idx is not None:
-        cand_idx = cand_idx.reshape(r * nblocks, chunk)
-    out_v, out_i = [], []
-    for _ in range(k):
-        pos = keys.argmax(dim=1, keepdim=True)  # first maximum
-        taken = keys.gather(1, pos) == 0
-        out_v.append(torch.where(taken, NEG_INF, vals.gather(1, pos)))
-        out_i.append(cand_idx.gather(1, pos) if cand_idx is not None
-                     else start[:, None] + pos)
-        keys.scatter_(1, pos, 0)
-    return (torch.cat(out_v, 1).reshape(r, nblocks * k),
-            torch.cat(out_i, 1).reshape(r, nblocks * k))
+def radix_threshold(keys: torch.Tensor, k: int):
+    """B4's histogram passes in torch ops on (B, n) order keys: per row the
+    key T of the k-th largest and ``ties``, how many keys equal to T the
+    top k takes (k minus the keys > T).  Each pass counts one digit of
+    the keys that share the prefix chosen so far (``bincount``) and picks
+    the digit that holds the k-th key."""
+    b, _ = keys.shape
+    rows = torch.arange(b, device=keys.device)[:, None]
+    prefix = torch.zeros(b, dtype=torch.int64, device=keys.device)
+    need = torch.full((b,), k, dtype=torch.int64, device=keys.device)
+    for shift, bits in DIGITS:
+        hi = shift + bits
+        match = (keys >> hi) == (prefix >> hi)[:, None]
+        digit = (keys >> shift) & ((1 << bits) - 1)
+        flat = (rows * (1 << bits) + digit)[match]
+        hist = torch.bincount(flat, minlength=b << bits).reshape(b, 1 << bits)
+        at_least = hist.flip(1).cumsum(1).flip(1)  # keys in bins >= d
+        # the digit holding the need-th key: the highest d with
+        # at_least[d] >= need (at_least falls as d grows)
+        d = (at_least >= need[:, None]).sum(1) - 1
+        above = (at_least - hist).gather(1, d[:, None])[:, 0]
+        need = need - above
+        prefix = prefix | (d << shift)
+    return prefix, need
 
 
 def topk_two_stage_plain(x2: torch.Tensor, k: int):
-    """Plain PyTorch twin of B4 on (B, n) f32: (values, int64 indices)."""
+    """Plain PyTorch twin of B4 on (B, n) f32: (values, int64 indices).
+
+    The kernel's steps in torch ops: the histogram passes
+    (``radix_threshold``), the ordered compaction of the keys > T and of
+    the first ``ties`` keys == T (``cumsum`` ranks), then a stable sort of
+    the k candidates by key, descending.
+    """
     plain_calls["top_k_two_stage"] += 1
-    plan = two_stage_plan(x2.shape[1], k)
-    if plan is None:
-        raise ValueError(f"k={k} is wider than a chunk of B4 for n="
-                         f"{x2.shape[1]}; top_k_two_stage takes the tree")
-    vals, idx = x2, None
-    for chunk in plan:
-        vals, idx = _select_rounds_plain(vals, idx, chunk, k)
-    return vals, idx
+    b, n = x2.shape
+    keys = order_key(x2)
+    thr, ties = radix_threshold(keys, k)
+    gt = keys > thr[:, None]
+    eq = keys == thr[:, None]
+    gt_rank = gt.cumsum(1) - 1
+    eq_rank = eq.cumsum(1) - 1
+    n_gt = (k - ties)[:, None]
+    # destinations in the candidate row; k is a dump slot for the rest
+    dest = torch.where(gt, gt_rank,
+                       torch.where(eq & (eq_rank < ties[:, None]),
+                                   n_gt + eq_rank, k))
+    pos = torch.arange(n, device=x2.device).expand(b, n)
+    cand = torch.empty((b, k + 1), dtype=torch.int64, device=x2.device)
+    cand.scatter_(1, dest, pos)
+    cand = cand[:, :k]
+    _, order = torch.sort(keys.gather(1, cand), dim=1, descending=True,
+                          stable=True)
+    idx = cand.gather(1, order)
+    return x2.gather(1, idx), idx
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("topk")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bm25_topk_select.argtypes = [p, p, i, i, i, i, p, p,
-                                     ctypes.c_longlong, p]
+    lib.bm25_topk_select.argtypes = [p, i, i, i, i, i, i] + [p] * 12
     lib.bm25_topk_select.restype = i
     lib.bm25_gumbel_choice.argtypes = [p, i, i, ctypes.c_uint32, p, p]
     lib.bm25_gumbel_choice.restype = i
@@ -315,48 +327,76 @@ def _check_cuda_f32(x: torch.Tensor, name: str, what: str) -> None:
                         f"{x.dtype} {tuple(x.shape)}")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def radix_slices(rows: int, n: int, sms: int) -> tuple[int, int]:
+    """B4's cut of each row: (slices, slice length, a multiple of 4).
+    Enough (row, slice) blocks for two per SM where the rows are few, each
+    slice at least MIN_SLICE values; one slice per row otherwise."""
+    want = cdiv(2 * sms, max(rows, 1))
+    slices = max(1, min(want, n // MIN_SLICE, MAX_SLICES))
+    slice_len = next_multiple(cdiv(n, slices), 4)
+    return cdiv(n, slice_len), slice_len
+
+
 def top_k_two_stage(x2: torch.Tensor, k: int):
     """B4: top-k of each row of a (B, n) f32 tensor -> (values, int64
-    indices), sorted descending, ties to the smaller index, distinct
-    indices on rows with fewer than k finite values.
+    indices), sorted descending (NaN largest, -0 equal to +0), ties to the
+    smaller index, distinct indices.
 
-    Stage 1 keeps k candidates per chunk, and the merge passes of
-    ``two_stage_plan`` reduce them to k.  Where k is wider than a stage-1
-    chunk (the plan is None) the tree serves the call, as the JAX kernel
-    hands k > chunk to its tree; such calls are counted in ``tree_calls``
-    and logged as warnings.
+    The kernel is an exact radix select (csrc/topk.cu): three histogram
+    passes find the k-th key, one pass writes the positions above it and
+    the first ties in position order, and a sort orders the k of them.
+    Its side buffer holds ``min(n // SIDE_DIV, SIDE_MAX)`` entries per row;
+    the result does not depend on its size.
+    It serves the (n, k) that JAX's kernel serves (``kernel_serves``);
+    the tree serves the rest, as the JAX wrapper hands them to its tree:
+    such calls are counted in ``tree_calls`` and logged as warnings.
     """
     b, n = x2.shape
     if not 1 <= k <= n:
         raise ValueError(f"k={k} out of range for axis of {n}")
-    plan = two_stage_plan(n, k)
-    if plan is None:
+    if not kernel_serves(n, k):
         tree_calls["top_k_two_stage"] += 1
-        logger.warning("top_k_two_stage: k=%d is wider than a chunk of the "
-                       "(%d-wide) axis; served by the tree", k, n)
+        logger.warning("top_k_two_stage: k=%d is wider than a chunk of JAX's "
+                       "kernel on the (%d-wide) axis; served by the tree",
+                       k, n)
         return top_k_tree(x2, k)
     if x2.device.type == "cpu":
         return topk_two_stage_plain(x2, k)
     _check_cuda_f32(x2, "x", "top_k_two_stage")
+    dev = x2.device
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int64, device=dev)
     if b == 0:
-        return (torch.empty((0, k), dtype=torch.float32, device=x2.device),
-                torch.empty((0, k), dtype=torch.int64, device=x2.device))
+        return out_v, out_i
     lib = _lib()
-    vals, idx, width = x2, None, n
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        for chunk in plan:
-            m = cdiv(width, chunk) * k
-            out_v = torch.empty((b, m), dtype=torch.float32, device=x2.device)
-            out_i = torch.empty((b, m), dtype=torch.int64, device=x2.device)
+    rows = min(b, ROW_CHUNK)  # every launch's rows, the last one's fewer
+    slices, slice_len = radix_slices(rows, n, _sm_count(dev.index or 0))
+    cap = min(n // SIDE_DIV, SIDE_MAX)
+    # hist, state, cnt, side key/pos, candidate key/pos, sort scratch
+    sizes = ([rows * slices * 8192, rows * 4, rows * slices * 4]
+             + [rows * cap] * 2 + [rows * k] * 2
+             + [rows * k] * (2 if k > SORT_SMEM_KEYS else 0))
+    ws = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    ptrs, at = [], ws.data_ptr()
+    for size in sizes + [0] * (9 - len(sizes)):
+        ptrs.append(at if size else None)
+        at += 4 * size
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for r0 in range(0, b, ROW_CHUNK):
+            r1 = min(b, r0 + ROW_CHUNK)
             err = lib.bm25_topk_select(
-                vals.data_ptr(), None if idx is None else idx.data_ptr(), b,
-                width, chunk, k, out_v.data_ptr(), out_i.data_ptr(), m,
-                stream)
-            _build.check(lib, err, f"bm25_topk_select launch (chunk {chunk})")
-            vals, idx, width = out_v, out_i, m
+                x2.data_ptr() + 4 * r0 * n, r1 - r0, n, k, slices,
+                slice_len, cap, *ptrs, out_v.data_ptr() + 4 * r0 * k,
+                out_i.data_ptr() + 8 * r0 * k, stream)
+            _build.check(lib, err, "bm25_topk_select launch")
     launches["top_k_two_stage"] += 1
-    return vals, idx
+    return out_v, out_i
 
 
 # ---------------------------------------------------------------------------

@@ -14,17 +14,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    slots, with and without the hot tier and per-token weights: the
    ELL-only base bit-equal, hot results within 2e-5 * max(1, |row max|));
    B3 (empty grids, ragged D, bf16, weights, duplicate ids: bit-equal);
-   B4 (ties inside and across chunks, -inf rows, k = N, a ragged last
-   chunk, a merge in two passes, k wider than a stage-1 chunk (the tree,
-   counted), largest=False: values and indices equal to the twin and the
-   tree); B5 (membership, determinism per seed, greedy
+   B4 (heavy ties, -inf rows, k = N, ragged rows, rows split over
+   blocks, k beyond the shared-memory sort, the side buffer on and off,
+   +-0/NaN/+-inf (-0 kept), k wider than JAX's chunk (the tree, counted),
+   largest=False: values and indices equal to the twin and the tree); B5 (membership, determinism per seed, greedy
    at temperature -> 0, the twin's choices up to float noise in z);
 4. sparse main path: ``SparseEngine`` at the benchmark shape (524,288
    docs, 32,768-token Zipf vocabulary, hot_tokens=1024, 2 buckets) built
    and searched with 512 queries of 8 tokens at k=1000 and k=100, checked
    against ``ReferenceEngine`` under the fuzz campaign's comparator, with
-   B1/B2's launch counts taken over this phase alone; then each kernel
-   against its twin at the main path's own shapes, both timed;
+   B1/B2's launch counts taken over this phase alone; one batch through
+   ``create_engine(mode="auto", score_dtype="bfloat16")``, which must
+   return the f32 batch's docs and its scores rounded to bf16; then each
+   kernel against its twin at the main path's own shapes, both timed;
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -35,8 +37,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the dense step's (512, 131,072) masked scores at k=1000 and k=100, and
    ``top_k_fused_sampling(..., implementation="pallas")`` (B5 on (512,
    100) logits), with B4/B5's launch counts over this phase; then B3, B4
-   and B5 against their twins at these shapes, and B4 on (512, 524,288)
-   random scores at k=1000, all timed;
+   and B5 against their twins at these shapes (B4 also without its side
+   buffer (``SIDE_MAX = 0``), with the fill its side buffer would need
+   after an 11- or a 13-bit first digit, and beside ``torch.topk``), and
+   B4 on 524,288-wide random scores at (512, k=1000), (8, k=100) and (64,
+   k=32,768), all timed, B4 also per kernel (``torch.profiler``);
 7. library entry: ``Retriever`` over a small corpus with the engine
    ``create_engine`` picks (dense), then ``Retriever.fit`` building the
    port's engine itself, both against ``ReferenceEngine``;
@@ -69,11 +74,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``torch.matmul`` or the float64 product before it is timed), with the
    kernels' launches counted over the sweep; then every variant against its
    twin at 1028^3 and 2048^3 (bit-equal, or within E4's bound);
-11. entry points, on the card: the port's CLI (``index``, ``info``,
-   ``query`` with term boosts under ``--engine dense`` and ``sparse``,
-   ``demo``, ``eval`` on ``tests/data/mini_beir``, ``bench --suite matmul``)
-   against the same commands with ``--device cpu`` (no stemmer: the card's
-   machine has no nltk); ``compat.BM25`` on the 13-doc corpus against the
+11. entry points, on the card: the port's CLI (``info`` and ``query`` with
+   term boosts under ``--engine dense`` and ``sparse`` on an index built
+   by ``build_index(..., Tokenizer(stemmer=None), save_to=...)``, ``demo``,
+   ``eval --stemmer none`` on ``tests/data/mini_beir``, ``bench --suite
+   matmul``) against the same commands with ``--device cpu`` (no stemmer:
+   the card's machine has no nltk); ``compat.BM25`` on the 13-doc corpus against the
    oracle; ``compat.BM25v`` over phase 4's 524,288-doc CSC, which must route
    to ``SparseEngine``: 512 x 8 queries at k=1000, a weighted batch (also
    on phase 4's hot-tier layout) and ``get_scores`` against
@@ -89,6 +95,7 @@ nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import os
@@ -334,14 +341,65 @@ def phase_gather_cases(torch, gr, dev) -> None:
             f"{' weighted' if weighted else ''}: bit-equal to twin")
 
 
+@contextlib.contextmanager
+def side_max(tk, entries: int):
+    """B4's side buffer capped at ``entries`` per row (0: off) inside."""
+    saved, tk.SIDE_MAX = tk.SIDE_MAX, entries
+    try:
+        yield
+    finally:
+        tk.SIDE_MAX = saved
+
+
+def b4_kernel_us(torch, tk, x, k, calls: int = 5) -> dict:
+    """Device microseconds per call of each of B4's kernels on (x, k),
+    summed by kernel name over ``calls`` calls (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tk.top_k_two_stage(x, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            tk.top_k_two_stage(x, k)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        if e.device_time_total > 0 and name.startswith(("radix_", "sort_")):
+            out[name] = round(out.get(name, 0.0)
+                              + e.device_time_total / calls, 1)
+    return out
+
+
+def b4_side_buffer_fill(torch, tk, x, kth, bits: int) -> int:
+    """The most keys of any row of ``x`` at or above the top ``bits`` bits
+    of its k-th key ``kth``: what B4's side buffer must hold after a first
+    digit of that width."""
+    shift = 32 - bits
+    keys = tk.order_key(x) >> shift
+    return int((keys >= (tk.order_key(kth) >> shift)[:, None]).sum(1).max())
+
+
+def b4_shape(torch, tk, b, n, k) -> str:
+    """How B4 cuts and sorts a (b, n) call at k, for the log."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slices, _ = tk.radix_slices(min(b, tk.ROW_CHUNK), n, sms)
+    sort = ("shared-memory sort" if k <= tk.SORT_SMEM_KEYS
+            else "global LSD sort")
+    return f"{slices} slice{'s' if slices > 1 else ''} a row, {sort}"
+
+
 def phase_topk_cases(torch, tk, dev) -> None:
-    """B4 vs its twin and the tree: ties, -inf rows, tail chunks, k = N,
-    a merge in two passes, k wider than a stage-1 chunk (counted tree
-    calls), largest=False."""
+    """B4 vs its twin and the tree: ties, -inf rows, k = N, ragged rows,
+    rows split over blocks, k beyond the shared-memory sort, the side
+    buffer on and off, k beyond JAX's chunk (counted tree calls),
+    largest=False."""
     rng = np.random.default_rng(2)
     cases = [(5, 100, 7), (4, 16384, 100), (4, 16385, 64), (3, 40000, 16),
              (6, 131072, 1000), (3, 300, 300), (2, 50000, 1),
-             (3, 131072, 7300)]
+             (3, 131072, 7300), (3, 20000, 10001), (8, 524288, 100),
+             (2, 524288, 20000)]
     for b, n, k in cases:
         x = rng.integers(0, 6, (b, n)).astype(np.float32)  # heavy ties
         x[0] = -np.inf  # exhausted row
@@ -349,15 +407,29 @@ def phase_topk_cases(torch, tk, dev) -> None:
         if b > 2:
             x[2, : n // 2] = -np.inf
         x = torch.from_numpy(x).to(dev)
-        v, i = tk.top_k_two_stage(x, k)
-        for name, (wv, wi) in (("twin", tk.topk_two_stage_plain(x, k)),
-                               ("tree", tk.top_k_tree(x, k))):
-            compare(torch, v, wv, True, f"B4 ({b}, {n}) k={k} vs {name}")
-            compare(torch, i, wi, True, f"B4 idx ({b}, {n}) k={k} vs {name}")
+        want = {"twin": tk.topk_two_stage_plain(x, k),
+                "tree": tk.top_k_tree(x, k)}
+        for cap in (tk.SIDE_MAX, 0):
+            with side_max(tk, cap):
+                v, i = tk.top_k_two_stage(x, k)
+            for name, (wv, wi) in want.items():
+                what = f"B4 ({b}, {n}) k={k} SIDE_MAX={cap} vs {name}"
+                compare(torch, v, wv, True, what)
+                compare(torch, i, wi, True, what + " (idx)")
         if any(len(set(r)) != k for r in i.cpu().numpy().tolist()):
             raise AssertionError(f"B4 ({b}, {n}) k={k}: repeated indices")
-        log(f"[kernels] B4 ({b}, {n}) k={k} (plan {tk.two_stage_plan(n, k)})"
-            ": equal to twin and tree, distinct indices")
+        log(f"[kernels] B4 ({b}, {n}) k={k} ({b4_shape(torch, tk, b, n, k)}; side "
+            "buffer on and off): equal to twin and tree, distinct indices")
+    x = torch.tensor([[0.0, -0.0, 1.0, -0.0, 0.0, float("nan"), float("inf"),
+                       float("-inf"), float("nan"), -2.5]], device=dev)
+    for k in (1, 4, 10):
+        v, i = tk.top_k_two_stage(x, k)
+        pv, pi = tk.topk_two_stage_plain(x, k)
+        compare(torch, v.view(torch.int32), pv.view(torch.int32), True,
+                f"B4 +-0/NaN/inf k={k} (bits)")
+        compare(torch, i, pi, True, f"B4 +-0/NaN/inf k={k} (idx)")
+    log("[kernels] B4 on +-0, NaN and +-inf: values bit-equal to the twin "
+        "(-0 kept), indices equal")
     x = torch.from_numpy(rng.standard_normal((4, 40000)).astype(
         np.float32).round(1)).to(dev)
     for k in (50, 6000, 14000):
@@ -366,12 +438,12 @@ def phase_topk_cases(torch, tk, dev) -> None:
         tv, ti = tk.top_k(x, k, largest=False, implementation="tree")
         compare(torch, v, tv, True, f"B4 largest=False k={k}")
         compare(torch, i, ti, True, f"B4 idx largest=False k={k}")
-        beyond = tk.two_stage_plan(40000, k) is None
+        beyond = not tk.kernel_serves(40000, k)
         if tk.tree_calls["top_k_two_stage"] != tree_before + beyond:
             raise AssertionError("B4's tree calls are not counted")
         log(f"[kernels] B4 largest=False (4, 40000) k={k}: equal to the tree"
-            + (" (k wider than a stage-1 chunk: served by the tree, counted)"
-               if beyond else f" (plan {tk.two_stage_plan(40000, k)})"))
+            + (" (k wider than JAX's 13,440-wide chunk: served by the tree, "
+               "counted)" if beyond else f" ({b4_shape(torch, tk, 4, 40000, k)})"))
 
 
 def choice_err(torch, tk, logits, seed, got, want) -> float:
@@ -424,7 +496,7 @@ def phase_gumbel_cases(torch, tk, dev) -> None:
 def sparse_main(torch, dev, cfg, ops, session, record):
     """Phase 4: the sparse engine at the benchmark shape; returns its
     index."""
-    from bm25_tpu_torch import ReferenceEngine, create_engine
+    from bm25_tpu_torch import ReferenceEngine, SparseEngine, create_engine
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
     from bm25_tpu_torch.models.sparse import (hot_counts_for,
                                               hot_ell_for_rows,
@@ -473,6 +545,31 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     if not all(launches.values()) or any(plain.values()):
         raise AssertionError("the sparse path did not run every kernel, or "
                              "ran a plain twin")
+
+    # score_dtype="bfloat16" through create_engine(mode="auto") (sparse at a
+    # zero dense budget): the f32 batch's docs, its scores rounded to bf16
+    t0 = time.perf_counter()
+    bf16 = create_engine(
+        index, dense_budget_bytes=0, score_dtype="bfloat16",
+        hot_tokens=HOT_TOKENS, hot_budget_bytes=HOT_TOKENS * index.num_docs * 4,
+        max_buckets=MAX_BUCKETS, session=session)
+    if not isinstance(bf16, SparseEngine) or bf16.score_dtype != "bfloat16":
+        raise AssertionError(f"auto built {type(bf16).__name__} "
+                             f"{getattr(bf16, 'score_dtype', None)}")
+    k = cfg.top_k
+    docs, scores = engine.search(queries, top_k=k)
+    docs16, scores16 = bf16.search(queries, top_k=k)
+    rounded = torch.from_numpy(scores).bfloat16().float().numpy()
+    if scores16.dtype != np.float32 or not np.array_equal(docs16, docs) or \
+            not np.array_equal(scores16.view(np.uint32),
+                               rounded.view(np.uint32)):
+        raise AssertionError("score_dtype='bfloat16': not the f32 batch's "
+                             "docs and bf16-rounded scores")
+    log(f"[sparse] score_dtype='bfloat16' via create_engine(mode='auto'): "
+        f"engine built in {time.perf_counter() - t0:.2f} s; the {len(queries)}"
+        f"-query batch at k={k} returns the f32 batch's docs and its scores "
+        "rounded to bf16, bit for bit")
+    del bf16
 
     # each kernel vs its twin at the main path's shapes: B1 on every
     # bucket (its ms is the batch's total), B2 on bucket 0's hot ELL
@@ -694,39 +791,62 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
             f" GB/s of {moved} B needed; bound {b3_bound[0]:.3f} ms), "
             f"weighted {b3w_ms:.3f} ms, plain {b3_plain_ms:.3f} ms, "
             f"embedding_bag {b3_lib_ms:.3f} ms; bit-equal (both)")
-        b4 = {}
+        b4, profiled = {}, []
         for k in (cfg.top_k, cfg.top_k2):
             pv, pi = tk.topk_two_stage_plain(masked, k)
             kv, ki = tk.top_k_two_stage(masked, k)
             err = compare(torch, kv, pv, True, f"B4 k={k} vs twin")
             compare(torch, ki, pi, True, f"B4 idx k={k} vs twin")
-            ms = cuda_ms(torch, lambda: tk.top_k_two_stage(masked, k), 5)
+            ms = cuda_ms(torch, lambda: tk.top_k_two_stage(masked, k), 10)
+            # the cut-over: without the side buffer every pass reads the row
+            with side_max(tk, 0):
+                whole_ms = cuda_ms(torch, lambda: tk.top_k_two_stage(
+                    masked, k), 10)
+            # what the side buffer must hold after a first digit of 11 or 13
+            # bits, against its cap
+            cap = min(masked.shape[1] // tk.SIDE_DIV, tk.SIDE_MAX)
+            fill = {bits: b4_side_buffer_fill(torch, tk, masked,
+                                              kv[:, k - 1], bits)
+                    for bits in (11, 13)}
+            log(f"[kernels] B4 at ({masked.shape[0]}, {masked.shape[1]}) "
+                f"k={k}: keys at or above the k-th key's first digit, most "
+                f"of any row: {fill[11]} (11 bits), {fill[13]} (13 bits) of "
+                f"a {cap}-entry side buffer")
+            profiled.append((f"({masked.shape[0]}, {masked.shape[1]})",
+                             masked, k))
             tree_ms = cuda_ms(torch, lambda: tk.select_top_k(masked, k), 5)
             plain_ms = cuda_ms(torch, lambda: tk.topk_two_stage_plain(masked,
-                                                                      k), 1)
-            lib_ms = cuda_ms(torch, lambda: torch.topk(masked, k), 5)
+                                                                      k), 2)
+            lib_ms = cuda_ms(torch, lambda: torch.topk(masked, k), 10)
             b4[k] = (err, ms, plain_ms, bound(nbytes(masked, kv, ki)), lib_ms)
             log(f"[kernels] B4 at ({masked.shape[0]}, {masked.shape[1]}) "
-                f"k={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, tree "
-                f"(select_top_k) {tree_ms:.3f} ms, torch.topk {lib_ms:.3f} "
+                f"k={k}: kernel {ms:.4f} ms (without the side buffer "
+                f"{whole_ms:.4f} ms), plain {plain_ms:.3f} ms, tree "
+                f"(select_top_k) {tree_ms:.3f} ms, torch.topk {lib_ms:.4f} "
                 f"ms, bound {b4[k][3][0]:.4f} ms; equal to the twin")
-        # B4 at the sparse corpus's width: 32 stage-1 chunks, and a merge
-        # of 32,000 candidates in one block
-        k = cfg.top_k
-        wide = torch.rand((masked.shape[0], SPARSE_DOCS), device=dev,
-                          generator=torch.Generator(device=dev).manual_seed(1))
-        kv, ki = tk.top_k_two_stage(wide, k)
-        for name, (wv, wi) in (("twin", tk.topk_two_stage_plain(wide, k)),
-                               ("tree", tk.select_top_k(wide, k))):
-            compare(torch, kv, wv, True, f"B4 wide k={k} vs {name}")
-            compare(torch, ki, wi, True, f"B4 wide idx k={k} vs {name}")
-        ms = cuda_ms(torch, lambda: tk.top_k_two_stage(wide, k), 3)
-        tree_ms = cuda_ms(torch, lambda: tk.select_top_k(wide, k), 3)
-        log(f"[kernels] B4 at ({wide.shape[0]}, {wide.shape[1]}) random "
-            f"k={k} (plan {tk.two_stage_plan(wide.shape[1], k)}): kernel "
-            f"{ms:.3f} ms, tree (select_top_k) {tree_ms:.3f} ms; equal to "
-            "the twin and the tree")
-        del wide, kv, ki
+        # B4 at the sparse corpus's width: random scores at k=1000, few rows
+        # (each row split over blocks) and k beyond the shared-memory sort
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for b, k in ((masked.shape[0], cfg.top_k), (8, cfg.top_k2),
+                     (64, 32768)):
+            wide = torch.rand((b, SPARSE_DOCS), device=dev, generator=gen)
+            kv, ki = tk.top_k_two_stage(wide, k)
+            for name, (wv, wi) in (("twin", tk.topk_two_stage_plain(wide, k)),
+                                   ("tree", tk.select_top_k(wide, k))):
+                compare(torch, kv, wv, True, f"B4 ({b}, wide) k={k} vs {name}")
+                compare(torch, ki, wi, True,
+                        f"B4 ({b}, wide) idx k={k} vs {name}")
+            ms = cuda_ms(torch, lambda: tk.top_k_two_stage(wide, k), 5)
+            tree_ms = cuda_ms(torch, lambda: tk.select_top_k(wide, k), 3)
+            lib_ms = cuda_ms(torch, lambda: torch.topk(wide, k), 5)
+            log(f"[kernels] B4 at ({b}, {SPARSE_DOCS}) random k={k} "
+                f"({b4_shape(torch, tk, b, SPARSE_DOCS, k)}): kernel "
+                f"{ms:.4f} ms, tree (select_top_k) {tree_ms:.3f} ms, "
+                f"torch.topk {lib_ms:.4f} ms, bound "
+                f"{bound(nbytes(wide, kv, ki))[0]:.4f} ms; equal to the twin "
+                "and the tree")
+            profiled.append((f"({b}, {SPARSE_DOCS}) random", wide, k))
+            del kv, ki
         logits = (vals - vals[:, :1]).contiguous()
         b5_err = choice_err(torch, tk, logits, 12345,
                             tk.gumbel_choice(logits, 12345),
@@ -737,6 +857,11 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
         log(f"[kernels] B5 at logits {tuple(logits.shape)}: kernel "
             f"{b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, max z gap of "
             f"differing choices {b5_err:.3e}")
+        # B4's kernels one by one, after every timing of this phase
+        for what, x, k in profiled:
+            log(f"[kernels] B4 at {what} k={k}: device us per call "
+                f"{b4_kernel_us(torch, tk, x, k)} (torch.profiler)")
+        del profiled, wide
     record["gather_add_rows"] = kernel_record(
         b3_launches, 0.0, b3_ms, b3_plain_ms, b3_bound, b3_lib_ms)
     record["top_k_two_stage"] = kernel_record(
@@ -1277,7 +1402,8 @@ def entry_points(torch, session, index) -> None:
     import shutil
     import tempfile
 
-    from bm25_tpu_torch import ReferenceEngine, SparseEngine, create_engine
+    from bm25_tpu_torch import (ReferenceEngine, SparseEngine, Tokenizer,
+                                build_index, create_engine)
     from bm25_tpu_torch.bench import BenchConfig, make_queries
     from bm25_tpu_torch.compat import BM25, BM25v
     from bm25_tpu_torch.datasets import synthetic_corpus
@@ -1290,13 +1416,15 @@ def entry_points(torch, session, index) -> None:
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=scratch)
     try:
-        docs_file = os.path.join(work, "docs.txt")
-        with open(docs_file, "w") as f:
-            f.write("\n".join(synthetic_corpus(4000, vocab=3000, avg_len=24,
-                                               seed=0)) + "\n")
+        # the index is built through the library: the CLI's index command
+        # stems, as JAX's does, and the card's machine has no nltk; query
+        # reads the saved tokenizer config
         idx = os.path.join(work, "idx")
-        log("[cli] " + cli(["index", docs_file, "-o", idx, "--stemmer",
-                            "none"]).strip())
+        _, stats = build_index(
+            synthetic_corpus(4000, vocab=3000, avg_len=24, seed=0),
+            tokenizer=Tokenizer(stemmer=None), save_to=idx)
+        log(f"[cli] build_index(..., Tokenizer(stemmer=None), save_to=...): "
+            f"{stats.num_docs} docs, vocab {stats.vocab_size}")
         info = json.loads(cli(["info", idx]))
         if info["num_docs"] != 4000:
             raise AssertionError(f"info: {info}")

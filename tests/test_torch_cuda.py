@@ -179,7 +179,7 @@ def test_cuda_gather_add_rows_empty_batch_and_checks(cuda_device):
         gr.gather_add_rows(table.double(), ids)
 
 
-# -- B4 two-stage top-k ---------------------------------------------------------
+# -- B4 top-k (radix select) ----------------------------------------------------
 
 
 def topk_input(b, n, seed, dev):
@@ -193,11 +193,16 @@ def topk_input(b, n, seed, dev):
     return torch.from_numpy(x).to(dev)
 
 
-# b, n, k: one block, several blocks, tail chunks, k == n, a merge in
-# two passes (8 x 7,300 candidates exceed one block)
+# b, n, k: one block, ragged rows, k == n, k = 1, a wide shared-memory
+# sort, rows split over blocks, k beyond the shared-memory sort
 TOPK_CASES = [(5, 100, 7), (4, 16384, 100), (4, 16385, 64), (3, 40000, 16),
               (6, 131072, 1000), (3, 300, 300), (2, 50000, 1),
-              (3, 131072, 7300)]
+              (3, 131072, 7300), (8, 524288, 100), (2, 524288, 20000)]
+
+
+def assert_same_bits(got, want):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -216,13 +221,69 @@ def test_cuda_topk_two_stage_matches_twin_and_tree(cuda_device, b, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("side_max", [None, 0, 64])
+def test_cuda_topk_split_rows_and_side_buffer(cuda_device, side_max,
+                                              monkeypatch):
+    """Few rows, each split over several blocks, with the side buffer at
+    its default, off, and too small for any row."""
+    if side_max is not None:
+        monkeypatch.setattr(tk, "SIDE_MAX", side_max)
+    x = topk_input(8, 524288, 3, cuda_device)
+    x[3] = torch.rand(524288, device=cuda_device)
+    x[4] = 1 + 0.25 * torch.rand(524288, device=cuda_device)  # one digit
+    assert tk.radix_slices(8, 524288, 132)[0] > 1
+    for k in (1, 100, 5000):
+        got = tk.top_k_two_stage(x, k)
+        assert_same_bits(got, tk.topk_two_stage_plain(x, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [tk.SORT_SMEM_KEYS + 1, 32768])
+def test_cuda_topk_global_sort_beyond_shared_memory(cuda_device, k):
+    x = topk_input(3, 524288, k, cuda_device)
+    x[1] = torch.rand(524288, device=cuda_device)
+    v, i = tk.top_k_two_stage(x, k)
+    assert_same_bits((v, i), tk.topk_two_stage_plain(x, k))
+    assert torch.equal(i, tk.top_k_tree(x, k)[1])
+
+
+@pytest.mark.cuda
+def test_cuda_topk_equal_rows_and_special_values(cuda_device):
+    """All-equal rows (every key is T), and +-0 / NaN / +-inf: -0 stays -0
+    and NaN ranks largest, as in the twin."""
+    x = torch.full((3, 70001), 2.5, device=cuda_device)
+    for k in (1, 777, 70001 // 16):
+        assert_same_bits(tk.top_k_two_stage(x, k),
+                         tk.topk_two_stage_plain(x, k))
+    vals = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                         float("-inf"), 1.0, -1.0], device=cuda_device)
+    x = vals[torch.from_numpy(np.random.default_rng(5).integers(
+        0, 7, (4, 3001))).to(cuda_device)]
+    for k in (1, 50, 3001):
+        assert_same_bits(tk.top_k_two_stage(x, k),
+                         tk.topk_two_stage_plain(x, k))
+
+
+@pytest.mark.cuda
+def test_cuda_topk_rows_beyond_one_launch(cuda_device):
+    """More rows than one launch takes (ROW_CHUNK): the rest go in a second
+    launch at their row offset, with one count for the call."""
+    x = topk_input(tk.ROW_CHUNK + 3, 700, 9, cuda_device)
+    x[-1] = torch.rand(700, device=cuda_device)
+    before = tk.launches["top_k_two_stage"]
+    got = tk.top_k_two_stage(x, 50)
+    assert tk.launches["top_k_two_stage"] == before + 1
+    assert_same_bits(got, tk.topk_two_stage_plain(x, 50))
+
+
+@pytest.mark.cuda
 def test_cuda_topk_largest_false_and_k_beyond_one_block(cuda_device):
     x = topk_input(3, 40000, 1, cuda_device)
     v, i = tk.top_k(x, 50, largest=False, implementation="pallas")
     tv, ti = tk.top_k(x, 50, largest=False, implementation="tree")
     assert torch.equal(v, tv) and torch.equal(i, ti)
-    # k wider than a stage-1 chunk (13,334 of 40,000): the tree, counted
-    assert tk.two_stage_plan(40000, 14000) is None
+    # k wider than JAX's chunk (13,440 of 40,000): the tree, counted
+    assert not tk.kernel_serves(40000, 14000)
     before = dict(tk.tree_calls)
     v, i = tk.top_k(x, 14000, implementation="pallas")
     assert tk.tree_calls["top_k_two_stage"] == \

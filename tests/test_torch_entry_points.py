@@ -113,6 +113,29 @@ def test_eval_without_stemmer_and_run_file(tmp_path, capsys):
     assert 0 < out["mrr@10"] <= 1
 
 
+def test_index_takes_the_jax_cli_options_only(tmp_path, animal_corpus,
+                                              capsys):
+    """``index`` has no ``--stemmer`` (nor has JAX's); an unstemmed index
+    is built through the library, and ``query`` reads its saved
+    tokenizer, as JAX's CLI does on the same directory."""
+    from bm25_tpu_torch import Tokenizer, build_index
+
+    corpus = tmp_path / "docs.txt"
+    corpus.write_text("\n".join(animal_corpus))
+    for cli in (main, jax_main):
+        with pytest.raises(SystemExit):
+            cli(["index", str(corpus), "-o", str(tmp_path / "x"),
+                 "--stemmer", "none"])
+    capsys.readouterr()
+    idx = tmp_path / "plain"
+    build_index(animal_corpus, tokenizer=Tokenizer(stemmer=None),
+                save_to=str(idx))
+    args = ["query", str(idx), "cats purring", "fish", "-k", "3"]
+    got = run(main, ["--device", "cpu", *args], capsys)
+    assert got == run(jax_main, args, capsys)
+    assert "doc=" in got
+
+
 def test_bench_suites(capsys, monkeypatch):
     small = matmul_bench.bench_matmul
     monkeypatch.setattr(matmul_bench, "bench_matmul",

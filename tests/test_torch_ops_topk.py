@@ -1,9 +1,10 @@
 """Port top-k op library (ops/topk.py) against the JAX one, on the CPU.
 
-B4's twin (``top_k(implementation="pallas")`` on CPU tensors) is held to
-the JAX Pallas kernel, run in interpret mode as the JAX package's own
-tests run it, on the golden cases of ``tests/test_ops_topk.py``: values
-and indices equal.  ``top_k`` and ``top_k_blockwise`` are held to JAX
+B4's twin (``top_k(implementation="pallas")`` on CPU tensors: the radix
+select's passes in torch ops) is held to the JAX Pallas kernel, run in
+interpret mode as the JAX package's own tests run it, on the golden cases
+of ``tests/test_ops_topk.py``: values and indices equal; to a stable sort
+on cases aimed at its digits; and its routing to JAX's chunk rule.  ``top_k`` and ``top_k_blockwise`` are held to JAX
 over axis, largest and integer dtypes.  B5's draws cannot match the TPU
 PRNG, so its twin is held to membership, determinism per seed, the
 sampling distribution (a chi-square test) and greedy choice as the
@@ -93,66 +94,113 @@ def test_pallas_twin_two_stage_vs_jax(n, k, largest):
     assert_same(got, want)
 
 
-def test_pallas_k_beyond_one_block_takes_the_tree():
-    """k wider than a stage-1 chunk: the tree serves it (counted), as the
-    JAX wrapper hands k > chunk to its tree; indices stay distinct."""
-    x = np.full((4, 20000), NINF, np.float32)
-    x[:, :40] = np.random.default_rng(0).random((4, 40))
-    assert port.two_stage_plan(20000, 10001) is None
-    before = port.tree_calls["top_k_two_stage"]
-    v, i = top_k(torch.from_numpy(x), 10001, implementation="pallas")
-    assert port.tree_calls["top_k_two_stage"] == before + 1
+def jax_kernel_serves(n, k):
+    """JAX's routing, re-derived from bm25_tpu/ops/topk.py:251-261: its
+    kernel runs unless there are several chunks and k is wider than one."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    chunk = min(jax_topk._PALLAS_CHUNK, cdiv(n, 128) * 128)
+    nblocks = min(cdiv(n, chunk), jax_topk._PALLAS_MAX_BLOCKS)
+    chunk = cdiv(cdiv(n, nblocks), 128) * 128
+    nblocks = cdiv(n, chunk)
+    return not (nblocks > 1 and k > chunk)
+
+
+# n, k, whether JAX's kernel (and so B4's) serves it
+ROUTES = [(20000, 10001, True), (20000, 10113, False),
+          (524288, 20000, True), (524288, 32769, False),
+          (16384, 16384, True), (100, 7, True), (40000, 13440, True),
+          (40000, 13441, False), (300000, 18816, True),
+          (300000, 18817, False)]
+
+
+@pytest.mark.parametrize("n,k,kernel", ROUTES)
+def test_b4_routes_as_jax_kernel(n, k, kernel):
+    """The kernel-or-tree decision is JAX's chunk rule; the tree's calls
+    are counted, and either way the result is JAX's tree's."""
+    assert jax_kernel_serves(n, k) == kernel
+    assert port.kernel_serves(n, k) == kernel
+    rng = np.random.default_rng(n + k)
+    x = rng.integers(0, 40, (2, n)).astype(np.float32)  # ties
+    x[1, n // 3:] = NINF  # fewer finite values than k on wide k
+    before = (dict(port.launches), dict(port.plain_calls),
+              dict(port.tree_calls))
+    v, i = top_k(torch.from_numpy(x), k, implementation="pallas")
+    assert port.launches == before[0]  # CPU tensors launch nothing
+    assert port.plain_calls["top_k_two_stage"] == \
+        before[1]["top_k_two_stage"] + kernel
+    assert port.tree_calls["top_k_two_stage"] == \
+        before[2]["top_k_two_stage"] + (not kernel)
+    assert_same((v, i), jax_topk.top_k(jnp.asarray(x), k,
+                                       implementation="tree"))
     for row in i.numpy():
-        assert len(set(row.tolist())) == 10001
-    lv, li = jax_topk.top_k(jnp.asarray(x), 10001, implementation="tree")
-    assert_same((v, i), (lv, li))
+        assert len(np.unique(row)) == k
 
 
-def test_two_stage_plan_and_twin_agree_with_tree():
-    assert port.two_stage_plan(16384, 16384) == [16384]
-    assert port.two_stage_plan(16385, 64) == [8193, 128]
-    assert port.two_stage_plan(131072, 1000) == [16384, 8000]
-    assert port.two_stage_plan(131072, 2049) == [16384, 16392]
-    assert port.two_stage_plan(524288, 1000) == [16384, 32000]
-    # more candidates than one merge block: merged in passes
-    assert port.two_stage_plan(131072, 7300) == [16384, 29200, 14600]
-    assert port.two_stage_plan(524288, 16384) == [16384, 52429, 54614,
-                                                  49152]
-    assert port.two_stage_plan(131072, 16385) is None
-    x = np.random.default_rng(1).integers(0, 4, (5, 131072)).astype(
-        np.float32)
-    x[0] = NINF
-    got = port.topk_two_stage_plain(torch.from_numpy(x), 100)
-    assert_same(got, jax_topk.top_k_tree(jnp.asarray(x), 100))
-    with pytest.raises(ValueError, match="wider than a chunk"):
-        port.topk_two_stage_plain(torch.from_numpy(x), 16385)
+def stable_desc(x, k):
+    """Reference: a stable descending sort of each row (NaN largest, -0
+    equal to +0), cut to k, by numpy's lexsort."""
+    idx = []
+    for row in x:
+        nan = np.isnan(row)
+        val = np.where(nan, 0.0, row) + np.float32(0.0)  # -0 -> +0
+        idx.append(np.lexsort((np.arange(len(row)), -val, ~nan))[:k])
+    idx = np.array(idx)
+    return np.take_along_axis(x, idx, 1), idx
 
 
-def test_multipass_merge_equals_tree_at_full_width():
-    """7,300 of 131,072: 8 x 7,300 candidates exceed one merge block, so
-    the twin merges in two passes; the result is the tree's."""
-    rng = np.random.default_rng(12)
-    x = rng.integers(0, 50, (2, 131072)).astype(np.float32)  # heavy ties
-    x[1, 5000:] = NINF  # fewer finite values than k
-    got = port.topk_two_stage_plain(torch.from_numpy(x), 7300)
-    assert_same(got, jax_topk.top_k_tree(jnp.asarray(x), 7300))
-    assert len(set(got[1][1].tolist())) == 7300
+def digit_cases():
+    rng = np.random.default_rng(7)
+    one = np.float32(1.5).view(np.uint32)
+    last = (one + rng.integers(0, 1 << 10, (3, 6000))).astype(np.uint32)
+    middle = (one + (rng.integers(0, 1 << 11, (3, 6000)) << 10)).astype(
+        np.uint32)
+    # the low 19 bits zero: the keys differ in the first digit only
+    first = (rng.integers(0, 1 << 13, (3, 6000)) << 19).astype(np.uint32)
+    specials = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.0,
+                                    -1.0], np.float32), (5, 3000))
+    mostly_zero = np.zeros((3, 40000), np.float32)
+    mostly_zero[:, rng.integers(0, 40000, 500)] = rng.random(500) + 0.5
+    mostly_zero[2, 30000:] = NINF
+    return {
+        "last_digit_only": (last.view(np.float32), 100),
+        "middle_digit_only": (middle.view(np.float32), 100),
+        "first_digit_only": (first.view(np.float32), 100),
+        "all_equal": (np.full((3, 5000), 2.5, np.float32), 7),
+        "zeros_nan_inf": (specials, 50),
+        "zeros_nan_inf_k_n": (specials, 3000),
+        "all_neg_inf": (np.full((3, 20000), NINF, np.float32), 100),
+        "k_one": (rng.standard_normal((4, 30000)).astype(np.float32), 1),
+        "k_equals_n": (rng.integers(0, 5, (3, 777)).astype(np.float32), 777),
+        "threshold_bin_holds_most_of_row": (mostly_zero, 3000),
+    }
 
 
-@pytest.mark.parametrize("largest", [True, False])
-def test_multipass_merge_matches_jax_pallas(monkeypatch, largest):
-    """Narrow chunks force four passes (a ragged last stage-1 chunk
-    narrower than k included); the answer is the JAX kernel's."""
-    monkeypatch.setattr(port, "STAGE1_LEN", 64)
-    monkeypatch.setattr(port, "MERGE_LEN", 256)
-    assert port.two_stage_plan(5000, 40) == [64, 244, 174, 120]
-    rng = np.random.default_rng(13)
-    x = rng.standard_normal((4, 5000)).astype(np.float32).round(1)  # ties
-    x[0] = NINF
-    x[1, 30:] = NINF
-    x[2, ::7] = np.inf
-    got, want = both(x, 40, largest=largest)
-    assert_same(got, want)
+DIGIT_CASES = digit_cases()
+
+
+@pytest.mark.parametrize("name", list(DIGIT_CASES))
+def test_twin_equals_stable_sort_on_digit_cases(name):
+    """B4's twin (histogram passes, threshold, ordered compaction) against
+    a stable descending sort, bit for bit, -0 kept as -0."""
+    x, k = DIGIT_CASES[name]
+    v, i = port.topk_two_stage_plain(torch.from_numpy(x), k)
+    want_v, want_i = stable_desc(x, k)
+    np.testing.assert_array_equal(i.numpy(), want_i)
+    np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                  want_v.view(np.uint32))
+
+
+def test_radix_threshold_is_the_kth_key():
+    """T is the k-th largest key and ties = k - #keys > T."""
+    x, _ = DIGIT_CASES["threshold_bin_holds_most_of_row"]
+    keys = port.order_key(torch.from_numpy(x))
+    for k in (1, 499, 3000, 40000):
+        thr, ties = port.radix_threshold(keys, k)
+        kth = torch.sort(keys, dim=1, descending=True).values[:, k - 1]
+        assert torch.equal(thr, kth)
+        assert torch.equal(ties, k - (keys > thr[:, None]).sum(1))
 
 
 def test_order_key_is_the_float_order():

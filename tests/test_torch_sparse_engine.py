@@ -321,3 +321,80 @@ def test_reference_index_end_to_end(reference_index_dir):
     docs, scores = eng.search(q, top_k=2)
     assert docs[0, 0] == 0
     assert scores[0, 0] == pytest.approx(1.5877, abs=1e-3)
+
+
+def bf16_round(a: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 (round to nearest even) -> f32, as numpy."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("hot_tokens", [0, 24])
+def test_score_dtype_bfloat16_matches_jax(lucene_index, hot_tokens):
+    """score_dtype="bfloat16": the JAX engine's docs and its bf16-rounded
+    scores, bit for bit, returned as f32; the f32 search's docs and its
+    scores rounded on the host; get_scores follows."""
+    kw = dict(hot_tokens=hot_tokens, hot_budget_bytes=1 << 22, max_buckets=2,
+              score_dtype="bfloat16")
+    port_engine = SparseEngine.from_scored_index(lucene_index, session=CPU,
+                                                 **kw)
+    jax_engine = jax_sparse.SparseEngine.from_scored_index(lucene_index, **kw)
+    f32 = SparseEngine.from_scored_index(
+        lucene_index, session=CPU, **{**kw, "score_dtype": "float32"})
+    assert port_engine.score_dtype == "bfloat16"
+    rng = np.random.default_rng(hot_tokens + 11)
+    queries = rng.integers(-1, lucene_index.vocab_size, (13, 5),
+                           dtype=np.int32)
+    queries[0] = -1
+    weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
+    for k, w in ((1, None), (10, None), (100, None), (10, weights)):
+        dd, ds = port_engine.search(queries, top_k=k, weights=w)
+        jd, js = jax_engine.search(queries, top_k=k, weights=w)
+        assert ds.dtype == js.dtype == np.float32
+        np.testing.assert_array_equal(dd, jd)
+        np.testing.assert_array_equal(ds.view(np.uint32), js.view(np.uint32))
+        fd, fs = f32.search(queries, top_k=k, weights=w)
+        np.testing.assert_array_equal(dd, fd)
+        np.testing.assert_array_equal(ds.view(np.uint32),
+                                      bf16_round(fs).view(np.uint32))
+    q = queries[3]
+    np.testing.assert_array_equal(port_engine.get_scores(q),
+                                  bf16_round(f32.get_scores(q)))
+
+
+def test_score_dtype_rejects_other_types(lucene_index):
+    for bad in ("float16", "bf16", None):
+        with pytest.raises(ValueError, match="score_dtype must be") as pe:
+            SparseEngine.from_scored_index(lucene_index, session=CPU,
+                                           score_dtype=bad)
+        with pytest.raises(ValueError, match="score_dtype must be") as je:
+            jax_sparse.SparseEngine.from_scored_index(lucene_index,
+                                                      score_dtype=bad)
+        assert str(pe.value) == str(je.value)
+
+
+def test_auto_passes_score_dtype_to_the_sparse_engine_only(lucene_index):
+    """create_engine(mode="auto") hands score_dtype to the sparse engine
+    and drops it for the dense one, as JAX's does."""
+    q = np.random.default_rng(12).integers(-1, lucene_index.vocab_size,
+                                           (9, 4))
+    sparse = create_engine(lucene_index, session=CPU, dense_budget_bytes=0,
+                           score_dtype="bfloat16")
+    assert isinstance(sparse, SparseEngine)
+    assert sparse.score_dtype == "bfloat16"
+    ref_d, ref_s = create_engine(lucene_index, mode="sparse",
+                                 session=CPU).search(q, top_k=20)
+    sd, ss = sparse.search(q, top_k=20)
+    np.testing.assert_array_equal(sd, ref_d)
+    np.testing.assert_array_equal(ss, bf16_round(ref_s))
+    dense = create_engine(lucene_index, session=CPU, dense_budget_bytes=1 << 40,
+                          score_dtype="bfloat16")
+    assert isinstance(dense, DenseEngine)
+    dd, ds = dense.search(q, top_k=20)
+    assert ds.dtype == np.float32
+    np.testing.assert_array_equal(
+        ds, create_engine(lucene_index, mode="dense",
+                          session=CPU).search(q, top_k=20)[1])
+    assert not np.array_equal(ds, bf16_round(ds))  # f32, not rounded
+    with pytest.raises(TypeError):
+        create_engine(lucene_index, mode="dense", session=CPU,
+                      score_dtype="bfloat16")
