@@ -10,7 +10,10 @@ and the variants are gated by size as the scripts gate them:
   each K step (the script's ``mm_resident`` at each ``tk``);
 * E2 (``exp_r4_matmul_tiles4.py``): ``matmul_row_strip`` at every strip
   height whose A strip fits the card's shared memory, and at s <= 1600 one
-  block over all strips (``mm_single_dot``'s grid of one);
+  block over all strips (``mm_single_dot``'s grid of one); each E2 row
+  carries the bytes its plan reckons to read through the L2
+  (``row_strip_l2_bytes``: B once per strip, A once per column group), so
+  a row shows what a taller strip saves;
 * E3 (``exp_r4_matmul_dma.py``): ``matmul_pipelined`` on each tile at 2, 3
   and 4 stages, at s <= 2048 (the script's sizes 1028 and 2048) where s
   is a multiple of 4;
@@ -37,9 +40,11 @@ that restores the setting) for ``"default"``, and for ``"bf16in"``
 has that overload for the device, else ``torch.matmul`` of the bf16 operands (bf16 out),
 named in the row.  The port never calls these yardsticks itself.
 
-Timing on the card is device time: CUDA events around ``iters``
-back-to-back launches after one warm-up call, the mean per launch.  On the
-CPU (plain twins) the host clock times the calls; each row names its clock.
+Timing on the card: CUDA events around ``iters`` back-to-back calls after
+one warm-up call, the mean per call, as ``bench/matmul_bench.py`` times
+B6.  A wrapper's host work (E2 packs B on every call) counts where it
+takes longer than the card.  On the CPU (plain twins) the host clock times
+the calls; each row names its clock.
 
 Run: ``python -m bm25_tpu_torch.bench.matmul_schedules [--sizes 1028 2048
 4096] [--iters N] [--device cuda]``; it prints the JSON list of rows.
@@ -132,13 +137,16 @@ def variants(s: int, device: torch.device) -> list[tuple[dict, object]]:
     fitting = [h for h in ms.STRIP_HEIGHTS
                if ms.row_strip_smem_bytes(s, h) <= smem]
     for h in fitting:
+        plan = ms.row_strip_plan(s, s, s, h, None, sms)
         out.append(({"experiment": "E2", "variant": "row_strip",
-                     "strip_m": h},
+                     "strip_m": h, **ms.row_strip_l2_bytes(s, s, s, plan)},
                     lambda a, b, h=h: ms.matmul_row_strip(a, b, h)))
     if s <= 1600 and fitting:
         h = fitting[-1]
+        plan = ms.row_strip_plan(s, s, s, h, 1, sms)
         out.append(({"experiment": "E2", "variant": "single_block",
-                     "strip_m": h, "blocks": 1},
+                     "strip_m": h, "blocks": 1,
+                     **ms.row_strip_l2_bytes(s, s, s, plan)},
                     lambda a, b, h=h: ms.matmul_row_strip(a, b, h, blocks=1)))
     if s <= 2048 and s % 4 == 0:  # E3's 16-byte copies need K, N % 4 == 0
         for t in ms.PIPELINED_TILES:

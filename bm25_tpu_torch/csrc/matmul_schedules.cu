@@ -43,14 +43,48 @@
 //   Single-buffered: a barrier per BK step.
 // E2 matmul_row_strip: the TPU keeps one operand whole in VMEM and streams
 //   the other once.  B (4.2 MB at 1028^2) cannot sit in 227 KB of shared
-//   memory, but an A strip can: a block holds strip_m rows of A (all of K)
-//   in dynamic shared memory, streams B through a 32 x 128 staging tile,
-//   and writes each 128-column piece of its C strip once.  The L2 serves
-//   B's repeats across strips.  One block per strip (mm_b_resident), or a
-//   grid of `blocks` blocks walking the strips (blocks = 1: mm_single_dot's
-//   grid of one, on one SM).  Shared memory above 48 KB is opted into with
+//   memory, but an A strip can: a block holds strip_m (8, 16 or 32) rows of
+//   A, all of K, resident in dynamic shared memory (opted into with
 //   cudaFuncAttributeMaxDynamicSharedMemorySize, the counterpart of the
-//   script's vmem_limit_bytes.
+//   script's vmem_limit_bytes) and streams B.  What bounds it:
+//   - the FMA pipe, if the shared-memory pipe keeps up: each of 8 consumer
+//     warps holds 8 rows x 128 columns of C, a thread 8 x 4 in registers;
+//     per four k values it reads the 8 rows' A values as 16-byte warp-wide
+//     broadcasts and 4 rows of B as 16-byte loads, 12 reads for 128 FMAs;
+//   - B's traffic through the L2: a block feeds each B value it streams to
+//     strip_m FMAs, so at strip 8 the SMs would need ~64 bytes of B per
+//     clock each, more than the L2 delivers.  Taller strips need less, but
+//     strip_m K 4 bytes must fit the block's 227 KB (the wrapper's default
+//     is the tallest strip that fits);
+//   - filling the card: the grid is (strip, column group), and the groups
+//     are the fewest whose blocks reach the SM count (the wrapper's plan);
+//   - the number of copies (below).
+//   Copies are Hopper's bulk asynchronous copies (cp.async.bulk), issued by
+//   a ninth, producer warp and completing on mbarriers with their byte
+//   counts.  Each copy is as large as the data allows (one copy per 1-2 KB
+//   tile row was markedly slower at strips 16 and 32 on an H100): the A
+//   strip is one copy (its rows are contiguous), and the wrapper lays B out
+//   by panels (each BN-wide panel's K rows contiguous), so a BK x BN tile
+//   (4096 floats, BN = 8192 / strip_m columns) is one copy.  The tiles pass
+//   through a ring of as many 16 KB slots as the strip leaves (3 to 8) with
+//   a full and an empty barrier per slot; the phase bits carry across
+//   panels and strips.  A consumer warp frees a slot as soon as its B
+//   values are in registers.  A narrow panel (the ragged last columns)
+//   takes tiles of up to 4096 / width rows, and a warp with at most 64 of
+//   its columns gives each lane one row and a few column quads, not 8 rows
+//   x 4 columns on a handful of lanes (at 1028^3 every block's 4-column
+//   tail panel would take a lane 1028 x 32 serial FMAs).
+//   A block walks its column group in BN-wide panels, and with `blocks`
+//   set, a grid of that many blocks walks the strips, reloading A once a
+//   strip's consumers release it (blocks = 1: mm_single_dot's grid of one,
+//   on one SM).  Bulk copies need 16-byte aligned runs of whole 16-byte
+//   units; the wrapper stages an A that is not so into a padded copy (B's
+//   packing pads its panels), and the loops stop at the real K and N.  A
+//   wait that never ends traps (a launch failure) instead of hanging the
+//   card.  A cluster of blocks over consecutive strips, each B tile
+//   multicast to all of them, was tried and lost to one block at each
+//   size's fastest strip (PERF.md): the slot hand-off across the
+//   cluster cost more than the L2 reads it saved.
 // E3 matmul_pipelined: the script copies A strips by hand into a 2-slot
 //   VMEM buffer so strip i+1's copy overlaps strip i's product.  Here both
 //   operands' tiles of step i+1.. are copied by cp.async.cg (16 bytes per
@@ -69,16 +103,19 @@
 //   bf16 so that each register's two k values are adjacent.  Rows of the
 //   staged tiles are padded so a warp's fragment reads hit distinct banks.
 //
-// Simple first: no wgmma, TMA or persistent blocks yet.
+// E1, E3 and E4 are simple first: no wgmma, TMA or persistent blocks yet.
 
 #include "matmul_tiled.cuh"  // matmul_tiled_kernel (E1 is B6's body)
 
 namespace {
 
-constexpr int THREADS = 256;  // E2, E3
+constexpr int THREADS = 256;  // E3
 constexpr int DEFAULT_SMEM = 48 * 1024;
-constexpr int STRIP_BN = 128;  // E2: columns of C per pass
-constexpr int STRIP_BK = 32;   // E2: rows of B per staged tile
+constexpr int STRIP_WARPS = 8;  // E2's consumer warps; one more produces
+constexpr int STRIP_THREADS = 32 * (STRIP_WARPS + 1);
+constexpr int STRIP_MIN_STAGES = 3;        // E2's ring of B tiles: as
+constexpr int STRIP_MAX_STAGES = 8;        // many slots as shared memory
+constexpr int STRIP_TILE_FLOATS = 4096;    // holds; one slot is 16 KB
 constexpr int MMA_BM = 64, MMA_BN = 64, MMA_BK = 32, MMA_THREADS = 128;
 
 // ---------------------------------------------------------------- E1 ----
@@ -104,64 +141,309 @@ int launch_sweep(const float* a, const float* b, float* c, int64_t m,
 
 // ---------------------------------------------------------------- E2 ----
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also adds `bytes` to the phase's expected transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`.  No
+// wait of this kernel lasts more than a few milliseconds; one that spins
+// 2^26 times is a protocol fault and traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// `bytes` from global memory to this CTA's shared memory, completing on
+// `bar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__host__ __device__ constexpr int64_t imin(int64_t x, int64_t y) {
+  return x < y ? x : y;
+}
+
 template <int SM>
-__global__ void __launch_bounds__(THREADS)
-row_strip_kernel(const float* __restrict__ a, const float* __restrict__ b,
+struct StripShape {
+  static constexpr int ROW_GROUPS = SM / 8;  // warps over the strip's rows
+  static constexpr int BN = 128 * STRIP_WARPS / ROW_GROUPS;  // panel width
+  static constexpr int BK = STRIP_TILE_FLOATS / BN;          // tile depth
+};
+
+// shared memory: the ring's slots, the A strip (lda = K rounded up to 4),
+// then the barriers: full[MAX], empty[MAX], a_full, a_empty
+__host__ __device__ constexpr size_t strip_smem_bytes(int sm, int64_t lda,
+                                                      int stages) {
+  return (stages * STRIP_TILE_FLOATS + sm * lda) * sizeof(float) +
+         (2 * STRIP_MAX_STAGES + 2) * sizeof(uint64_t);
+}
+
+// Rows of B per tile of a panel whose slot rows are wr floats (its width
+// rounded up to 4): BK for a full panel, deeper for a narrow one, so a
+// narrow tail panel takes few trips around the ring.
+__host__ __device__ constexpr int panel_rows(int wr) {
+  return STRIP_TILE_FLOATS / wr / 4 * 4;
+}
+
+__device__ __forceinline__ float part(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += a(row i, k + q) * b(k + q, j) for q < 4, in ascending k:
+// av[i] holds row i's four A values (k .. k + 3), bv[q] B's row k + q at
+// this thread's four columns
+__device__ __forceinline__ void strip_fma4(float (&acc)[8][4],
+                                           const float4 (&av)[8],
+                                           const float4* bv, int nq) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q < nq) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = part(av[i], q);
+        acc[i][0] = __fmaf_rn(x, bv[q].x, acc[i][0]);
+        acc[i][1] = __fmaf_rn(x, bv[q].y, acc[i][1]);
+        acc[i][2] = __fmaf_rn(x, bv[q].z, acc[i][2]);
+        acc[i][3] = __fmaf_rn(x, bv[q].w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// the 8 rows' A values at k .. k + 3: the same 16 bytes for the whole warp
+__device__ __forceinline__ void load_a4(float4 (&av)[8], const float* ak,
+                                        int64_t lda) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    av[i] = *reinterpret_cast<const float4*>(ak + i * lda);
+}
+
+// The warp is done reading a ring slot: one arrival on its empty barrier.
+__device__ __forceinline__ void release_slot(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// Work item i of `strips` x `groups` is strip i % strips of column group
+// i / strips.  bp is B packed by panels: the panel of width w starting at column c0 is a
+// contiguous (K, wr) block at bp + K c0, wr = w rounded up to 4, so a
+// tile of it is one contiguous run of bytes.
+template <int SM>
+__global__ void __launch_bounds__(STRIP_THREADS, 1)
+row_strip_kernel(const float* __restrict__ a, const float* __restrict__ bp,
                  float* __restrict__ c, int64_t m, int64_t n, int64_t k,
-                 int64_t kp, int64_t strips) {
-  constexpr int TM = SM / 8;  // 8 row groups of TM rows, 32 x 4 columns
-  extern __shared__ __align__(16) float smem[];
-  float* as = smem;              // [SM][kp]: the A strip, all of K
-  float* bs = smem + SM * kp;    // [STRIP_BK][STRIP_BN]
-  const int tid = threadIdx.x;
-  const int tx = tid % 32, ty = tid / 32;
+                 int64_t lda, int64_t strips, int64_t groups, int64_t group_w,
+                 int stages) {
+  using S = StripShape<SM>;
+  constexpr int BN = S::BN, BK = S::BK;
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;                              // [stages][4096 floats]
+  float* as = smem + stages * STRIP_TILE_FLOATS;   // [SM][lda]
+  uint64_t* full = reinterpret_cast<uint64_t*>(as + SM * lda);
+  uint64_t* empty = full + STRIP_MAX_STAGES;
+  uint64_t* a_full = empty + STRIP_MAX_STAGES;
+  uint64_t* a_empty = a_full + 1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  for (int64_t s = blockIdx.x; s < strips; s += gridDim.x) {
-    const int64_t m0 = s * SM;
-    __syncthreads();  // the previous strip's readers are done with as
-    for (int r = 0; r < SM; ++r)
-      for (int64_t kk = tid; kk < k; kk += THREADS)
-        as[r * kp + kk] = m0 + r < m ? __ldg(a + (m0 + r) * k + kk) : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);             // the producer's expect_tx
+      mbar_init(&empty[s], STRIP_WARPS);  // every consumer warp is done
+    }
+    mbar_init(a_full, 1);
+    mbar_init(a_empty, STRIP_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised before any use
 
-    for (int64_t n0 = 0; n0 < n; n0 += STRIP_BN) {
-      float acc[TM][4];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-      for (int64_t k0 = 0; k0 < k; k0 += STRIP_BK) {
-        __syncthreads();  // the A strip is staged, bs is free
-        for (int i = tid; i < STRIP_BK * STRIP_BN; i += THREADS) {
-          const int kk = i / STRIP_BN, col = i % STRIP_BN;
-          bs[i] = k0 + kk < k && n0 + col < n
-                      ? __ldg(b + (k0 + kk) * n + n0 + col) : 0.f;
+  const int64_t items = strips * groups;
+  int stage = 0;
+  uint32_t phase = 0, a_loads = 0;
+  int64_t cur = -1;  // the strip resident in `as`
+
+  if (warp == STRIP_WARPS) {  // the producer: lane 0 copies
+    for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+      const int64_t g = it / strips, s = it % strips;
+      if (s != cur) {  // (re)load the A strip once its readers are done
+        if (a_loads > 0) mbar_wait(a_empty, (a_loads - 1) & 1);
+        const int64_t m0 = s * SM;
+        const uint32_t bytes = (uint32_t)(imin(SM, m - m0) * lda * 4);
+        if (lane == 0) {
+          mbar_expect_tx(a_full, bytes);
+          if (bytes) bulk_copy(as, a + m0 * lda, bytes, a_full);
         }
-        __syncthreads();
-        const int kmax = k - k0 < STRIP_BK ? (int)(k - k0) : STRIP_BK;
-#pragma unroll 8
-        for (int kk = 0; kk < STRIP_BK; ++kk) {
-          if (kk < kmax) {
-            const float4 rb =
-                *reinterpret_cast<const float4*>(bs + kk * STRIP_BN + tx * 4);
-#pragma unroll
-            for (int i = 0; i < TM; ++i) {
-              const float ra = as[(ty * TM + i) * kp + k0 + kk];  // broadcast
-              acc[i][0] = __fmaf_rn(ra, rb.x, acc[i][0]);
-              acc[i][1] = __fmaf_rn(ra, rb.y, acc[i][1]);
-              acc[i][2] = __fmaf_rn(ra, rb.z, acc[i][2]);
-              acc[i][3] = __fmaf_rn(ra, rb.w, acc[i][3]);
-            }
+        ++a_loads;
+        cur = s;
+      }
+      const int64_t c_hi = imin((g + 1) * group_w, n);
+      for (int64_t c0 = g * group_w; c0 < c_hi; c0 += BN) {
+        const int wr = (int)(imin(BN, c_hi - c0) + 3) / 4 * 4;
+        const int pk = panel_rows(wr);
+        const float* panel = bp + k * c0;
+        for (int64_t k0 = 0; k0 < k; k0 += pk) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          const uint32_t bytes = (uint32_t)(imin(pk, k - k0) * wr * 4);
+          if (lane == 0) {  // the tile is one copy
+            mbar_expect_tx(&full[stage], bytes);
+            bulk_copy(ring + stage * STRIP_TILE_FLOATS, panel + k0 * wr,
+                      bytes, &full[stage]);
+          }
+          __syncwarp();
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
+    }
+  } else {  // consumers: warp = (column chunk, row group of 8 rows)
+    const int rg = warp % S::ROW_GROUPS, cc = warp / S::ROW_GROUPS;
+    for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+      const int64_t g = it / strips, s = it % strips;
+      if (s != cur) {
+        if (a_loads > 0) {  // done with the previous strip
+          __syncwarp();
+          if (lane == 0) mbar_arrive(a_empty);
+        }
+        mbar_wait(a_full, a_loads & 1);
+        ++a_loads;
+        cur = s;
+      }
+      const int64_t row0 = s * SM + rg * 8;
+      const float* arow = as + rg * 8 * lda;
+      const int64_t c_hi = imin((g + 1) * group_w, n);
+      for (int64_t c0 = g * group_w; c0 < c_hi; c0 += BN) {
+        const int w = (int)imin(BN, c_hi - c0);
+        const int wr = (w + 3) / 4 * 4, pk = panel_rows(wr);
+        // rows past M and columns past the panel compute nothing, but
+        // take part in every barrier
+        const bool active = row0 < m && cc * 128 < w;
+        const bool lane_on = cc * 128 + lane * 4 < w;
+        // where the warp has at most 16 column quads of a narrow panel (the
+        // ragged last columns), it spreads its (row, quad) items over its
+        // lanes: item lane + 32 t is row lane % 8, quad lane / 8 + 4 t
+        const int quads = (int)imin(128, w - cc * 128 + 3) / 4;
+        const bool narrow = wr < BN && quads <= 16;
+        float acc[8][4];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int64_t row = m0 + ty * TM + i;
-        if (row >= m) break;
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int64_t col = n0 + tx * 4 + j;
-          if (col < n) c[row * n + col] = acc[i][j];
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        for (int64_t k0 = 0; k0 < k; k0 += pk) {
+          mbar_wait(&full[stage], phase);
+          const float* ak = arow + k0;
+          const float* bk =
+              ring + stage * STRIP_TILE_FLOATS + cc * 128 + lane * 4;
+          bool held = true;
+          if (active && wr == BN && k - k0 >= BK) {
+            // a full tile: take this thread's B values, free the slot,
+            // then run the tile's FMAs from registers
+            float4 bt[BK], av[8];
+#pragma unroll
+            for (int q = 0; q < BK; ++q)
+              bt[q] = *reinterpret_cast<const float4*>(bk + q * BN);
+            release_slot(&empty[stage], lane);
+            held = false;
+#pragma unroll
+            for (int kk = 0; kk < BK; kk += 4) {
+              load_a4(av, ak + kk, lda);
+              strip_fma4(acc, av, bt + kk, 4);
+            }
+          } else if (active && narrow) {
+            // one row's four A values and, per item, four B rows: a few
+            // FMAs a lane where 8 x 4 on one lane would serialise the panel
+            const int kmax = (int)imin(pk, k - k0);
+            const float* ar = ak + (lane % 8) * lda;
+            const float* br = bk - lane * 4 + (lane / 8) * 4;
+            for (int kk = 0; kk < kmax; kk += 4) {
+              const float4 a4 = *reinterpret_cast<const float4*>(ar + kk);
+              const int nq = (int)imin(4, kmax - kk);
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                if (lane / 8 + 4 * t < quads) {
+#pragma unroll
+                  for (int q = 0; q < 4; ++q) {
+                    if (q < nq) {
+                      const float x = part(a4, q);
+                      const float4 bv = *reinterpret_cast<const float4*>(
+                          br + (kk + q) * wr + 16 * t);
+                      acc[t][0] = __fmaf_rn(x, bv.x, acc[t][0]);
+                      acc[t][1] = __fmaf_rn(x, bv.y, acc[t][1]);
+                      acc[t][2] = __fmaf_rn(x, bv.z, acc[t][2]);
+                      acc[t][3] = __fmaf_rn(x, bv.w, acc[t][3]);
+                    }
+                  }
+                }
+              }
+            }
+          } else if (active && lane_on) {
+            // the K tail of a full panel: cut by the loop bound
+            const int kmax = (int)imin(pk, k - k0);
+            float4 av[8], bv[4];
+            for (int kk = 0; kk < kmax; kk += 4) {
+              load_a4(av, ak + kk, lda);
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                bv[q] = *reinterpret_cast<const float4*>(bk + (kk + q) * wr);
+              strip_fma4(acc, av, bv, kmax - kk);
+            }
+          }
+          if (held) release_slot(&empty[stage], lane);
+          if (++stage == stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        if (active && narrow) {
+          const int64_t row = row0 + lane % 8;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int64_t col = c0 + cc * 128 + (lane / 8 + 4 * t) * 4;
+            if (row < m && lane / 8 + 4 * t < quads) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (col + j < c0 + w) c[row * n + col + j] = acc[t][j];
+            }
+          }
+        } else if (active) {
+          const int64_t col = c0 + cc * 128 + lane * 4;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (row0 + i >= m) break;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (col + j < c0 + w) c[(row0 + i) * n + col + j] = acc[i][j];
+          }
         }
       }
     }
@@ -177,20 +459,21 @@ int allow_smem(Kernel kernel, size_t bytes) {
 
 template <int SM>
 int launch_row_strip(const float* a, const float* b, float* c, int64_t m,
-                     int64_t n, int64_t k, int blocks, cudaStream_t s) {
-  const int64_t kp = (k + 3) / 4 * 4;  // keeps bs 16-byte aligned
+                     int64_t n, int64_t k, int64_t lda, int64_t groups,
+                     int64_t group_w, int64_t grid, int stages,
+                     cudaStream_t s) {
   const int64_t strips = (m + SM - 1) / SM;
-  const size_t bytes = (SM * kp + STRIP_BK * STRIP_BN) * sizeof(float);
+  const size_t bytes = strip_smem_bytes(SM, lda, stages);
   int optin = 0, dev = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-  const int64_t grid = blocks > 0 ? blocks : strips;
-  if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  if (grid < 1 || grid > 0x7fffffff || groups < 1 || group_w < 1)
+    return (int)cudaErrorInvalidConfiguration;
   if (int err = allow_smem(row_strip_kernel<SM>, bytes)) return err;
-  row_strip_kernel<SM><<<(unsigned)grid, THREADS, bytes, s>>>(
-      a, b, c, m, n, k, kp, strips);
+  row_strip_kernel<SM><<<(unsigned)grid, STRIP_THREADS, bytes, s>>>(
+      a, b, c, m, n, k, lda, strips, groups, group_w, stages);
   return (int)cudaGetLastError();
 }
 
@@ -517,24 +800,40 @@ int bm25_matmul_sweep(const void* a, const void* b, void* c, long long m,
 }
 #undef SWEEP_TILE
 
-// E2: strips of strip_m (8, 16 or 32) rows of A held in shared memory;
-// blocks <= 0 launches one block per strip, else that many blocks walk the
-// strips.  An A strip plus staging above the card's opt-in limit of shared
+#define STRIP(SM, CALL)                                                    \
+  if (strip_m == SM) return CALL;
+
+// E2: strips of strip_m (8, 16 or 32) rows of A resident in shared memory,
+// B streamed through a ring of `stages` (3-8) slots of bulk copies.  A has
+// row stride lda, a multiple of 4 >= K, from a 16-byte aligned start; bp is
+// B packed by panels (row_strip_kernel), 16-byte aligned.  The grid walks
+// strips x groups work items (each group group_w columns wide, a multiple
+// of 4).  A strip plus the ring above the card's opt-in limit of shared
 // memory per block is refused (cudaErrorInvalidValue).
-int bm25_matmul_row_strip(const void* a, const void* b, void* c, long long m,
-                          long long n, long long k, int strip_m, int blocks,
+int bm25_matmul_row_strip(const void* a, const void* bp, void* c,
+                          long long m, long long n, long long k,
+                          long long lda, int strip_m, long long groups,
+                          long long group_w, long long grid, int stages,
                           void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (k < 0) return (int)cudaErrorInvalidValue;
+  if (k < 0 || lda < k || lda % 4 || group_w % 4 ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(bp) % 16 || stages < STRIP_MIN_STAGES ||
+      stages > STRIP_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
   const float* A = static_cast<const float*>(a);
-  const float* B = static_cast<const float*>(b);
+  const float* B = static_cast<const float*>(bp);
   float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (strip_m == 8) return launch_row_strip<8>(A, B, C, m, n, k, blocks, s);
-  if (strip_m == 16) return launch_row_strip<16>(A, B, C, m, n, k, blocks, s);
-  if (strip_m == 32) return launch_row_strip<32>(A, B, C, m, n, k, blocks, s);
+  STRIP(8, launch_row_strip<8>(A, B, C, m, n, k, lda, groups, group_w, grid,
+                               stages, s))
+  STRIP(16, launch_row_strip<16>(A, B, C, m, n, k, lda, groups, group_w,
+                                 grid, stages, s))
+  STRIP(32, launch_row_strip<32>(A, B, C, m, n, k, lda, groups, group_w,
+                                 grid, stages, s))
   return (int)cudaErrorInvalidValue;
 }
+#undef STRIP
 
 #define PIPE(T, BK, S)                                                     \
   if (tile == T && stages == S)                                            \

@@ -10,9 +10,25 @@ kernel states a limit:
   of ``SWEEP_TILES`` with the C tile in registers over the whole K loop;
   ``resident_tile`` picks the one-wave tile that stands for the script's
   ``mm_resident``;
-* ``matmul_row_strip(a, b, strip_m, blocks=None)`` (E2,
-  ``mm_b_resident``): a block holds a ``strip_m``-row strip of A in shared
-  memory and streams B; ``blocks=1`` is ``mm_single_dot``'s grid of one;
+* ``matmul_row_strip(a, b, strip_m=None, blocks=None)`` (E2,
+  ``mm_b_resident``): a block holds a ``strip_m``-row strip of A resident
+  in shared memory and streams B through a ring of bulk asynchronous copies
+  (``cp.async.bulk`` on mbarriers), on a grid of (strip, column group)
+  that ``row_strip_plan`` sizes to fill the SMs; ``blocks=n`` walks the
+  strips with n blocks, ``blocks=1`` is ``mm_single_dot``'s grid of one.
+  A taller strip feeds each B value to more rows, so B crosses the L2
+  fewer times: the default strip is the tallest that fits beside the ring
+  at the operands' K (``default_strip``: 32 at K = 1028, 16 at 2048, 8 at
+  4096).  Fewer, larger copies are faster (one copy per tile row of B was
+  markedly slower at strips 16 and 32), so each copy is as large as it
+  can be: the wrapper lays B out by panels (``pack_panels``: each
+  BN-wide panel's K rows contiguous), so a tile is one copy, and the A
+  strip is one copy.  The copies take 16-byte aligned runs of whole
+  16-byte units: an A whose row length is not a multiple of 4 floats, or
+  whose data is not 16-byte aligned, is first copied into a padded
+  ``torch.empty``, as B's packing pads its panels (data preparation in
+  the wrapper, timed with the kernel; the kernel's loops stop at the real
+  K and N);
 * ``matmul_pipelined(a, b, tile, stages=2)`` (E3, ``mm_dma``): E1's block
   tile fed by a ``stages``-slot ``cp.async`` ring;
 * ``matmul_mma(a, b, mode)`` (E4, ``pallas_matmul``): ``"default"`` on TF32
@@ -42,6 +58,7 @@ limit is read from the card there and is an H100's on the CPU.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -54,7 +71,12 @@ SWEEP_TILES = tuple(Tile(m, n, k) for m, n in ((64, 64), (128, 64),
                                                 (128, 128), (256, 128))
                     for k in (8, 16, 32))
 STRIP_HEIGHTS = (8, 16, 32)
-STRIP_BN, STRIP_BK = 128, 32  # E2's staging tile of B
+# E2's B tile per strip height: 8 consumer warps of 8 rows x 128 columns
+# make a BN-wide panel, and a ring slot holds BK x BN = 4096 floats
+STRIP_BN = {h: 128 * 8 // (h // 8) for h in STRIP_HEIGHTS}  # 1024, 512, 256
+STRIP_BK = {h: 4096 // STRIP_BN[h] for h in STRIP_HEIGHTS}  # 4, 8, 16
+# the ring holds as many 16 KB slots as shared memory leaves, 3 to 8
+STRIP_MIN_STAGES, STRIP_MAX_STAGES = 3, 8
 PIPELINED_TILES = (Tile(64, 64, 16), Tile(128, 128, 16))
 STAGES = (2, 3, 4)
 MMA_MODES = ("f32", "default", "bf16in")
@@ -96,7 +118,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul_schedules")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.bm25_matmul_sweep.argtypes = [p, p, p, ll, ll, ll, i, i, i, i, p]
-    lib.bm25_matmul_row_strip.argtypes = [p, p, p, ll, ll, ll, i, i, p]
+    lib.bm25_matmul_row_strip.argtypes = [p, p, p, ll, ll, ll, ll, i, ll,
+                                          ll, ll, i, p]
     lib.bm25_matmul_pipelined.argtypes = [p, p, p, ll, ll, ll, i, i, p]
     lib.bm25_matmul_mma.argtypes = [p, p, p, ll, ll, ll, i, p]
     lib.bm25_smem_optin_bytes.argtypes = [i]
@@ -124,10 +147,10 @@ def _check(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
 
 
 def _launch(name: str, fn: str, a: torch.Tensor, b: torch.Tensor,
-            *args) -> torch.Tensor:
-    """Launch ``fn`` of the library on (a, b) into a new C; counted."""
-    m, k = a.shape
-    n = b.shape[1]
+            *args, mnk: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """Launch ``fn`` of the library on (a, b) into a new (M, N) C; counted.
+    ``mnk`` gives (M, N, K) where the operands are padded copies."""
+    m, n, k = mnk or (a.shape[0], b.shape[1], a.shape[1])
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m == 0 or n == 0:
         return out
@@ -156,11 +179,16 @@ def sm_count(device: torch.device) -> int:
     return H100_SMS
 
 
+@functools.cache
+def _card_smem_optin(index: int) -> int:
+    return _lib().bm25_smem_optin_bytes(index)
+
+
 def smem_optin_bytes(device: torch.device) -> int:
     """The opt-in limit of shared memory per block: read from the card,
     an H100's on the CPU."""
     if device.type == "cuda":
-        return _lib().bm25_smem_optin_bytes(device.index or 0)
+        return _card_smem_optin(device.index or 0)
     return H100_SMEM_OPTIN
 
 
@@ -192,35 +220,146 @@ def matmul_sweep(a: torch.Tensor, b: torch.Tensor,
                    vec)
 
 
-def row_strip_smem_bytes(k: int, strip_m: int) -> int:
-    """Shared memory of an E2 block: the A strip (K padded to 4) and the
-    staging tile of B."""
-    return (strip_m * next_multiple(k, 4) + STRIP_BK * STRIP_BN) * 4
+def row_strip_smem_bytes(k: int, strip_m: int,
+                         stages: int = STRIP_MIN_STAGES) -> int:
+    """Shared memory of an E2 block: ``stages`` ring slots of 4096 floats,
+    the A strip (K rounded up to 4) and the ring's and the strip's
+    mbarriers.  The default, the fewest slots, is what a strip needs."""
+    return ((stages * 4096 + strip_m * next_multiple(k, 4)) * 4
+            + (2 * STRIP_MAX_STAGES + 2) * 8)
 
 
-def matmul_row_strip(a: torch.Tensor, b: torch.Tensor, strip_m: int = 8,
+def default_strip(k: int, smem_limit: int = H100_SMEM_OPTIN) -> int:
+    """E2's strip height for operands of depth ``k``: the tallest of
+    ``STRIP_HEIGHTS`` whose strip fits beside the ring (at each of 1028,
+    2048 and 4096 the fastest on an H100, PERF.md), the shortest where
+    none fits (the wrapper then raises)."""
+    return max((h for h in STRIP_HEIGHTS
+                if row_strip_smem_bytes(k, h) <= smem_limit),
+               default=STRIP_HEIGHTS[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class RowStripPlan:
+    """What E2 launches: ``grid`` blocks walk ``strips`` x ``groups`` work
+    items (strip ``i % strips`` of column group ``i // strips``; a group is
+    ``group_w`` columns, walked in panels of ``bn``); the ring has
+    ``stages`` slots."""
+
+    strip_m: int
+    bn: int
+    bk: int
+    strips: int
+    groups: int
+    group_w: int
+    grid: int
+    stages: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def row_strip_plan(m: int, n: int, k: int, strip_m: int,
+                   blocks: int | None = None, sms: int = H100_SMS,
+                   smem_limit: int = H100_SMEM_OPTIN) -> RowStripPlan:
+    """E2's launch for an (m, k) @ (k, n) product.  ``blocks=None``: one
+    block per work item, with the fewest column groups (each a multiple of
+    4 columns wide) whose items reach ``sms`` blocks; ``blocks=n``: one
+    group of all columns and n blocks walking the strips.  The ring takes
+    as many slots as ``smem_limit`` leaves beside the strip (3 to 8).
+    Cached: the wrapper asks it on every call."""
+    strips = cdiv(m, strip_m)
+    groups = 1
+    if blocks is None:
+        groups = max(1, min(cdiv(sms, max(strips, 1)), cdiv(n, 4)))
+    group_w = max(4, next_multiple(cdiv(n, groups), 4))
+    groups = max(1, cdiv(n, group_w))
+    grid = strips * groups if blocks is None else blocks
+    spare = smem_limit - row_strip_smem_bytes(k, strip_m, 0)
+    stages = min(STRIP_MAX_STAGES, max(STRIP_MIN_STAGES, spare // 16384))
+    return RowStripPlan(strip_m, STRIP_BN[strip_m],
+                        STRIP_BK[strip_m], strips, groups, group_w, grid,
+                        stages, row_strip_smem_bytes(k, strip_m, stages))
+
+
+def row_strip_l2_bytes(m: int, n: int, k: int, plan: RowStripPlan) -> dict:
+    """The bytes E2 reckons to read through the L2: B once per strip,
+    ceil(M / strip_m) K N 4, and A once per column group."""
+    return {"b_l2_bytes": cdiv(m, plan.strip_m) * k * n * 4,
+            "a_l2_bytes": plan.groups * m * k * 4}
+
+
+def _bulk_operand(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where its rows are whole 16-byte units from a 16-byte aligned
+    start, as the bulk copies take them; else a copy into a ``torch.empty``
+    whose rows are padded to a multiple of 4 floats (the padding is never
+    read into a sum)."""
+    cols = x.shape[1]
+    if cols % 4 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    padded = torch.empty((x.shape[0], next_multiple(cols, 4)),
+                         dtype=x.dtype, device=x.device)
+    padded[:, :cols] = x
+    return padded
+
+
+def pack_panels(b: torch.Tensor, plan: RowStripPlan) -> torch.Tensor:
+    """B laid out for E2's bulk copies: the panel of width w starting at
+    column c0 is a contiguous (K, w rounded up to 4) block at offset K c0,
+    so each tile of it (rows k0 .. of the panel) is one contiguous copy.
+    The padding columns are left unset and never read into a sum.  Panels
+    of one width at one spacing move in one strided copy: the full-width
+    panels of the groups of full width, their narrow last panels, and the
+    same two of the ragged last group, at most four copies."""
+    k, n = b.shape
+    out = torch.empty(k * next_multiple(n, 4), dtype=b.dtype,
+                      device=b.device)
+    gw, bn, base = plan.group_w, plan.bn, b.storage_offset()
+    whole = n // gw  # groups of full width
+    # (first column, groups, group width): the whole groups, then the last
+    for c0, reps, w in ((0, whole, gw), (whole * gw, 1, n - whole * gw)):
+        full, tail = divmod(w, bn)
+        # (offset in the group, panels, panel width)
+        for o, panels, pw in ((0, full, bn), (full * bn, 1, tail)):
+            if reps and panels and pw:
+                size = (reps, panels, k, pw)
+                dst = out.as_strided(size, (k * w, k * bn,
+                                            next_multiple(pw, 4), 1),
+                                     k * (c0 + o))
+                dst.copy_(b.as_strided(size, (w, bn, n, 1), base + c0 + o))
+    return out
+
+
+def matmul_row_strip(a: torch.Tensor, b: torch.Tensor,
+                     strip_m: int | None = None,
                      blocks: int | None = None) -> torch.Tensor:
     """E2: C = A @ B with each block holding a ``strip_m``-row strip of A
-    (8, 16 or 32) in shared memory and streaming B.  ``blocks=None`` runs
-    one block per strip; an int runs that many blocks over the strips
-    (``blocks=1``: one block, on one SM).  A strip plus staging above the
+    (8, 16 or 32; None: ``default_strip(K)``) in shared memory and
+    streaming B.  ``blocks=None`` runs ``row_strip_plan``'s grid of (strip,
+    column group); an int runs that many blocks over the strips
+    (``blocks=1``: one block, on one SM).  A strip plus the ring above the
     opt-in limit of shared memory raises ``ValueError``."""
     _check(a, b, "matmul_row_strip")
+    m, k = a.shape
+    n = b.shape[1]
+    limit = smem_optin_bytes(a.device)
+    if strip_m is None:
+        strip_m = default_strip(k, limit)
     if strip_m not in STRIP_HEIGHTS:
         raise ValueError(f"strip_m={strip_m} not in {STRIP_HEIGHTS}")
     if blocks is not None and (not isinstance(blocks, int) or blocks < 1):
         raise ValueError(f"blocks={blocks!r} must be None or a positive int")
-    k = a.shape[1]
-    need = row_strip_smem_bytes(k, strip_m)
-    limit = smem_optin_bytes(a.device)
-    if need > limit:
-        raise ValueError(f"an A strip of {strip_m} x {k} f32 plus staging "
-                         f"needs {need} bytes of shared memory, more than "
-                         f"the {limit} a block can have")
+    plan = row_strip_plan(m, n, k, strip_m, blocks, sm_count(a.device),
+                          limit)
+    if plan.smem_bytes > limit:
+        raise ValueError(f"an A strip of {strip_m} x {k} f32 plus the ring "
+                         f"needs {plan.smem_bytes} bytes of shared memory, "
+                         f"more than the {limit} a block can have")
     if a.device.type == "cpu":
         return matmul_plain(a, b)
-    return _launch("matmul_row_strip", "bm25_matmul_row_strip", a, b, strip_m,
-                   blocks or 0)
+    a_op = _bulk_operand(a)
+    return _launch("matmul_row_strip", "bm25_matmul_row_strip", a_op,
+                   pack_panels(b, plan), a_op.shape[1], strip_m, plan.groups,
+                   plan.group_w, plan.grid, plan.stages, mnk=(m, n, k))
 
 
 def matmul_pipelined(a: torch.Tensor, b: torch.Tensor,

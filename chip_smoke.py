@@ -67,13 +67,14 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 10. matmul schedules (E1-E4): the four ``ops/matmul_schedules.py`` kernels
    against their twins at edge cases (ragged M, N and K, K off every K step,
    1 x 1 x 1, the analytic corner case: E1-E3 bit-equal at every tile,
-   strip height and stage count; E4's TF32 and bf16 modes within
-   ``K 2^-22 (|A^| @ |B^|)``; the E2 strip that does not fit shared memory
-   and E3 on K % 4 != 0, which must raise); then ``bench_schedules``'s sweep
+   strip height, E2 block count and stage count; E4's TF32 and bf16 modes
+   within ``K 2^-22 (|A^| @ |B^|)``; the E2 strip that does not fit shared
+   memory and E3 on K % 4 != 0, which must raise); then ``bench_schedules``'s sweep
    at the scripts' sizes 1028, 2048 and 4096 (each variant checked against
    ``torch.matmul`` or the float64 product before it is timed), with the
    kernels' launches counted over the sweep; then every variant against its
-   twin at 1028^3 and 2048^3 (bit-equal, or within E4's bound);
+   twin at 1028^3 and 2048^3 (bit-equal, or within E4's bound); E2's
+   record is the wrapper's default strip height at 1028;
 11. entry points, on the card: the port's CLI (``info`` and ``query`` with
    term boosts under ``--engine dense`` and ``sparse`` on an index built
    by ``build_index(..., Tokenizer(stemmer=None), save_to=...)``, ``demo``,
@@ -1236,7 +1237,7 @@ def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
             compare(torch, ms.matmul_sweep(a, b, t), want, True,
                     f"E1 {tuple(t)} ({m}, {k}, {n})")
         for h in ms.STRIP_HEIGHTS:
-            for blocks in (None, 1):
+            for blocks in (None, 1, 3):
                 compare(torch, ms.matmul_row_strip(a, b, h, blocks), want,
                         True, f"E2 strip {h} blocks {blocks} ({m}, {k}, {n})")
         e3 = k % 4 == 0 and n % 4 == 0
@@ -1249,7 +1250,8 @@ def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
             mma_within_bound(bs, ms, ms.matmul_mma(a, b, mode), a, b, mode,
                              f"E4 {mode} ({m}, {k}, {n})", readings)
         log(f"[kernels] E1-E4 ({m}, {k}, {n}): E1 (12 tiles), E2 (3 strips, "
-            f"one block or one per strip){', E3 (2 tiles x 3 stages)' if e3 else ''}"
+            f"a block per item or 1 or 3 blocks)"
+            f"{', E3 (2 tiles x 3 stages)' if e3 else ''}"
             " bit-equal to the twin; E4 within its bound")
     r = torch.arange(32, dtype=torch.float32, device=dev)
     a, b = r[:, None] - r[None, :], r[:, None] + r[None, :]
@@ -1337,7 +1339,10 @@ def matmul_schedules(torch, pm, dev, record) -> None:
     for name, row, mode in (
             ("matmul_sweep", pick(variant="sweep", tile=[128, 128, 16]),
              "f32"),
-            ("matmul_row_strip", pick(variant="row_strip", strip_m=8), "f32"),
+            ("matmul_row_strip", pick(variant="row_strip",
+                                      strip_m=ms.default_strip(
+                                          MATMUL_N, ms.smem_optin_bytes(dev))),
+             "f32"),
             ("matmul_pipelined", pick(variant="pipelined",
                                       tile=[128, 128, 16], stages=2), "f32"),
             ("matmul_mma", pick(variant="mma", mode="bf16in"), "bf16in")):

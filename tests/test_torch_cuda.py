@@ -605,6 +605,65 @@ def test_cuda_matmul_sweep_and_row_strip_bit_equal(cuda_device, m, k, n):
         for blocks in (None, 1, 3):
             assert torch.equal(ms.matmul_row_strip(a, b, h, blocks), want), (
                 h, blocks)
+    assert torch.equal(ms.matmul_row_strip(a, b), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(5, 100, 300), (1, 1028, 9),
+                                   (40, 33, 1030)])
+def test_cuda_row_strip_m_below_strip(cuda_device, m, k, n):
+    # M below the strip: the warps past M hold no rows but take part in
+    # every barrier
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=n)
+    want = pm.matmul_plain(a, b)
+    for h in ms.STRIP_HEIGHTS:
+        for blocks in (None, 1, 3):
+            got = ms.matmul_row_strip(a, b, h, blocks)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (h, blocks)
+
+
+@pytest.mark.cuda
+def test_cuda_row_strip_stages_misaligned_operands(cuda_device):
+    # a view 4 bytes off 16-byte alignment, and K or N off a multiple of 4,
+    # go through a padded copy: one launch a call, bits unchanged
+    dev = cuda_device
+    a, b = matmul_operands(37, 64, 132, torch.float32, dev, seed=3)
+    shifted_a = torch.zeros(37 * 64 + 1, device=dev)[1:].view(37, 64)
+    shifted_a.copy_(a)
+    shifted_b = torch.zeros(64 * 132 + 3, device=dev)[3:].view(64, 132)
+    shifted_b.copy_(b)
+    assert shifted_a.data_ptr() % 16 and shifted_b.data_ptr() % 16
+    want = pm.matmul_plain(a, b)
+    for x, y in ((shifted_a, b), (a, shifted_b), (shifted_a, shifted_b)):
+        for h in ms.STRIP_HEIGHTS:
+            before = ms.launches["matmul_row_strip"]
+            assert torch.equal(ms.matmul_row_strip(x, y, h), want)
+            assert ms.launches["matmul_row_strip"] == before + 1
+    a, b = matmul_operands(37, 61, 130, torch.float32, dev, seed=4)
+    before = ms.launches["matmul_row_strip"]
+    assert torch.equal(ms.matmul_row_strip(a, b), pm.matmul_plain(a, b))
+    assert ms.launches["matmul_row_strip"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1028, 2048, 4096])
+def test_cuda_row_strip_bit_equal_at_script_sizes(cuda_device, s):
+    a, b = matmul_operands(s, s, s, torch.float32, cuda_device, seed=s)
+    want = pm.matmul_plain(a, b)
+    smem = ms.smem_optin_bytes(cuda_device)
+    fitting = [h for h in ms.STRIP_HEIGHTS
+               if ms.row_strip_smem_bytes(s, h) <= smem]
+    for h in fitting:
+        before = ms.launches["matmul_row_strip"]
+        got = ms.matmul_row_strip(a, b, h)
+        assert ms.launches["matmul_row_strip"] == before + 1
+        assert torch.equal(got, want), (s, h)
+        if s <= 2048:  # three blocks over 512 strips would take minutes
+            assert torch.equal(ms.matmul_row_strip(a, b, h, blocks=3), want)
+    # the default: the tallest strip that fits (32, 16, 8)
+    assert ms.default_strip(s, smem) == fitting[-1]
+    assert torch.equal(ms.matmul_row_strip(a, b), want)
 
 
 @pytest.mark.cuda
@@ -661,6 +720,8 @@ def test_cuda_matmul_schedules_raise(cuda_device):
     ms.matmul_row_strip(a, b, 8)  # 8 x 4096 f32 fits
     with pytest.raises(ValueError, match="shared memory"):
         ms.matmul_row_strip(a, b, 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.matmul_row_strip(*matmul_operands(8, 5721, 8, torch.float32, dev))
     a, b = matmul_operands(8, 30, 8, torch.float32, dev)
     with pytest.raises(ValueError, match="multiples of 4"):
         ms.matmul_pipelined(a, b)

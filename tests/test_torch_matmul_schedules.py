@@ -181,6 +181,146 @@ def test_row_strip_twin_matches_strip_body(scripts, operands, strip_m,
                   order_bound(a, b))
 
 
+# (size, strip): every strip height that fits beside the ring at the
+# scripts' sizes
+FITTING = [(1028, 8), (1028, 16), (1028, 32), (2048, 8), (2048, 16),
+           (4096, 8)]
+
+
+@pytest.mark.parametrize("size,h", FITTING)
+def test_row_strip_plan_fills_the_card(size, h):
+    assert [x for x in ms.STRIP_HEIGHTS if ms.row_strip_smem_bytes(
+        size, x) <= ms.H100_SMEM_OPTIN] == [x for s, x in FITTING if s == size]
+    p = ms.row_strip_plan(size, size, size, h, sms=ms.H100_SMS)
+    assert p.grid == p.strips * p.groups >= ms.H100_SMS
+    assert p.strips == -(-size // h)
+    assert p.smem_bytes == ms.row_strip_smem_bytes(size, h, p.stages)
+    assert p.smem_bytes <= ms.H100_SMEM_OPTIN
+    # the ring takes what the strip leaves: another slot would not fit
+    assert ms.STRIP_MIN_STAGES <= p.stages <= ms.STRIP_MAX_STAGES
+    assert p.stages == ms.STRIP_MAX_STAGES or ms.row_strip_smem_bytes(
+        size, h, p.stages + 1) > ms.H100_SMEM_OPTIN
+    assert p.group_w % 4 == 0
+    assert (p.groups - 1) * p.group_w < size <= p.groups * p.group_w
+    # the fewest groups that reach the SM count
+    assert p.groups == 1 or (p.groups - 1) * p.strips < ms.H100_SMS
+    assert (p.bn, p.bk) == (ms.STRIP_BN[h], ms.STRIP_BK[h])
+    assert p.bn * p.bk == 4096 and p.bn * h == 8 * 1024
+    # strip 8 at K = 4096 fits beside the ring, strip 16 does not
+    assert ms.row_strip_smem_bytes(4096, 8) <= ms.H100_SMEM_OPTIN
+    assert ms.row_strip_smem_bytes(4096, 16) > ms.H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("k,h", [(1028, 32), (1428, 32), (1429, 16),
+                                 (2048, 16), (2860, 16), (2861, 8),
+                                 (4096, 8), (5720, 8)])
+def test_default_strip_is_the_tallest_that_fits(k, h):
+    assert ms.default_strip(k) == h
+    assert ms.row_strip_smem_bytes(k, h) <= ms.H100_SMEM_OPTIN
+    taller = [x for x in ms.STRIP_HEIGHTS if x > h]
+    assert all(ms.row_strip_smem_bytes(k, x) > ms.H100_SMEM_OPTIN
+               for x in taller)
+    # the wrapper's default takes it: no call at a K that strip 8 fits
+    # raises for want of shared memory
+    a = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (3, k), dtype=np.float32))
+    b = torch.from_numpy(np.random.default_rng(h).standard_normal(
+        (k, 5), dtype=np.float32))
+    assert torch.equal(ms.matmul_row_strip(a, b), matmul_plain(a, b))
+
+
+def test_default_strip_where_none_fits_raises():
+    assert ms.default_strip(5721) == 8
+    assert ms.row_strip_smem_bytes(5721, 8) > ms.H100_SMEM_OPTIN
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.matmul_row_strip(torch.ones(2, 5721), torch.ones(5721, 3))
+    # a smaller card's limit picks a shorter strip
+    assert ms.default_strip(1028, 100 * 1024) == 8
+
+
+def covered(m, n, p):
+    """How many times E2's blocks, walking the plan as the kernel does,
+    write each element of an (m, n) C."""
+    hits = np.zeros((m, n), np.int64)
+    for blk in range(p.grid):
+        for it in range(blk, p.strips * p.groups, p.grid):
+            g, s = divmod(it, p.strips)
+            c_hi = min((g + 1) * p.group_w, n)
+            for c0 in range(g * p.group_w, c_hi, p.bn):
+                w = min(p.bn, c_hi - c0)
+                hits[s * p.strip_m:(s + 1) * p.strip_m, c0:c0 + w] += 1
+    return hits
+
+
+@pytest.mark.parametrize("m,k,n", [(67, 130, 200), (1, 1, 1), (33, 13, 70),
+                                   (130, 24, 129), (257, 1028, 260),
+                                   (300, 64, 1030)])
+def test_row_strip_plan_writes_every_element_once(m, k, n):
+    for h in ms.STRIP_HEIGHTS:
+        p = ms.row_strip_plan(m, n, k, h)
+        assert (covered(m, n, p) == 1).all(), h
+        for blocks in (1, 3, 1000):
+            p = ms.row_strip_plan(m, n, k, h, blocks)
+            assert p.groups == 1 and p.group_w >= n and p.grid == blocks
+            assert (covered(m, n, p) == 1).all(), (h, blocks)
+
+
+def panels_of(n, p):
+    """(first column, width) of each panel E2's blocks stream, as the
+    kernel walks them: each column group in panels of ``p.bn`` columns."""
+    return [(c0, min(p.bn, hi - c0))
+            for g in range(p.groups)
+            for hi in [min((g + 1) * p.group_w, n)]
+            for c0 in range(g * p.group_w, hi, p.bn)]
+
+
+@pytest.mark.parametrize("k,n", [(13, 70), (130, 200), (1, 1), (64, 1030),
+                                 (24, 129), (1028, 1028)])
+def test_row_strip_packs_each_panel_contiguous(k, n):
+    # the layout the kernel's one-copy tiles read: the panel of width w at
+    # column c0 is a (K, w rounded up to 4) block at offset K c0
+    b = torch.from_numpy(np.random.default_rng(k + n).standard_normal(
+        (k, n), dtype=np.float32))
+    # the same values in a view that starts 3 floats into its storage
+    shifted = torch.zeros(k * n + 3)[3:].view(k, n)
+    shifted.copy_(b)
+    for h in ms.STRIP_HEIGHTS:
+        for m, blocks in ((300, None), (40, None), (2000, None), (300, 3)):
+            p = ms.row_strip_plan(m, n, k, h, blocks)
+            panels = panels_of(n, p)
+            assert [c0 for c0, _ in panels] == sorted(c0 for c0, _ in panels)
+            assert sum(w for _, w in panels) == n
+            for src in (b, shifted):
+                packed = ms.pack_panels(src, p)
+                assert packed.shape == (k * (-(-n // 4) * 4),)
+                for c0, w in panels:
+                    assert w <= p.bn and c0 % 4 == 0
+                    wr = -(-w // 4) * 4
+                    got = packed[k * c0:k * (c0 + wr)].view(k, wr)[:, :w]
+                    assert torch.equal(got, b[:, c0:c0 + w]), (h, m, c0)
+
+
+def test_row_strip_checks_and_bulk_staging():
+    a, b = torch.ones(5, 7), torch.ones(7, 8)
+    for bad in (0, -1, 2.0, "2"):
+        with pytest.raises(ValueError, match="blocks"):
+            ms.matmul_row_strip(a, b, 8, blocks=bad)
+    for bad in (0, 4, 64, "8"):
+        with pytest.raises(ValueError, match="strip_m"):
+            ms.matmul_row_strip(a, b, bad)
+    assert torch.equal(ms.matmul_row_strip(a, b, 8, blocks=3), a @ b)
+    # the copies the bulk copies need: rows of whole 16-byte units from a
+    # 16-byte aligned start; the real values lead each padded row
+    x = torch.arange(60, dtype=torch.float32).view(5, 12)
+    assert ms._bulk_operand(x) is x
+    for y in (x[:, :7].contiguous(),  # K = 7
+              torch.arange(41, dtype=torch.float32)[1:].view(5, 8)):  # +4 B
+        got = ms._bulk_operand(y)
+        assert got.shape == (5, -(-y.shape[1] // 4) * 4)
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got[:, :y.shape[1]], y)
+
+
 @pytest.mark.parametrize("stages", ms.STAGES)
 def test_pipelined_twin_matches_dma_body(scripts, operands, stages):
     a, b = operands
@@ -328,6 +468,10 @@ def test_bench_schedules_rows_at_small_size(capsys):
     assert experiments.count("E3") == 6 and experiments.count("E4") == 3
     for r in rows:
         assert r["clock"] == "host" and r["device"] == "cpu" and r["ms"] > 0
+        if r["experiment"] == "E2":  # B once per strip, A once per group
+            p = ms.row_strip_plan(64, 64, 64, r["strip_m"], r.get("blocks"))
+            assert r["b_l2_bytes"] == -(-64 // r["strip_m"]) * 64 * 64 * 4
+            assert r["a_l2_bytes"] == p.groups * 64 * 64 * 4
         assert r["tflops"] == pytest.approx(64 * 64 * 127 / r["ms"] / 1e9)
         assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
         assert r["library_ms"] > 0 and r["err_over_bound"] <= 1
