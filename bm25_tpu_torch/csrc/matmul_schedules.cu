@@ -93,17 +93,38 @@
 //   (commit_group / wait_group<stages-2>).  Needs K % 4 == 0, N % 4 == 0
 //   and 16-byte aligned operands.  Thread (ty, tx) owns rows ty + 16 i and
 //   columns tx + 16 j, so a warp's shared-memory reads hit distinct banks.
-// E4 matmul_mma: mma.sync on the tensor cores, 4 warps over a 64 x 64 C
-//   tile (32 x 32 each), a 32-deep K step staged in shared memory.
-//   "default": m16n8k8 TF32 (cvt.rna.tf32.f32 at staging, rounding to
-//   nearest with ties away from zero), the card's one-pass counterpart of
-//   XLA's DEFAULT precision; "bf16in": m16n8k16 bf16 (round to nearest
-//   even at staging, as the script's astype(bfloat16)).  Fragments are read
-//   from shared memory per the PTX fragment layouts; B is staged n-major for
-//   bf16 so that each register's two k values are adjacent.  Rows of the
-//   staged tiles are padded so a warp's fragment reads hit distinct banks.
+// E4 matmul_mma: wgmma on the tensor cores, fed by TMA, in two launches.
+//   mma_pack_kernel rounds every input once, as the twin does ("default":
+//   TF32, round_tf32's bits, the 13 low bits cleared, since wgmma's TF32
+//   path would truncate them; "bf16in": bf16 to nearest even) and writes
+//   both operands K-major: A as (M, kp), B transposed through a shared
+//   tile to (N, kp), rows zero-padded to kp, a multiple of 16 bytes (TMA's
+//   row strides must be: a bf16 row of K = 1028 is 2,056 bytes).  wgmma
+//   transposes only 16-bit operands, so a TF32 B must be K-major; bf16
+//   takes the same layout, so both modes share one descriptor scheme.
+//   mma_wgmma_kernel: a block computes a 128 x BN C tile, BN = 128, or
+//   256 where 128 x 128 tiles would take more than one wave (the
+//   wrapper's plan): a wider tile reads fewer operand bytes through the
+//   L2 for the same work.  A producer warp streams boxes of 128 bytes of
+//   K (64 bf16 or 32 TF32 values) by 128 rows of A and BN rows of B by TMA
+//   (cp.async.bulk.tensor, 128-byte swizzle, zeros past every edge) into
+//   a 4-stage ring with a full and an empty mbarrier per stage; two
+//   consumer warpgroups of 64 rows each run wgmma.mma_async (m64nBNk16
+//   bf16, m64nBNk8 TF32, both operands from shared memory through
+//   descriptors matching the swizzle), keep one stage's wgmma in flight
+//   (wait_group 1) and free a stage once the wgmma reading it has
+//   completed.  The f32 accumulators (BN / 2 a thread) are written to C,
+//   masked at the edges.  What bounds it: the tensor cores' rate (989
+//   TFLOP/s bf16, 495 TF32) and the operands' reads through the L2 at
+//   2048^3 and above; at 1028^3 the 81 blocks of one wave on 132 SMs, the
+//   pack's pass over the operands (~13-17 MB) and the host's work per
+//   call.  Simple first: no persistent blocks, stream-K, clusters or TMA
+//   store.  A wait that never ends traps.
 //
-// E1, E3 and E4 are simple first: no wgmma, TMA or persistent blocks yet.
+// E1 and E3 are simple first: no TMA or persistent blocks yet.
+
+#include <cuda.h>          // CUtensorMap (types only: no libcuda link)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
 
 #include "matmul_tiled.cuh"  // matmul_tiled_kernel (E1 is B6's body)
 
@@ -116,7 +137,13 @@ constexpr int STRIP_THREADS = 32 * (STRIP_WARPS + 1);
 constexpr int STRIP_MIN_STAGES = 3;        // E2's ring of B tiles: as
 constexpr int STRIP_MAX_STAGES = 8;        // many slots as shared memory
 constexpr int STRIP_TILE_FLOATS = 4096;    // holds; one slot is 16 KB
-constexpr int MMA_BM = 64, MMA_BN = 64, MMA_BK = 32, MMA_THREADS = 128;
+// E4: a 128 x BN (128 or 256) C tile per block, two consumer warpgroups
+// and a producer warp; each ring stage is a box of 128 bytes of K (64
+// bf16 or 32 TF32 values) by 128 rows of A and BN rows of B
+constexpr int MMA_TILE = 128, MMA_ROW_BYTES = 128, MMA_STAGES = 4;
+constexpr int MMA_CONSUMER_WARPS = 8;
+constexpr int MMA_THREADS = 32 * (MMA_CONSUMER_WARPS + 1);
+constexpr int PACK_TILE = 32, PACK_THREADS = 256;  // E4's pack
 
 // ---------------------------------------------------------------- E1 ----
 
@@ -611,154 +638,381 @@ int launch_pipelined(const float* a, const float* b, float* c, int64_t m,
 
 // ---------------------------------------------------------------- E4 ----
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// Staged tiles.  TF32: A [64][32 + 4] and B [32][64 + 8] as tf32 bit
-// patterns.  bf16: A [64][32 + 8] and B n-major [64][32 + 8], so one 32-bit
-// read gives a fragment register's two adjacent k values.
-template <bool BF16> struct MmaTiles;
-template <> struct MmaTiles<false> {
-  uint32_t a[MMA_BM][MMA_BK + 4];
-  uint32_t b[MMA_BK][MMA_BN + 8];
-};
-template <> struct MmaTiles<true> {
-  __nv_bfloat16 a[MMA_BM][MMA_BK + 8];
-  __nv_bfloat16 b[MMA_BN][MMA_BK + 8];
-};
-
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // p[0] low, p[1] high
-}
-
-template <bool BF16>
-__global__ void __launch_bounds__(MMA_THREADS)
-mma_kernel(const float* __restrict__ a, const float* __restrict__ b,
-           float* __restrict__ c, int64_t m, int64_t n, int64_t k,
-           int64_t tiles_n) {
-  __shared__ __align__(16) MmaTiles<BF16> sm;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane >> 2, t = lane & 3;  // PTX groupID, threadID_in_group
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int64_t m0 = (int64_t)(blockIdx.x / tiles_n) * MMA_BM;
-  const int64_t n0 = (int64_t)(blockIdx.x % tiles_n) * MMA_BN;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.0f;
-
-  for (int64_t k0 = 0; k0 < k; k0 += MMA_BK) {
-    // stage, rounding each value once (zeros past the edges add nothing)
-    for (int i = tid; i < MMA_BM * MMA_BK; i += MMA_THREADS) {
-      const int r = i / MMA_BK, kk = i % MMA_BK;
-      const float v = m0 + r < m && k0 + kk < k
-                          ? __ldg(a + (m0 + r) * k + k0 + kk) : 0.f;
-      if constexpr (BF16) sm.a[r][kk] = __float2bfloat16_rn(v);
-      else sm.a[r][kk] = to_tf32(v);
-    }
-    for (int i = tid; i < MMA_BK * MMA_BN; i += MMA_THREADS) {
-      const int kk = i / MMA_BN, col = i % MMA_BN;
-      const float v = k0 + kk < k && n0 + col < n
-                          ? __ldg(b + (k0 + kk) * n + n0 + col) : 0.f;
-      if constexpr (BF16) sm.b[col][kk] = __float2bfloat16_rn(v);
-      else sm.b[kk][col] = to_tf32(v);
-    }
-    __syncthreads();
-
-    if constexpr (BF16) {
-#pragma unroll
-      for (int ks = 0; ks < MMA_BK; ks += 16) {
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm + mi * 16 + g;
-          af[mi][0] = pair(&sm.a[r][ks + 2 * t]);
-          af[mi][1] = pair(&sm.a[r + 8][ks + 2 * t]);
-          af[mi][2] = pair(&sm.a[r][ks + 2 * t + 8]);
-          af[mi][3] = pair(&sm.a[r + 8][ks + 2 * t + 8]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = wn + ni * 8 + g;
-          bf[ni][0] = pair(&sm.b[col][ks + 2 * t]);
-          bf[ni][1] = pair(&sm.b[col][ks + 2 * t + 8]);
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float* d = acc[mi][ni];
-            asm volatile(
-                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-                "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                : "r"(af[mi][0]), "r"(af[mi][1]), "r"(af[mi][2]),
-                  "r"(af[mi][3]), "r"(bf[ni][0]), "r"(bf[ni][1]));
-          }
-      }
-    } else {
-#pragma unroll
-      for (int ks = 0; ks < MMA_BK; ks += 8) {
-        uint32_t af[2][4], bf[4][2];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const int r = wm + mi * 16 + g;
-          af[mi][0] = sm.a[r][ks + t];
-          af[mi][1] = sm.a[r + 8][ks + t];
-          af[mi][2] = sm.a[r][ks + t + 4];
-          af[mi][3] = sm.a[r + 8][ks + t + 4];
-        }
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          const int col = wn + ni * 8 + g;
-          bf[ni][0] = sm.b[ks + t][col];
-          bf[ni][1] = sm.b[ks + t + 4][col];
-        }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            float* d = acc[mi][ni];
-            asm volatile(
-                "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-                "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-                : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-                : "r"(af[mi][0]), "r"(af[mi][1]), "r"(af[mi][2]),
-                  "r"(af[mi][3]), "r"(bf[ni][0]), "r"(bf[ni][1]));
-          }
-      }
-    }
-    __syncthreads();
+// Rounding, once per input value, as the twin rounds: bf16 to nearest
+// even; TF32 as round_tf32, half an ulp added to the magnitude bits and
+// the 13 low bits cleared (cvt.rna.tf32.f32's rounding, ties away from
+// zero, with the low bits zero: wgmma's TF32 path would otherwise drop
+// them, a truncation).
+template <bool BF16> struct Packed;
+template <> struct Packed<true> {
+  using T = __nv_bfloat16;
+  static __device__ __forceinline__ T round(float v) {
+    return __float2bfloat16_rn(v);
   }
+};
+template <> struct Packed<false> {
+  using T = float;
+  static __device__ __forceinline__ T round(float v) {
+    return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
+  }
+};
 
-  // accumulator fragment: d0, d1 at (g, 2t), (g, 2t+1); d2, d3 at row g+8
+// One launch packs both operands K-major, rounded, rows zero-padded to kp
+// (a whole number of 16-byte units, as TMA's strides must be): blocks
+// [0, tiles_a) copy A's 32 x 32 tiles to ap (M, kp), the rest transpose
+// B's through shared memory to bt (N, kp), so reads and writes coalesce
+// on both sides.  Any 4-byte aligned a and b.
+template <bool BF16>
+__global__ void __launch_bounds__(PACK_THREADS)
+mma_pack_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                typename Packed<BF16>::T* __restrict__ ap,
+                typename Packed<BF16>::T* __restrict__ bt, int64_t m,
+                int64_t n, int64_t k, int64_t kp, int64_t tiles_k,
+                int64_t tiles_a, int64_t tiles_bn) {
+  __shared__ float tile[PACK_TILE][PACK_TILE + 1];
+  const int tx = threadIdx.x % PACK_TILE, ty = threadIdx.x / PACK_TILE;
+  constexpr int ROWS = PACK_THREADS / PACK_TILE;  // 8: four rows a thread
+  const int64_t t = blockIdx.x;
+  if (t < tiles_a) {
+    const int64_t r0 = t / tiles_k * PACK_TILE;
+    const int64_t col = t % tiles_k * PACK_TILE + tx;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < PACK_TILE; i += ROWS) {
+      const int64_t r = r0 + ty + i;
+      if (r < m && col < kp)
+        ap[r * kp + col] =
+            Packed<BF16>::round(col < k ? a[r * k + col] : 0.f);
+    }
+  } else {  // B's tile (k0.., n0..) lands as bt's (n0.., k0..)
+    const int64_t u = t - tiles_a;
+    const int64_t k0 = u / tiles_bn * PACK_TILE;
+    const int64_t n0 = u % tiles_bn * PACK_TILE;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int i = 0; i < PACK_TILE; i += ROWS) {
+      const int64_t kk = k0 + ty + i, col = n0 + tx;
+      tile[ty + i][tx] = kk < k && col < n ? b[kk * n + col] : 0.f;
+    }
+    __syncthreads();
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int64_t row = m0 + wm + mi * 16 + g + (r >= 2 ? 8 : 0);
-        const int64_t col = n0 + wn + ni * 8 + 2 * t + (r & 1);
-        if (row < m && col < n) c[row * n + col] = acc[mi][ni][r];
-      }
+    for (int i = 0; i < PACK_TILE; i += ROWS) {
+      const int64_t row = n0 + ty + i, col = k0 + tx;
+      if (row < n && col < kp)
+        bt[row * kp + col] = Packed<BF16>::round(tile[tx][ty + i]);
+    }
+  }
 }
 
 template <bool BF16>
-int launch_mma(const float* a, const float* b, float* c, int64_t m,
-               int64_t n, int64_t k, cudaStream_t s) {
-  const int64_t tiles_n = (n + MMA_BN - 1) / MMA_BN;
-  const int64_t blocks = (m + MMA_BM - 1) / MMA_BM * tiles_n;
+int launch_pack(const float* a, const float* b, void* ap, void* bt,
+                int64_t m, int64_t n, int64_t k, int64_t kp,
+                cudaStream_t s) {
+  using T = typename Packed<BF16>::T;
+  const int64_t tiles_k = (kp + PACK_TILE - 1) / PACK_TILE;
+  const int64_t tiles_a = (m + PACK_TILE - 1) / PACK_TILE * tiles_k;
+  const int64_t tiles_bn = (n + PACK_TILE - 1) / PACK_TILE;
+  const int64_t blocks = tiles_a + tiles_k * tiles_bn;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  mma_kernel<BF16><<<(unsigned)blocks, MMA_THREADS, 0, s>>>(a, b, c, m, n, k,
-                                                            tiles_n);
+  mma_pack_kernel<BF16><<<(unsigned)blocks, PACK_THREADS, 0, s>>>(
+      a, b, static_cast<T*>(ap), static_cast<T*>(bt), m, n, k, kp, tiles_k,
+      tiles_a, tiles_bn);
+  return (int)cudaGetLastError();
+}
+
+// A wgmma matrix descriptor for a K-major tile that TMA wrote with the
+// 128-byte swizzle (rows of 128 bytes, 8-row groups 1024 bytes apart, the
+// tile 1024-byte aligned): start address >> 4, leading offset 16 bytes
+// (unused by this layout), stride offset 1024 bytes, layout 1 = 128B
+// swizzle.  Adding 2 advances the start by 32 bytes, one k16 (bf16) or
+// k8 (TF32) slice along the row; the hardware applies the swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define WGMMA_D8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WGMMA_D64(i)                                                       \
+  WGMMA_D8(i), WGMMA_D8(i + 8), WGMMA_D8(i + 16), WGMMA_D8(i + 24),        \
+      WGMMA_D8(i + 32), WGMMA_D8(i + 40), WGMMA_D8(i + 48),                \
+      WGMMA_D8(i + 56)
+#define WGMMA_REGS64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WGMMA_REGS128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127}"
+
+// d (this warpgroup's 64 x BN f32 accumulator) += A slice (64 rows) @ B
+// slice (BN columns), both K-major in shared memory: one k16 step of
+// bf16, or one k8 step of TF32.
+template <bool BF16, int BN>
+__device__ __forceinline__ void wgmma_step(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_step<true, 128>(float (&d)[64],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D64(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_step<false, 128>(float (&d)[64],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WGMMA_REGS64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : WGMMA_D64(0)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_step<true, 256>(float (&d)[128],
+                                                      uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGMMA_REGS128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D64(0), WGMMA_D64(64)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_step<false, 256>(float (&d)[128],
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 " WGMMA_REGS128
+      ", %128, %129, p, 1, 1;\n}\n"
+      : WGMMA_D64(0), WGMMA_D64(64)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef WGMMA_D8
+#undef WGMMA_D64
+#undef WGMMA_REGS64
+#undef WGMMA_REGS128
+
+// One TMA load of a box of `map` at (c0 along K, c1 along rows) into
+// shared memory, completing on `bar`; boxes past the tensor's edges are
+// zero-filled.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared memory of a 128 x BN block: the ring (A's 128-row box, then B's
+// BN-row box, per stage), its barriers, and room to align it to 1024.
+template <int BN>
+constexpr size_t mma_smem_bytes() {
+  return 1024 + MMA_STAGES * ((MMA_TILE + BN) * MMA_ROW_BYTES +
+                              2 * sizeof(uint64_t));
+}
+
+// The product of the packed operands: block (tm, tn) computes C's 128 x
+// BN tile at (128 tm, BN tn).  Warps 0-7 are two consumer warpgroups of
+// 64 rows each; warp 8's lane 0 is the producer.
+template <bool BF16, int BN>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+mma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 float* __restrict__ c, int64_t m, int64_t n, int k_steps,
+                 int tiles_n) {
+  constexpr int BK = MMA_ROW_BYTES / (BF16 ? 2 : 4);  // K values a stage
+  constexpr int A_BYTES = MMA_TILE * MMA_ROW_BYTES;     // 16 KB
+  constexpr int STAGE_BYTES = A_BYTES + BN * MMA_ROW_BYTES;
+  constexpr int R = BN / 2;  // accumulators a thread
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  uint8_t* ring = mma_smem + ((1024 - (smem_u32(mma_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + MMA_STAGES *
+                                               STAGE_BYTES);
+  uint64_t* empty = full + MMA_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = blockIdx.x / tiles_n, tn = blockIdx.x % tiles_n;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MMA_STAGES; ++s) {
+      mbar_init(&full[s], 1);                    // the producer's expect_tx
+      mbar_init(&empty[s], MMA_CONSUMER_WARPS);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised before any use
+
+  if (warp == MMA_CONSUMER_WARPS) {  // the producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < k_steps; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* sa = ring + stage * STAGE_BYTES;
+        mbar_expect_tx(&full[stage], STAGE_BYTES);  // zero-fill included
+        tma_load(sa, &map_a, t * BK, tm * MMA_TILE, &full[stage]);
+        tma_load(sa + A_BYTES, &map_b, t * BK, tn * BN, &full[stage]);
+        if (++stage == MMA_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg holds rows 64 wg .. 64 wg + 63
+    const int wg = warp / 4;
+    float acc[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    const uint64_t da = wgmma_desc(ring + wg * 64 * MMA_ROW_BYTES);
+    const uint64_t db = wgmma_desc(ring + A_BYTES);
+    int stage = 0, held = -1;
+    uint32_t phase = 0;
+    for (int t = 0; t < k_steps; ++t) {
+      mbar_wait(&full[stage], phase);
+      const uint64_t off = (uint64_t)(stage * STAGE_BYTES) >> 4;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // four 32-byte slices of the row
+        wgmma_step<BF16, BN>(acc, da + off + 2 * kk, db + off + 2 * kk);
+      wgmma_commit();
+      // the previous stage's wgmma has completed: free its slot
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (held >= 0) release_slot(&empty[held], lane);
+      held = stage;
+      if (++stage == MMA_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    // accumulator fragment: warp w of the warpgroup holds rows 16 w ..;
+    // acc[4 j + 2 h + e] is (row lane / 4 + 8 h, column 8 j + 2 (lane % 4)
+    // + e)
+    const int64_t row0 = (int64_t)tm * MMA_TILE + wg * 64 + (warp % 4) * 16 +
+                         lane / 4;
+    const int64_t col0 = (int64_t)tn * BN + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = row0 + 8 * h, col = col0 + 8 * j;
+        if (row < m) {
+          if (col < n) c[row * n + col] = acc[4 * j + 2 * h];
+          if (col + 1 < n) c[row * n + col + 1] = acc[4 * j + 2 * h + 1];
+        }
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library links no libcuda.
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The map of a packed (rows, kp) operand: boxes of 128 bytes of K by
+// box_rows rows, swizzled 128B for wgmma, zeros past the edges.
+int encode_packed(CUtensorMap* map, const void* base, int64_t rows,
+                  int64_t kp, bool bf16, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const int64_t esize = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {(cuuint64_t)kp, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(kp * esize)};
+  const cuuint32_t box[2] = {(cuuint32_t)(MMA_ROW_BYTES / esize),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool BF16, int BN>
+int launch_wgmma(const void* ap, const void* bt, float* c, int64_t m,
+                 int64_t n, int64_t kp, int64_t grid_m, int64_t grid_n,
+                 int dev, cudaStream_t s) {
+  CUtensorMap map_a, map_b;
+  if (int err = encode_packed(&map_a, ap, m, kp, BF16, MMA_TILE)) return err;
+  if (int err = encode_packed(&map_b, bt, n, kp, BF16, BN)) return err;
+  constexpr int64_t BK = MMA_ROW_BYTES / (BF16 ? 2 : 4);
+  constexpr size_t SMEM = mma_smem_bytes<BN>();
+  static bool allowed[64] = {};  // the opt-in to SMEM bytes, per device
+  if (dev >= 64 || !allowed[dev]) {
+    if (int err = allow_smem(mma_wgmma_kernel<BF16, BN>, SMEM)) return err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  mma_wgmma_kernel<BF16, BN><<<(unsigned)(grid_m * grid_n), MMA_THREADS,
+                               SMEM, s>>>(map_a, map_b, c, m, n,
+                                          (int)((kp + BK - 1) / BK),
+                                          (int)grid_n);
   return (int)cudaGetLastError();
 }
 
@@ -858,17 +1112,57 @@ int bm25_matmul_pipelined(const void* a, const void* b, void* c, long long m,
 }
 #undef PIPE
 
-// E4: tensor-core product of the rounded inputs, bf16 (bf16 != 0) or TF32.
-int bm25_matmul_mma(const void* a, const void* b, void* c, long long m,
-                    long long n, long long k, int bf16, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  if (k < 0) return (int)cudaErrorInvalidValue;
+// E4's pack alone: a and b (any 4-byte aligned f32) rounded, bf16
+// (bf16 != 0) or TF32 (kept as f32), into the 16-byte aligned scratch
+// packed: A as (M, kp), then B as (N, kp), both K-major and zero-padded;
+// kp >= max(K, 1), and kp values are whole 16-byte units.
+int bm25_mma_pack(const void* a, const void* b, void* packed, long long m,
+                  long long n, long long k, long long kp, int bf16,
+                  void* stream) {
+  const int64_t esize = bf16 ? 2 : 4;
+  if (m < 0 || n < 0 || k < 0 || kp < k || kp < 1 || (kp * esize) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (m == 0 && n == 0) return 0;
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
+  char* ap = static_cast<char*>(packed);
+  char* bt = ap + m * kp * esize;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_pack<true>(A, B, ap, bt, m, n, k, kp, s)
+              : launch_pack<false>(A, B, ap, bt, m, n, k, kp, s);
+}
+
+// E4: tensor-core product of the rounded inputs, bf16 (bf16 != 0) or TF32:
+// the pack into the scratch packed (as bm25_mma_pack), then the wgmma
+// kernel on a grid_m x grid_n grid of 128 x bn (128 or 256) C tiles, which
+// must cover C.  Two launches on the caller's stream.
+int bm25_matmul_mma(const void* a, const void* b, void* c, long long m,
+                    long long n, long long k, void* packed, long long kp,
+                    int bn, long long grid_m, long long grid_n, int bf16,
+                    void* stream) {
+  if (m <= 0 || n <= 0) return 0;
+  if ((bn != 128 && bn != 256) || grid_m * MMA_TILE < m || grid_n * bn < n ||
+      (grid_m - 1) * MMA_TILE >= m || (grid_n - 1) * bn >= n ||
+      grid_m * grid_n > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  if (int err = bm25_mma_pack(a, b, packed, m, n, k, kp, bf16, stream))
+    return err;
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
+  const char* ap = static_cast<const char*>(packed);
+  const char* bt = ap + m * kp * (bf16 ? 2 : 4);
   float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_mma<true>(A, B, C, m, n, k, s)
-              : launch_mma<false>(A, B, C, m, n, k, s);
+  if (bn == 256)
+    return bf16 ? launch_wgmma<true, 256>(ap, bt, C, m, n, kp, grid_m,
+                                          grid_n, dev, s)
+                : launch_wgmma<false, 256>(ap, bt, C, m, n, kp, grid_m,
+                                           grid_n, dev, s);
+  return bf16 ? launch_wgmma<true, 128>(ap, bt, C, m, n, kp, grid_m, grid_n,
+                                        dev, s)
+              : launch_wgmma<false, 128>(ap, bt, C, m, n, kp, grid_m,
+                                         grid_n, dev, s);
 }
 
 }  // extern "C"

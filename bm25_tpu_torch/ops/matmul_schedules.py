@@ -32,7 +32,14 @@ kernel states a limit:
 * ``matmul_pipelined(a, b, tile, stages=2)`` (E3, ``mm_dma``): E1's block
   tile fed by a ``stages``-slot ``cp.async`` ring;
 * ``matmul_mma(a, b, mode)`` (E4, ``pallas_matmul``): ``"default"`` on TF32
-  and ``"bf16in"`` on bf16 tensor cores (``mma.sync``); ``"f32"``, the
+  and ``"bf16in"`` on bf16 tensor cores, in two launches: a pack kernel
+  rounds both operands once and writes them K-major, B transposed, rows
+  zero-padded to ``mma_plan``'s ``kp`` (a multiple of 16 bytes, as TMA
+  needs) into scratch from ``torch.empty`` (its twin is
+  ``mma_pack_plain``; ``mma_pack`` launches it alone), then the product
+  kernel streams both by TMA into a ring of shared-memory stages on
+  mbarriers and runs ``wgmma`` on C tiles of 128 x 128, or 128 x 256
+  where 128 x 128 tiles would take more than one wave.  ``"f32"``, the
   script's baseline, is B6's ``matmul_tiled`` and counts as its launch.
 
 TF32 is the card's counterpart of XLA's DEFAULT precision, one low-
@@ -84,10 +91,19 @@ MMA_MODES = ("f32", "default", "bf16in")
 # where no card is asked
 H100_SMEM_OPTIN = 232448
 
+# E4: C tiles of 128 rows (128 or 256 wide); a ring stage holds 128 bytes
+# of K of each operand's rows (64 bf16 or 32 TF32 values); the packed rows
+# are whole 16-byte units
+MMA_TILE = 128
+MMA_ROW_BYTES = 128
+MMA_ELEM_BYTES = {"default": 4, "bf16in": 2}
+MMA_PACKED_DTYPE = {"default": torch.float32, "bf16in": torch.bfloat16}
+
 # kernel launches, counted only where a kernel is launched (mode="f32" of
-# matmul_mma counts under ops.matmul.launches["matmul_tiled"])
+# matmul_mma counts under ops.matmul.launches["matmul_tiled"]; a matmul_mma
+# call counts its pack under "matmul_mma_pack" too)
 launches = {"matmul_sweep": 0, "matmul_row_strip": 0, "matmul_pipelined": 0,
-            "matmul_mma": 0}
+            "matmul_mma": 0, "matmul_mma_pack": 0}
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -121,11 +137,13 @@ def _lib() -> ctypes.CDLL:
     lib.bm25_matmul_row_strip.argtypes = [p, p, p, ll, ll, ll, ll, i, ll,
                                           ll, ll, i, p]
     lib.bm25_matmul_pipelined.argtypes = [p, p, p, ll, ll, ll, i, i, p]
-    lib.bm25_matmul_mma.argtypes = [p, p, p, ll, ll, ll, i, p]
+    lib.bm25_matmul_mma.argtypes = [p, p, p, ll, ll, ll, p, ll, i, ll, ll,
+                                     i, p]
+    lib.bm25_mma_pack.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
     lib.bm25_smem_optin_bytes.argtypes = [i]
     for fn in (lib.bm25_matmul_sweep, lib.bm25_matmul_row_strip,
                lib.bm25_matmul_pipelined, lib.bm25_matmul_mma,
-               lib.bm25_smem_optin_bytes):
+               lib.bm25_mma_pack, lib.bm25_smem_optin_bytes):
         fn.restype = i
     return lib
 
@@ -155,13 +173,24 @@ def _launch(name: str, fn: str, a: torch.Tensor, b: torch.Tensor,
     if m == 0 or n == 0:
         return out
     lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               m, n, k, *args, stream)
+    err = _on_device(a.device, getattr(lib, fn), a.data_ptr(), b.data_ptr(),
+                     out.data_ptr(), m, n, k, *args)
     _build.check(lib, err, f"{fn} launch")
     launches[name] += 1
     return out
+
+
+def _on_device(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``device`` current, on its current
+    stream (read in one call into torch's C layer where the build has it:
+    the wrapper's host work counts where it outlasts the kernel).  The
+    device is switched only where it is not the current one."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, raw(device.index) if raw else
+                  torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def _tile(tile, tiles, what: str) -> Tile:
@@ -172,10 +201,16 @@ def _tile(tile, tiles, what: str) -> Tile:
     return t
 
 
+@functools.cache
+def _card_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def sm_count(device: torch.device) -> int:
-    """The card's SM count, an H100's on the CPU."""
+    """The card's SM count (read once per device), an H100's on the
+    CPU."""
     if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
+        return _card_sms(device.index or 0)
     return H100_SMS
 
 
@@ -384,18 +419,106 @@ def matmul_pipelined(a: torch.Tensor, b: torch.Tensor,
                    stages)
 
 
+@dataclasses.dataclass(frozen=True)
+class MmaPlan:
+    """What E4 launches for an (m, k) @ (k, n) product: the packed
+    operands' row length ``kp`` (K rounded up to whole 16-byte units, at
+    least one), ``k_steps`` ring stages of ``bk`` values each, and a
+    ``grid_m`` x ``grid_n`` grid of 128 x ``bn`` C tiles."""
+
+    kp: int
+    bk: int
+    k_steps: int
+    bn: int
+    grid_m: int
+    grid_n: int
+
+
+@functools.lru_cache(maxsize=256)
+def mma_plan(m: int, n: int, k: int, mode: str,
+             sms: int = H100_SMS) -> MmaPlan:
+    """E4's launch for one shape and mode.  The tile is 128 x 128 where
+    those tiles fill at most one wave of ``sms`` blocks, else 128 x 256,
+    which reads fewer operand bytes through the L2 for the same outputs
+    (384 rows a K step for 32,768 outputs; two 128 x 128 tiles read 512).
+    Cached: the wrapper asks it on every call."""
+    e = MMA_ELEM_BYTES[mode]
+    kp = next_multiple(max(k, 1), 16 // e)
+    bk = MMA_ROW_BYTES // e
+    grid_m = cdiv(m, MMA_TILE)
+    bn = MMA_TILE if grid_m * cdiv(n, MMA_TILE) <= sms else 2 * MMA_TILE
+    return MmaPlan(kp, bk, cdiv(kp, bk), bn, grid_m, cdiv(n, bn))
+
+
+def mma_pack_plain(a: torch.Tensor, b: torch.Tensor,
+                   mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of E4's pack: A rounded as (M, kp) and B rounded and
+    transposed as (N, kp), both zero past K, in ``MMA_PACKED_DTYPE`` (TF32
+    values stay in f32)."""
+    (m, k), n = a.shape, b.shape[1]
+    kp, rnd = mma_plan(m, n, k, mode).kp, ROUNDING[mode]
+    dt = MMA_PACKED_DTYPE[mode]
+    ap = torch.zeros((m, kp), dtype=dt, device=a.device)
+    bt = torch.zeros((n, kp), dtype=dt, device=a.device)
+    ap[:, :k] = rnd(a)
+    bt[:, :k] = rnd(b).t()
+    return ap, bt
+
+
+def _mma_mode(a: torch.Tensor, b: torch.Tensor, mode: str, modes,
+              what: str) -> None:
+    if mode not in modes:
+        raise ValueError(f"unknown mode {mode!r}; the modes are {modes}")
+    _check(a, b, what)
+
+
+def _packed_scratch(a: torch.Tensor, m: int, n: int, kp: int,
+                    mode: str) -> torch.Tensor:
+    """One ``torch.empty`` for both packed operands: (M, kp) rows of A,
+    then (N, kp) of B; kp values are whole 16-byte units, so B's start is
+    aligned too."""
+    return torch.empty((m + n, kp), dtype=MMA_PACKED_DTYPE[mode],
+                       device=a.device)
+
+
+def mma_pack(a: torch.Tensor, b: torch.Tensor,
+             mode: str = "bf16in") -> tuple[torch.Tensor, torch.Tensor]:
+    """E4's pack kernel alone (the twin on CPU tensors): what
+    ``matmul_mma`` feeds its product kernel."""
+    _mma_mode(a, b, mode, tuple(ROUNDING), "mma_pack")
+    if a.device.type == "cpu":
+        return mma_pack_plain(a, b, mode)
+    (m, k), n = a.shape, b.shape[1]
+    kp = mma_plan(m, n, k, mode).kp
+    packed = _packed_scratch(a, m, n, kp, mode)
+    if m or n:
+        lib = _lib()
+        err = _on_device(a.device, lib.bm25_mma_pack, a.data_ptr(),
+                         b.data_ptr(), packed.data_ptr(), m, n, k, kp,
+                         int(mode == "bf16in"))
+        _build.check(lib, err, "bm25_mma_pack launch")
+        launches["matmul_mma_pack"] += 1
+    return packed[:m], packed[m:]
+
+
 def matmul_mma(a: torch.Tensor, b: torch.Tensor,
                mode: str = "bf16in") -> torch.Tensor:
     """E4: C = A @ B with f32 accumulation in one of the script's input
     precisions: ``"default"`` (TF32 tensor cores), ``"bf16in"`` (inputs
     rounded to bf16, bf16 tensor cores) or ``"f32"`` (B6's
-    ``matmul_tiled``)."""
-    if mode not in MMA_MODES:
-        raise ValueError(f"unknown mode {mode!r}; the modes are {MMA_MODES}")
-    _check(a, b, "matmul_mma")
+    ``matmul_tiled``).  On the card the pack and the ``wgmma`` product,
+    two launches; the packed operands are scratch, freed on return."""
+    _mma_mode(a, b, mode, MMA_MODES, "matmul_mma")
     if mode == "f32":
         return matmul(a, b, algorithm="optimized")
     if a.device.type == "cpu":
         return matmul_mma_plain(a, b, mode)
-    return _launch("matmul_mma", "bm25_matmul_mma", a, b,
-                   int(mode == "bf16in"))
+    (m, k), n = a.shape, b.shape[1]
+    plan = mma_plan(m, n, k, mode, sm_count(a.device))
+    packed = _packed_scratch(a, m, n, plan.kp, mode)
+    out = _launch("matmul_mma", "bm25_matmul_mma", a, b, packed.data_ptr(),
+                  plan.kp, plan.bn, plan.grid_m, plan.grid_n,
+                  int(mode == "bf16in"))
+    if m and n:  # counted as _launch counts the product
+        launches["matmul_mma_pack"] += 1
+    return out

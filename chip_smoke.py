@@ -67,14 +67,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 10. matmul schedules (E1-E4): the four ``ops/matmul_schedules.py`` kernels
    against their twins at edge cases (ragged M, N and K, K off every K step,
    1 x 1 x 1, the analytic corner case: E1-E3 bit-equal at every tile,
-   strip height, E2 block count and stage count; E4's TF32 and bf16 modes
-   within ``K 2^-22 (|A^| @ |B^|)``; the E2 strip that does not fit shared
-   memory and E3 on K % 4 != 0, which must raise); then ``bench_schedules``'s sweep
-   at the scripts' sizes 1028, 2048 and 4096 (each variant checked against
-   ``torch.matmul`` or the float64 product before it is timed), with the
-   kernels' launches counted over the sweep; then every variant against its
-   twin at 1028^3 and 2048^3 (bit-equal, or within E4's bound); E2's
-   record is the wrapper's default strip height at 1028;
+   strip height, E2 block count and stage count; E4's pack kernel
+   bit-equal to its twin and its TF32 and bf16 products within
+   ``K 2^-22 (|A^| @ |B^|)``, also on 128 x 256 tiles with ragged edges
+   and on operands 4 bytes off 16-byte alignment; the E2 strip that does
+   not fit shared memory and E3 on K % 4 != 0, which must raise); then
+   ``bench_schedules``'s sweep at the scripts' sizes 1028, 2048 and 4096
+   (each variant checked against ``torch.matmul`` or the float64 product
+   before it is timed), with the kernels' launches (E4's pack too)
+   counted over the sweep; then every variant against its twin at 1028^3
+   and 2048^3 (bit-equal, or within E4's bound), E4's pack bit-equal and
+   timed at 1028^3; E2's record is the wrapper's default strip height at
+   1028, E4's carries both modes; last, E4's pack and product device
+   time per call at 1028^3 and 4096^3 in both modes (``torch.profiler``);
 11. entry points, on the card: the port's CLI (``info`` and ``query`` with
    term boosts under ``--engine dense`` and ``sparse`` on an index built
    by ``build_index(..., Tokenizer(stemmer=None), save_to=...)``, ``demo``,
@@ -123,6 +128,7 @@ SOURCES = {
     "matmul_row_strip": "bm25_tpu_torch/csrc/matmul_schedules.cu",
     "matmul_pipelined": "bm25_tpu_torch/csrc/matmul_schedules.cu",
     "matmul_mma": "bm25_tpu_torch/csrc/matmul_schedules.cu",
+    "matmul_mma_pack": "bm25_tpu_torch/csrc/matmul_schedules.cu",
 }
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
@@ -139,6 +145,7 @@ REPLACES = {
     "matmul_row_strip": "scripts/exp_r4_matmul_tiles4.py:48",
     "matmul_pipelined": "scripts/exp_r4_matmul_dma.py:76",
     "matmul_mma": "scripts/exp_r4_matmul_precision.py:85",
+    "matmul_mma_pack": "scripts/exp_r4_matmul_precision.py:85",
 }
 HOT_TOKENS = 1024
 MAX_BUCKETS = 2
@@ -352,25 +359,33 @@ def side_max(tk, entries: int):
         tk.SIDE_MAX = saved
 
 
-def b4_kernel_us(torch, tk, x, k, calls: int = 5) -> dict:
-    """Device microseconds per call of each of B4's kernels on (x, k),
-    summed by kernel name over ``calls`` calls (``torch.profiler``)."""
+def device_us(torch, fn, prefixes, calls: int = 5) -> dict:
+    """Device microseconds per call of ``fn()`` for each kernel whose name
+    starts with one of ``prefixes``, summed by name over ``calls`` calls
+    (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    tk.top_k_two_stage(x, k)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            tk.top_k_two_stage(x, k)
+            fn()
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
-        if e.device_time_total > 0 and name.startswith(("radix_", "sort_")):
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.removeprefix("void ").split("(")[0]
+        if e.device_time_total > 0 and name.startswith(prefixes):
             out[name] = round(out.get(name, 0.0)
                               + e.device_time_total / calls, 1)
     return out
+
+
+def b4_kernel_us(torch, tk, x, k, calls: int = 5) -> dict:
+    """Device microseconds per call of each of B4's kernels on (x, k)."""
+    return device_us(torch, lambda: tk.top_k_two_stage(x, k),
+                     ("radix_", "sort_"), calls)
 
 
 def b4_side_buffer_fill(torch, tk, x, kth, bits: int) -> int:
@@ -1224,12 +1239,22 @@ def mma_within_bound(bs, ms, got, a, b, mode, what, readings) -> float:
     return err
 
 
+def mma_pack_equal(torch, ms, a, b, mode, what, want=None) -> None:
+    """E4's pack kernel bit-equal to its twin (on ``want``'s operands, if
+    given: the same values at another address)."""
+    got = ms.mma_pack(a, b, mode)
+    want = ms.mma_pack_plain(*(want or (a, b)), mode)
+    for g, w, name in zip(got, want, ("A", "B")):
+        compare(torch, g, w, True, f"E4 pack {name} {mode} {what}")
+
+
 def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
     """E1-E4 edge cases; returns E4's largest |diff| / bound per mode, with
     the unrounded inputs' reading of the same case."""
     readings = {mode: (0.0, 0.0) for mode in ms.ROUNDING}
     shapes = [(67, 130, 200), (1, 1, 1), (33, 13, 70),  # K off every step
-              (100, 64, 136), (130, 24, 129), (37, 36, 44), (257, 1028, 260)]
+              (100, 64, 136), (130, 24, 129), (37, 36, 44), (257, 1028, 260),
+              (1100, 13, 2100)]  # E4 on ragged 128 x 256 tiles
     for m, k, n in shapes:
         a, b = matmul_operands(torch, dev, m, k, n, torch.float32, m + k + n)
         want = pm.matmul_plain(a, b)
@@ -1247,12 +1272,27 @@ def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
                     compare(torch, ms.matmul_pipelined(a, b, t, st), want,
                             True, f"E3 {tuple(t)} stages {st} ({m}, {k}, {n})")
         for mode in ms.ROUNDING:
+            mma_pack_equal(torch, ms, a, b, mode, f"({m}, {k}, {n})")
             mma_within_bound(bs, ms, ms.matmul_mma(a, b, mode), a, b, mode,
                              f"E4 {mode} ({m}, {k}, {n})", readings)
+        bn = ms.mma_plan(m, n, k, "bf16in", ms.sm_count(dev)).bn
         log(f"[kernels] E1-E4 ({m}, {k}, {n}): E1 (12 tiles), E2 (3 strips, "
             f"a block per item or 1 or 3 blocks)"
             f"{', E3 (2 tiles x 3 stages)' if e3 else ''}"
-            " bit-equal to the twin; E4 within its bound")
+            f" bit-equal to the twin; E4's pack bit-equal to its twin, E4 "
+            f"(128 x {bn} tiles) within its bound")
+    # E4 reads any 4-byte aligned operand
+    a, b = matmul_operands(torch, dev, 37, 64, 132, torch.float32, 3)
+    off_a = torch.zeros(a.numel() + 1, device=dev)[1:].view(a.shape)
+    off_b = torch.zeros(b.numel() + 1, device=dev)[1:].view(b.shape)
+    off_a.copy_(a)
+    off_b.copy_(b)
+    for mode in ms.ROUNDING:
+        mma_pack_equal(torch, ms, off_a, off_b, mode, "4 bytes off", (a, b))
+        mma_within_bound(bs, ms, ms.matmul_mma(off_a, off_b, mode), a, b,
+                         mode, f"E4 {mode} 4 bytes off", readings)
+    log("[kernels] E4 on operands 4 bytes off 16-byte alignment: the pack "
+        "bit-equal to its twin, the product within its bound")
     r = torch.arange(32, dtype=torch.float32, device=dev)
     a, b = r[:, None] - r[None, :], r[:, None] + r[None, :]
     exact = a.double() @ b.double()
@@ -1300,7 +1340,7 @@ def matmul_schedules(torch, pm, dev, record) -> None:
                              "ran the plain twin")
     log("[schedules] bench_schedules " + json.dumps(rows))
 
-    twin_ms, mma_err = {}, {}
+    twin_ms, mma_err, pack = {}, {}, {}
     for s in SCHEDULE_TWIN_SIZES:
         rng = np.random.default_rng(0)
         a, b = (torch.from_numpy(rng.standard_normal((s, s), dtype=np.float32))
@@ -1327,6 +1367,8 @@ def matmul_schedules(torch, pm, dev, record) -> None:
             ms.matmul_mma_plain(a, b, mode)
             torch.cuda.synchronize()
             twin_ms[(s, mode)] = (time.perf_counter() - t0) * 1e3
+            if s == MATMUL_N:
+                pack[mode] = e4_pack_record(torch, ms, a, b, mode)
         log(f"[kernels] {s}^3: every E1-E3 variant and E4 f32 bit-equal to "
             f"the twin ({twin_ms[(s, 'f32')]:.1f} ms), E4 default and bf16in "
             f"within their bound; max |diff| / bound so far {readings}")
@@ -1353,8 +1395,60 @@ def matmul_schedules(torch, pm, dev, record) -> None:
         log(f"[kernels] {name} at {MATMUL_N}^3 ({row}): {row['ms']:.4f} ms, "
             f"twin {twin_ms[(MATMUL_N, mode)]:.1f} ms, {row['library']} "
             f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms")
+    # E4 carries both modes; its top-level numbers are bf16's
+    record["matmul_mma"]["modes"] = {
+        mode: {**kernel_record(launches["matmul_mma"],
+                               mma_err[(MATMUL_N, mode)], row["ms"],
+                               twin_ms[(MATMUL_N, mode)],
+                               (row["bound_ms"], row["bound_by"]),
+                               row["library_ms"]),
+               "library": row["library"]}
+        for mode, row in ((m, pick(variant="mma", mode=m))
+                          for m in ms.ROUNDING)}
+    record["matmul_mma_pack"] = {
+        **kernel_record(launches["matmul_mma_pack"], *pack["bf16in"]),
+        "modes": {mode: kernel_record(launches["matmul_mma_pack"], *rec)
+                  for mode, rec in pack.items()}}
     log(f"[kernels] E4 largest |diff| / (K 2^-22 (|A^| @ |B^|)) over every "
         f"checked case, with the unrounded inputs' reading there: {readings}")
+    e4_device_split(torch, ms, dev, record)
+
+
+def e4_pack_record(torch, ms, a, b, mode) -> tuple:
+    """E4's pack at this size: bit-equal to its twin; (max error, kernel
+    ms, twin ms, bound), both timed back to back."""
+    mma_pack_equal(torch, ms, a, b, mode, f"{a.shape[0]}^3")
+    ms_ = cuda_ms(torch, lambda: ms.mma_pack(a, b, mode), 20)
+    plain_ms = cuda_ms(torch, lambda: ms.mma_pack_plain(a, b, mode), 3)
+    (m, k), n = a.shape, b.shape[1]
+    kp = ms.mma_plan(m, n, k, mode).kp
+    moved = nbytes(a, b) + (m + n) * kp * ms.MMA_ELEM_BYTES[mode]
+    log(f"[kernels] E4 pack {mode} at {m}^3: {ms_:.4f} ms back to back, "
+        f"twin {plain_ms:.4f} ms, bound {bound(moved)[0]:.4f} ms; bit-equal "
+        "to the twin")
+    return 0.0, ms_, plain_ms, bound(moved)
+
+
+def e4_device_split(torch, ms, dev, record) -> None:
+    """E4's two kernels' device time per call at 1028^3 and 4096^3 in both
+    modes (``torch.profiler``, after every timing of phase 10); the
+    1028^3 figures go into the kernels line as ``device_ms``."""
+    for s in (MATMUL_N, MATMUL_BIG):
+        a, b = matmul_operands(torch, dev, s, s, s, torch.float32, 0)
+        for mode in ms.ROUNDING:
+            us = device_us(torch, lambda: ms.matmul_mma(a, b, mode),
+                           ("mma_pack_kernel", "mma_wgmma_kernel"))
+            pack_us = sum(v for k, v in us.items() if k.startswith("mma_p"))
+            prod_us = sum(v for k, v in us.items() if k.startswith("mma_w"))
+            log(f"[kernels] E4 {mode} at {s}^3: device us per call, pack "
+                f"{pack_us:.1f} + product {prod_us:.1f} ({us}; "
+                "torch.profiler)")
+            if s == MATMUL_N and us:
+                record["matmul_mma"]["modes"][mode]["device_ms"] = \
+                    prod_us / 1e3
+                record["matmul_mma_pack"]["modes"][mode]["device_ms"] = \
+                    pack_us / 1e3
+        del a, b
 
 
 def cli(args: list[str]) -> str:
@@ -1560,7 +1654,8 @@ def drive(torch, dev) -> dict:
             log(f"[build] {os.path.relpath(path, HERE)}")
             with open(path[:-3] + ".log") as f:
                 for line in f.read().splitlines():
-                    if "registers" in line or "spill" in line:
+                    if ("registers" in line or "spill" in line
+                            or "serialized" in line):
                         log(f"[build] {name}: {line.strip()}")
 
     with Phase("3. kernel edge cases"):

@@ -713,6 +713,77 @@ def test_cuda_matmul_mma_within_bound(cuda_device, m, k, n, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+@pytest.mark.parametrize("m,k,n", SCHEDULE_SHAPES)
+def test_cuda_mma_pack_bit_equal(cuda_device, m, k, n, mode):
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=m)
+    before = ms.launches["matmul_mma_pack"]
+    ap, bt = ms.mma_pack(a, b, mode)
+    torch.cuda.synchronize()
+    assert ms.launches["matmul_mma_pack"] == before + 1
+    want_a, want_b = ms.mma_pack_plain(a, b, mode)
+    assert torch.equal(ap, want_a) and torch.equal(bt, want_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+def test_cuda_matmul_mma_counts_pack_and_product(cuda_device, mode):
+    a, b = matmul_operands(67, 130, 200, torch.float32, cuda_device)
+    before = dict(ms.launches)
+    ms.matmul_mma(a, b, mode)
+    assert ms.launches["matmul_mma"] == before["matmul_mma"] + 1
+    assert ms.launches["matmul_mma_pack"] == before["matmul_mma_pack"] + 1
+    ms.matmul_mma(a[:0], b, mode)  # empty C: nothing launched
+    assert ms.launches["matmul_mma"] == before["matmul_mma"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+def test_cuda_matmul_mma_operands_4_bytes_off(cuda_device, mode):
+    # the pack reads any 4-byte aligned operand
+    dev = cuda_device
+    a, b = matmul_operands(37, 64, 132, torch.float32, dev, seed=3)
+    shifted_a = torch.zeros(37 * 64 + 1, device=dev)[1:].view(37, 64)
+    shifted_a.copy_(a)
+    shifted_b = torch.zeros(64 * 132 + 1, device=dev)[1:].view(64, 132)
+    shifted_b.copy_(b)
+    assert shifted_a.data_ptr() % 16 and shifted_b.data_ptr() % 16
+    want_a, want_b = ms.mma_pack_plain(a, b, mode)
+    for x, y in ((shifted_a, b), (a, shifted_b), (shifted_a, shifted_b)):
+        ap, bt = ms.mma_pack(x, y, mode)
+        assert torch.equal(ap, want_a) and torch.equal(bt, want_b)
+        assert_mma_within_bound(ms.matmul_mma(x, y, mode), a, b, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+@pytest.mark.parametrize("m,k,n", [(1100, 13, 2100), (600, 200, 4100)])
+def test_cuda_matmul_mma_wide_tile_edges(cuda_device, m, k, n, mode):
+    # more 128 x 128 tiles than SMs: the plan takes 128 x 256, ragged here
+    plan = ms.mma_plan(m, n, k, mode, ms.sm_count(cuda_device))
+    assert plan.bn == 256 and n % 256
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=n)
+    assert_mma_within_bound(ms.matmul_mma(a, b, mode), a, b, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "bf16in"])
+@pytest.mark.parametrize("s", [1028, 4096])
+def test_cuda_matmul_mma_at_script_sizes(cuda_device, s, mode):
+    a, b = matmul_operands(s, s, s, torch.float32, cuda_device, seed=s)
+    ap, bt = ms.mma_pack(a, b, mode)
+    want_a, want_b = ms.mma_pack_plain(a, b, mode)
+    assert torch.equal(ap, want_a) and torch.equal(bt, want_b)
+    del ap, bt, want_a, want_b
+    # the twin is a loop over K: the float64 product of the rounded inputs
+    # stands for it at these sizes
+    rnd = ms.ROUNDING[mode]
+    want = rnd(a).double() @ rnd(b).double()
+    bs.mma_readings(ms.matmul_mma(a, b, mode), want, a, b, mode,
+                    f"E4 {mode} at {s}^3")
+
+
+@pytest.mark.cuda
 def test_cuda_matmul_schedules_raise(cuda_device):
     dev = cuda_device
     assert ms.smem_optin_bytes(dev) >= 48 * 1024

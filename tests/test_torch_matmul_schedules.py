@@ -487,3 +487,92 @@ def test_bench_schedules_rows_at_small_size(capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert {r["experiment"] for r in out} == {"E1", "E2", "E3", "E4"}
     assert not any(ms.launches.values())
+
+
+# E4's pack (mma_pack_plain) and launch plan (mma_plan): what the card's
+# pack kernel must equal bit for bit, and what its product kernel launches
+PACK_SHAPES = [(1, 1, 1), (33, 13, 70), (5, 0, 3), (7, 1029, 9), (3, 6, 2),
+               (130, 24, 129)]
+
+
+@pytest.mark.parametrize("mode", list(ms.ROUNDING))
+@pytest.mark.parametrize("m,k,n", PACK_SHAPES)
+def test_mma_pack_twin_rounds_transposes_and_zero_pads(m, k, n, mode):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    ap, bt = ms.mma_pack_plain(a, b, mode)
+    kp = ms.mma_plan(m, n, k, mode).kp
+    assert ap.shape == (m, kp) and bt.shape == (n, kp)
+    assert ap.dtype == bt.dtype == ms.MMA_PACKED_DTYPE[mode]
+    rnd = ms.ROUNDING[mode]
+    assert torch.equal(ap[:, :k].float(), rnd(a))
+    assert torch.equal(bt[:, :k].float(), rnd(b).t())
+    for pad in (ap[:, k:], bt[:, k:]):  # +0, sign bit clear
+        assert (pad.float().view(torch.int32) == 0).all()
+    # the wrapper on CPU tensors is the twin
+    got = ms.mma_pack(a, b, mode)
+    assert torch.equal(got[0], ap) and torch.equal(got[1], bt)
+
+
+@pytest.mark.parametrize("mode", list(ms.ROUNDING))
+@pytest.mark.parametrize("m,k,n", PACK_SHAPES)
+def test_mma_pack_twin_unpadded_product_is_the_twin(m, k, n, mode):
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n), dtype=np.float32))
+    ap, bt = ms.mma_pack_plain(a, b, mode)
+    got = matmul_plain(ap[:, :k].float().contiguous(),
+                       bt[:, :k].float().t().contiguous())
+    assert torch.equal(got, ms.matmul_mma_plain(a, b, mode))
+
+
+def covered_once(m: int, n: int, plan) -> bool:
+    """Every C element lies in exactly one of the plan's 128 x bn tiles."""
+    hits = np.zeros((plan.grid_m * ms.MMA_TILE, plan.grid_n * plan.bn), int)
+    for tm in range(plan.grid_m):
+        for tn in range(plan.grid_n):
+            hits[tm * ms.MMA_TILE:(tm + 1) * ms.MMA_TILE,
+                 tn * plan.bn:(tn + 1) * plan.bn] += 1
+    c = hits[:m, :n]
+    # and no tile lies wholly past C
+    return bool((c == 1).all()) and (plan.grid_m - 1) * ms.MMA_TILE < m \
+        and (plan.grid_n - 1) * plan.bn < n
+
+
+@pytest.mark.parametrize("mode", list(ms.ROUNDING))
+def test_mma_plan_rows_of_whole_16_byte_units(mode):
+    e = ms.MMA_ELEM_BYTES[mode]
+    for k in list(range(0, 70)) + [1028, 1029, 2048, 4095, 4096]:
+        p = ms.mma_plan(8, 8, k, mode)
+        assert p.kp * e % 16 == 0 and max(k, 1) <= p.kp < max(k, 1) + 16 // e
+        assert p.bk * e == ms.MMA_ROW_BYTES  # a stage is 128 bytes of K
+        assert (p.k_steps - 1) * p.bk < p.kp <= p.k_steps * p.bk
+    assert ms.mma_plan(1028, 1028, 1028, "bf16in").kp == 1032  # 2,064 bytes
+    assert ms.mma_plan(1028, 1028, 1028, "default").kp == 1028  # 4,112 bytes
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (33, 70), (129, 257), (1028, 1028),
+                                 (1100, 2100), (2048, 2048), (300, 4100)])
+def test_mma_plan_grid_covers_c(m, n):
+    for mode in ms.ROUNDING:
+        p = ms.mma_plan(m, n, 64, mode)
+        assert covered_once(m, n, p), (m, n, p)
+        narrow = ms.cdiv(m, ms.MMA_TILE) * ms.cdiv(n, ms.MMA_TILE)
+        # 128 x 256 only where 128 x 128 tiles take more than one wave
+        assert p.bn == (128 if narrow <= ms.H100_SMS else 256)
+        assert ms.mma_plan(m, n, 64, mode) is p  # cached
+    assert ms.mma_plan(1028, 1028, 1028, "bf16in").bn == 128  # 81 blocks
+    assert ms.mma_plan(4096, 4096, 4096, "default").bn == 256  # 512 blocks
+    assert ms.mma_plan(1028, 1028, 1028, "bf16in", sms=64).bn == 256
+
+
+def test_mma_pack_checks():
+    a, b = torch.ones(4, 5), torch.ones(5, 6)
+    for bad in ("f32", "tf32"):
+        with pytest.raises(ValueError, match="unknown mode"):
+            ms.mma_pack(a, b, bad)
+    with pytest.raises(TypeError, match="float32"):
+        ms.mma_pack(a.double(), b.double())
+    with pytest.raises(ValueError, match="incompatible"):
+        ms.mma_pack(a, a)
