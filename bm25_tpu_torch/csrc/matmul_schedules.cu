@@ -31,16 +31,44 @@
 // design's answer:
 //
 // E1 matmul_sweep: the TPU kernel keeps C's f32 output block resident over
-//   the K axis (no scratch).  Here the block's C tile lives in registers
-//   over the whole K loop and is written once: B6's matmul_tiled_kernel
-//   (matmul_tiled.cuh) at the sweep's tiles, 256 threads in a 16 x 16
-//   grid, each owning a (BM/16) x (BN/16) register tile; per BK step the
-//   block stages A's BM x BK slice (transposed) and B's BK x BN slice in
-//   shared memory, with 16-byte loads where K, N and the pointers allow.
-//   Twelve tiles: BM x BN in {64x64, 128x64, 128x128, 256x128} times BK in
-//   {8, 16, 32}.  The script's mm_resident (one grid cell over C, K in tk
-//   strips) is the same kernel on the one-wave tile the wrapper picks.
-//   Single-buffered: a barrier per BK step.
+//   the K axis (no scratch).  Here a block's C tile lives in registers over
+//   the whole K loop and is written once.  Twelve tiles: BM x BN in {64x64,
+//   128x64, 128x128, 256x128} times BK in {8, 16, 32}; the script's
+//   mm_resident (one grid cell over C, K in tk strips) is the same kernel
+//   on the one-wave tile the wrapper picks.  The body, matmul_ring_kernel
+//   (shared with E3), replaced B6's single-buffered block-tiled kernel,
+//   whose loads through registers waited at two barriers a BK step, whose
+//   transposed stores of A hit one bank four ways and whose B reads came
+//   from lanes 32 bytes apart:
+//   - copies by TMA: a producer warp streams A's box (BK values of K by BM
+//     rows, k-contiguous as A lies) and B's (BN columns by BK rows) with
+//     cp.async.bulk.tensor into a ring of stages, a full and an empty
+//     mbarrier per stage; no pack, no transpose, no swizzle; zeros past
+//     every edge.  TMA takes row strides of whole 16-byte units from a
+//     16-byte aligned base: the wrapper stages an operand that is not so
+//     into a padded copy;
+//   - warp-broadcast register tiles: every lane of a consumer warp holds
+//     the same R rows of C (16, or 32 at 256 x 128) and BN / 32 columns of
+//     its own (lane l: 4 l .. 4 l + 3 at BN = 128, 2 l, 2 l + 1 at 64).
+//     Per four k a warp reads each row's four A values as one 16-byte
+//     broadcast (one shared-memory wavefront) and four rows of B as 16
+//     (or 8) bytes a lane, neighbouring lanes on neighbouring addresses:
+//     at 128 x 128, 8 warps of 16 rows, 64 accumulators a lane, that is 20
+//     reads for 256 FMAs, where B6's body and the old E3 read 64 scalars;
+//   - a warp frees a stage once its reads of it are done; the ring's phase
+//     bits carry over the whole K loop;
+//   - the epilogue stores 16 (or 8) bytes a lane where the lane's columns
+//     lie inside N and N is a multiple of 4 (2), else masked scalars.
+//   What bounds it: the FMA issue rate (the reads take under a tenth of
+//   the issue slots, and the shared-memory pipe serves half as many
+//   wavefronts as the FMA pipes take warp-FMAs at 128 x 128) and filling
+//   the SMs: at 1028^3 a 128 x 128 tile gives 81 blocks on 132 SMs, so the
+//   busiest SM does 16.8 M FMAs (~75 us at 1.75 GHz) whatever the
+//   mainloop; 64 x 64 gives 289 blocks, all resident at once.  Split-K is
+//   ruled out: every output sums k in one chain.  E1 takes the deepest
+//   ring up to RING_MAX_STAGES that fits the card's shared memory (the
+//   wrapper's sweep_stages: 4 at every tile on an H100; a 256 x 128 x 32
+//   stage is 48 KB).  A wait that never ends traps.
 // E2 matmul_row_strip: the TPU keeps one operand whole in VMEM and streams
 //   the other once.  B (4.2 MB at 1028^2) cannot sit in 227 KB of shared
 //   memory, but an A strip can: a block holds strip_m (8, 16 or 32) rows of
@@ -86,13 +114,13 @@
 //   size's fastest strip (PERF.md): the slot hand-off across the
 //   cluster cost more than the L2 reads it saved.
 // E3 matmul_pipelined: the script copies A strips by hand into a 2-slot
-//   VMEM buffer so strip i+1's copy overlaps strip i's product.  Here both
-//   operands' tiles of step i+1.. are copied by cp.async.cg (16 bytes per
-//   copy, zero-filled past the edges through its src-size operand) into a
-//   `stages`-slot shared-memory ring while step i's FMAs run
-//   (commit_group / wait_group<stages-2>).  Needs K % 4 == 0, N % 4 == 0
-//   and 16-byte aligned operands.  Thread (ty, tx) owns rows ty + 16 i and
-//   columns tx + 16 j, so a warp's shared-memory reads hit distinct banks.
+//   VMEM buffer so strip i+1's copy overlaps strip i's product.  Here it is
+//   E1's ring body on its tiles 64 x 64 x 16 and 128 x 128 x 16 with the
+//   caller's `stages` (2, 3 or 4; the script's two DMA slots are 2).  It
+//   replaced a cp.async.cg ring whose copies were hidden but whose scalar
+//   shared-memory reads (16 LDS.32 per 64 FMAs a thread) were the wall.
+//   Its contract stays: K % 4 == 0, N % 4 == 0 and 16-byte aligned
+//   operands, or the wrapper raises.
 // E4 matmul_mma: wgmma on the tensor cores, fed by TMA, in two launches.
 //   mma_pack_kernel rounds every input once, as the twin does ("default":
 //   TF32, round_tf32's bits, the 13 low bits cleared, since wgmma's TF32
@@ -121,16 +149,16 @@
 //   call.  Simple first: no persistent blocks, stream-K, clusters or TMA
 //   store.  A wait that never ends traps.
 //
-// E1 and E3 are simple first: no TMA or persistent blocks yet.
+// E1 and E3 are simple first: no persistent blocks, clusters or setmaxnreg.
 
 #include <cuda.h>          // CUtensorMap (types only: no libcuda link)
 #include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
-
-#include "matmul_tiled.cuh"  // matmul_tiled_kernel (E1 is B6's body)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // E3
 constexpr int DEFAULT_SMEM = 48 * 1024;
 constexpr int STRIP_WARPS = 8;  // E2's consumer warps; one more produces
 constexpr int STRIP_THREADS = 32 * (STRIP_WARPS + 1);
@@ -144,27 +172,9 @@ constexpr int MMA_TILE = 128, MMA_ROW_BYTES = 128, MMA_STAGES = 4;
 constexpr int MMA_CONSUMER_WARPS = 8;
 constexpr int MMA_THREADS = 32 * (MMA_CONSUMER_WARPS + 1);
 constexpr int PACK_TILE = 32, PACK_THREADS = 256;  // E4's pack
-
-// ---------------------------------------------------------------- E1 ----
-
-// B6's block-tiled kernel on the (BM, BN, BK) sweep tile: a 16 x 16 thread
-// grid, each thread a (BM/16) x (BN/16) register tile.
-template <int BM, int BN, int BK>
-int launch_sweep(const float* a, const float* b, float* c, int64_t m,
-                 int64_t n, int64_t k, int vec, cudaStream_t s) {
-  const int64_t tiles_n = (n + BN - 1) / BN;
-  const int64_t blocks = (m + BM - 1) / BM * tiles_n;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  if (vec)
-    matmul_tiled_kernel<float, BM, BN, BK, BM / 16, BN / 16, true>
-        <<<(unsigned)blocks, TILED_THREADS, 0, s>>>(a, b, c, m, n, k,
-                                                    tiles_n);
-  else
-    matmul_tiled_kernel<float, BM, BN, BK, BM / 16, BN / 16, false>
-        <<<(unsigned)blocks, TILED_THREADS, 0, s>>>(a, b, c, m, n, k,
-                                                    tiles_n);
-  return (int)cudaGetLastError();
-}
+// E1 and E3: the ring holds at most this many stages (its barriers are
+// laid out for this many), from a base aligned to TMA's 128 bytes
+constexpr int RING_MAX_STAGES = 4, RING_ALIGN = 128;
 
 // ---------------------------------------------------------------- E2 ----
 
@@ -501,138 +511,6 @@ int launch_row_strip(const float* a, const float* b, float* c, int64_t m,
   if (int err = allow_smem(row_strip_kernel<SM>, bytes)) return err;
   row_strip_kernel<SM><<<(unsigned)grid, STRIP_THREADS, bytes, s>>>(
       a, b, c, m, n, k, lda, strips, groups, group_w, stages);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- E3 ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Copy step t's A tile (as [BM][BK]) and B tile (bs [BK][BN]) into ring
-// slot `slot`; K % 4 == 0 and N % 4 == 0, so a 16-byte chunk lies wholly
-// inside or outside the operand.
-template <int BM, int BN, int BK>
-__device__ __forceinline__ void issue_tile(float* as, float* bs,
-                                           const float* a, const float* b,
-                                           int64_t m, int64_t n, int64_t k,
-                                           int64_t m0, int64_t n0,
-                                           int64_t k0, int tid) {
-  constexpr int A_CHUNKS = BM * BK / 4, B_CHUNKS = BK * BN / 4;
-  for (int i = tid; i < A_CHUNKS; i += THREADS) {
-    const int r = i / (BK / 4), c4 = (i % (BK / 4)) * 4;
-    const bool ok = m0 + r < m && k0 + c4 < k;
-    cp_async16(as + r * BK + c4, ok ? a + (m0 + r) * k + k0 + c4 : a, ok);
-  }
-  for (int i = tid; i < B_CHUNKS; i += THREADS) {
-    const int r = i / (BN / 4), c4 = (i % (BN / 4)) * 4;
-    const bool ok = k0 + r < k && n0 + c4 < n;
-    cp_async16(bs + r * BN + c4, ok ? b + (k0 + r) * n + n0 + c4 : b, ok);
-  }
-}
-
-template <int BM, int BN, int BK, int STAGES>
-__global__ void __launch_bounds__(THREADS)
-pipelined_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ c, int64_t m, int64_t n, int64_t k,
-                 int64_t tiles_n) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  constexpr int A_TILE = BM * BK, B_TILE = BK * BN;
-  extern __shared__ __align__(16) float smem[];
-  float* ring_a = smem;                     // [STAGES][BM][BK]
-  float* ring_b = smem + STAGES * A_TILE;   // [STAGES][BK][BN]
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int64_t m0 = (int64_t)(blockIdx.x / tiles_n) * BM;
-  const int64_t n0 = (int64_t)(blockIdx.x % tiles_n) * BN;
-  const int64_t steps = (k + BK - 1) / BK;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  // prologue: steps 0 .. STAGES-2 in flight, one commit group each
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < steps)
-      issue_tile<BM, BN, BK>(ring_a + t * A_TILE, ring_b + t * B_TILE, a, b,
-                             m, n, k, m0, n0, (int64_t)t * BK, tid);
-    cp_async_commit();
-  }
-  for (int64_t t = 0; t < steps; ++t) {
-    // groups committed so far: STAGES - 1 + t; step t's is complete once
-    // at most STAGES - 2 remain pending
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // every thread's copies of step t have landed, and
-                      // step t-1's slot is no longer being read
-    const int64_t next = t + STAGES - 1;
-    if (next < steps) {
-      const int slot = (int)(next % STAGES);
-      issue_tile<BM, BN, BK>(ring_a + slot * A_TILE, ring_b + slot * B_TILE,
-                             a, b, m, n, k, m0, n0, next * BK, tid);
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-
-    const float* as = ring_a + (t % STAGES) * A_TILE;
-    const float* bs = ring_b + (t % STAGES) * B_TILE;
-    const int64_t k0 = t * BK;
-    const int kmax = k - k0 < BK ? (int)(k - k0) : BK;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      if (kk < kmax) {
-        float ra[TM], rb[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) ra[i] = as[(ty + 16 * i) * BK + kk];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) rb[j] = bs[kk * BN + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j)
-            acc[i][j] = __fmaf_rn(ra[i], rb[j], acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t row = m0 + ty + 16 * i;
-    if (row >= m) break;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t col = n0 + tx + 16 * j;
-      if (col < n) c[row * n + col] = acc[i][j];
-    }
-  }
-}
-
-template <int BM, int BN, int BK, int STAGES>
-int launch_pipelined(const float* a, const float* b, float* c, int64_t m,
-                     int64_t n, int64_t k, cudaStream_t s) {
-  const int64_t tiles_n = (n + BN - 1) / BN;
-  const int64_t blocks = (m + BM - 1) / BM * tiles_n;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const size_t bytes = STAGES * (BM * BK + BK * BN) * sizeof(float);
-  if (int err = allow_smem(pipelined_kernel<BM, BN, BK, STAGES>, bytes))
-    return err;
-  pipelined_kernel<BM, BN, BK, STAGES><<<(unsigned)blocks, THREADS, bytes,
-                                         s>>>(a, b, c, m, n, k, tiles_n);
   return (int)cudaGetLastError();
 }
 
@@ -1016,6 +894,230 @@ int launch_wgmma(const void* ap, const void* bt, float* c, int64_t m,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------- E1 and E3 ----
+
+// The ring body's shape at a (BM, BN, BK) tile: WARPS consumer warps (one
+// more produces), each holding R rows of C with every lane on the same
+// rows and TN columns of its own (ops/matmul_schedules.py::ring_layout
+// mirrors it); a stage is A's BM x BK box, then B's BK x BN box.
+template <int BM, int BN, int BK>
+struct RingShape {
+  static constexpr int WARPS = BM >= 128 ? 8 : BM / 16;
+  static constexpr int R = BM / WARPS;  // 16, or 32 at BM = 256
+  static constexpr int TN = BN / 32;    // 4 at BN = 128, 2 at 64
+  static constexpr int THREADS = 32 * (WARPS + 1);
+  static constexpr int A_FLOATS = BM * BK, B_FLOATS = BK * BN;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int STAGE_BYTES = STAGE_FLOATS * 4;
+  // two blocks an SM where the accumulators leave the registers for them
+  static constexpr int MIN_BLOCKS = R * TN < 64 ? 2 : 1;
+  static_assert(BK % 4 == 0 && BN % 32 == 0 && BM % WARPS == 0, "tile");
+  static_assert(STAGE_BYTES % RING_ALIGN == 0, "stages stay aligned");
+};
+
+// shared memory of a ring of `stages`: room to align, the stages, then
+// full[RING_MAX_STAGES] and empty[RING_MAX_STAGES]
+template <int BM, int BN, int BK>
+constexpr size_t ring_smem_bytes(int stages) {
+  return RING_ALIGN + (size_t)stages * RingShape<BM, BN, BK>::STAGE_BYTES +
+         2 * RING_MAX_STAGES * sizeof(uint64_t);
+}
+
+template <int TN> struct Vec;
+template <> struct Vec<4> {
+  static __device__ __forceinline__ void load(float (&v)[4], const float* p) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <> struct Vec<2> {
+  static __device__ __forceinline__ void load(float (&v)[2], const float* p) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[2]) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+};
+
+// One stage's products, k ascending: acc[i][j] += a(row i, kk) b(kk, j)
+// for kk < BK (FULL) or kk < kmax (the K tail: the zeros TMA filled past K
+// are never summed).  `as` is the warp's first row of the A box (rows BK
+// floats apart), `bs` the lane's first column of the B box (rows BN
+// floats apart).
+template <int BN, int BK, int R, int TN, bool FULL>
+__device__ __forceinline__ void ring_stage(float (&acc)[R][TN],
+                                           const float* as, const float* bs,
+                                           int kmax) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 4) {
+    if (FULL || kk < kmax) {
+      float bv[4][TN];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) Vec<TN>::load(bv[q], bs + (kk + q) * BN);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        // the same 16 bytes for the whole warp: one broadcast
+        const float4 av = *reinterpret_cast<const float4*>(as + i * BK + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (FULL || kk + q < kmax) {
+            const float x = part(av, q);
+#pragma unroll
+            for (int j = 0; j < TN; ++j)
+              acc[i][j] = __fmaf_rn(x, bv[q][j], acc[i][j]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// C = A @ B on a grid of BM x BN tiles, block (tm, tn) = (blockIdx.x /
+// tiles_n, blockIdx.x % tiles_n).  map_a covers A as (K, M) boxes of BK x
+// BM, map_b B as (N, K) boxes of BN x BK (inner dimension first); both are
+// unused where K = 0 (C is +0).  Warps 0 .. WARPS-1 consume, warp WARPS's
+// lane 0 produces.
+template <int BM, int BN, int BK>
+__global__ void __launch_bounds__(RingShape<BM, BN, BK>::THREADS,
+                                  RingShape<BM, BN, BK>::MIN_BLOCKS)
+matmul_ring_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   float* __restrict__ c, int64_t m, int64_t n, int64_t k,
+                   int tiles_n, int stages) {
+  using S = RingShape<BM, BN, BK>;
+  extern __shared__ __align__(16) uint8_t ring_smem[];
+  float* ring = reinterpret_cast<float*>(
+      ring_smem + ((RING_ALIGN - (smem_u32(ring_smem) & (RING_ALIGN - 1))) &
+                   (RING_ALIGN - 1)));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * S::STAGE_FLOATS);
+  uint64_t* empty = full + RING_MAX_STAGES;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = blockIdx.x / tiles_n, tn = blockIdx.x % tiles_n;
+  const int64_t steps = (k + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);         // the producer's expect_tx
+      mbar_init(&empty[s], S::WARPS);  // every consumer warp is done
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the barriers are initialised before any use
+
+  if (warp == S::WARPS) {  // the producer
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int64_t t = 0; t < steps; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        float* sa = ring + stage * S::STAGE_FLOATS;
+        mbar_expect_tx(&full[stage], S::STAGE_BYTES);  // zero fill included
+        tma_load(sa, &map_a, (int)(t * BK), tm * BM, &full[stage]);
+        tma_load(sa + S::A_FLOATS, &map_b, tn * BN, (int)(t * BK),
+                 &full[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  float acc[S::R][S::TN];
+#pragma unroll
+  for (int i = 0; i < S::R; ++i)
+#pragma unroll
+    for (int j = 0; j < S::TN; ++j) acc[i][j] = 0.0f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int64_t t = 0; t < steps; ++t) {
+    mbar_wait(&full[stage], phase);
+    const float* as = ring + stage * S::STAGE_FLOATS + warp * S::R * BK;
+    const float* bs = ring + stage * S::STAGE_FLOATS + S::A_FLOATS +
+                      lane * S::TN;
+    const int64_t left = k - t * BK;
+    if (left >= BK)
+      ring_stage<BN, BK, S::R, S::TN, true>(acc, as, bs, BK);
+    else
+      ring_stage<BN, BK, S::R, S::TN, false>(acc, as, bs, (int)left);
+    release_slot(&empty[stage], lane);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  const int64_t col = (int64_t)tn * BN + lane * S::TN;
+  const bool wide = n % S::TN == 0 && col + S::TN <= n;
+#pragma unroll
+  for (int i = 0; i < S::R; ++i) {
+    const int64_t row = (int64_t)tm * BM + warp * S::R + i;
+    if (row >= m) break;
+    float* cr = c + row * n + col;
+    if (wide) {
+      Vec<S::TN>::store(cr, acc[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < S::TN; ++j)
+        if (col + j < n) cr[j] = acc[i][j];
+    }
+  }
+}
+
+// The map of a row-major f32 (rows, cols) matrix with row stride ld
+// floats (a multiple of 4, from a 16-byte aligned base): boxes of
+// box_cols x box_rows, no swizzle, zeros past the edges.
+int encode_rows(CUtensorMap* map, const float* base, int64_t rows,
+                int64_t cols, int64_t ld, int box_cols, int box_rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld * 4)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM, int BN, int BK>
+int launch_ring(const float* a, const float* b, float* c, int64_t m,
+                int64_t n, int64_t k, int64_t lda, int64_t ldb, int stages,
+                int dev, cudaStream_t s) {
+  const int64_t tiles_n = (n + BN - 1) / BN;
+  const int64_t blocks = (m + BM - 1) / BM * tiles_n;
+  if (blocks > 0x7fffffff || (m + BM - 1) / BM * BM > 0x7fffffff ||
+      tiles_n * BN > 0x7fffffff || k > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;  // TMA's coordinates are int
+  CUtensorMap map_a = {}, map_b = {};
+  if (k > 0) {
+    if (int err = encode_rows(&map_a, a, m, k, lda, BK, BM)) return err;
+    if (int err = encode_rows(&map_b, b, k, n, ldb, BN, BK)) return err;
+  }
+  // the opt-in to the deepest ring's shared memory, once per device
+  static bool allowed[64] = {};
+  if (dev >= 64 || !allowed[dev]) {
+    if (int err = allow_smem(matmul_ring_kernel<BM, BN, BK>,
+                             ring_smem_bytes<BM, BN, BK>(RING_MAX_STAGES)))
+      return err;
+    if (dev < 64) allowed[dev] = true;
+  }
+  matmul_ring_kernel<BM, BN, BK>
+      <<<(unsigned)blocks, RingShape<BM, BN, BK>::THREADS,
+         ring_smem_bytes<BM, BN, BK>(stages), s>>>(map_a, map_b, c, m, n, k,
+                                                   (int)tiles_n, stages);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1030,29 +1132,6 @@ int bm25_smem_optin_bytes(int device) {
                          device);
   return v;
 }
-
-#define SWEEP_TILE(BM, BN, BK)                                             \
-  if (bm == BM && bn == BN && bk == BK)                                    \
-    return launch_sweep<BM, BN, BK>(A, B, C, m, n, k, vec, s);
-
-// E1: the (bm, bn, bk) block tile; vec selects 16-byte loads (K and N
-// multiples of 4, A and B 16-byte aligned).
-int bm25_matmul_sweep(const void* a, const void* b, void* c, long long m,
-                      long long n, long long k, int bm, int bn, int bk,
-                      int vec, void* stream) {
-  if (m <= 0 || n <= 0) return 0;
-  if (k < 0 || (vec && (k % 4 || n % 4))) return (int)cudaErrorInvalidValue;
-  const float* A = static_cast<const float*>(a);
-  const float* B = static_cast<const float*>(b);
-  float* C = static_cast<float*>(c);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SWEEP_TILE(64, 64, 8) SWEEP_TILE(64, 64, 16) SWEEP_TILE(64, 64, 32)
-  SWEEP_TILE(128, 64, 8) SWEEP_TILE(128, 64, 16) SWEEP_TILE(128, 64, 32)
-  SWEEP_TILE(128, 128, 8) SWEEP_TILE(128, 128, 16) SWEEP_TILE(128, 128, 32)
-  SWEEP_TILE(256, 128, 8) SWEEP_TILE(256, 128, 16) SWEEP_TILE(256, 128, 32)
-  return (int)cudaErrorInvalidValue;
-}
-#undef SWEEP_TILE
 
 #define STRIP(SM, CALL)                                                    \
   if (strip_m == SM) return CALL;
@@ -1089,28 +1168,37 @@ int bm25_matmul_row_strip(const void* a, const void* bp, void* c,
 }
 #undef STRIP
 
-#define PIPE(T, BK, S)                                                     \
-  if (tile == T && stages == S)                                            \
-    return launch_pipelined<T, T, BK, S>(A, B, C, m, n, k, s);
+#define RING_TILE(BM, BN, BK)                                              \
+  if (bm == BM && bn == BN && bk == BK)                                    \
+    return launch_ring<BM, BN, BK>(A, B, C, m, n, k, lda, ldb, stages,     \
+                                   dev, s);
 
-// E3: a tile x tile block tile (64 or 128, K step 16) fed by a `stages`-slot
-// (2, 3 or 4) cp.async ring; K and N multiples of 4, A and B 16-byte aligned.
-int bm25_matmul_pipelined(const void* a, const void* b, void* c, long long m,
-                          long long n, long long k, int tile, int stages,
-                          void* stream) {
+// E1 and E3: C = A @ B on the (bm, bn, bk) tile of the sweep through a ring
+// of `stages` (2 to RING_MAX_STAGES) TMA stages.  A (M, K) and B (K, N)
+// have row strides lda >= K and ldb >= N floats, multiples of 4, from
+// 16-byte aligned bases (TMA's rule); the loops stop at the real M, N, K.
+int bm25_matmul_ring(const void* a, const void* b, void* c, long long m,
+                     long long n, long long k, long long lda, long long ldb,
+                     int bm, int bn, int bk, int stages, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  if (k < 0 || k % 4 || n % 4 || reinterpret_cast<uintptr_t>(a) % 16 ||
-      reinterpret_cast<uintptr_t>(b) % 16)
+  if (k < 0 || lda < k || ldb < n || lda % 4 || ldb % 4 ||
+      reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || stages < 2 ||
+      stages > RING_MAX_STAGES)
     return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
   float* C = static_cast<float*>(c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  PIPE(64, 16, 2) PIPE(64, 16, 3) PIPE(64, 16, 4)
-  PIPE(128, 16, 2) PIPE(128, 16, 3) PIPE(128, 16, 4)
+  RING_TILE(64, 64, 8) RING_TILE(64, 64, 16) RING_TILE(64, 64, 32)
+  RING_TILE(128, 64, 8) RING_TILE(128, 64, 16) RING_TILE(128, 64, 32)
+  RING_TILE(128, 128, 8) RING_TILE(128, 128, 16) RING_TILE(128, 128, 32)
+  RING_TILE(256, 128, 8) RING_TILE(256, 128, 16) RING_TILE(256, 128, 32)
   return (int)cudaErrorInvalidValue;
 }
-#undef PIPE
+#undef RING_TILE
 
 // E4's pack alone: a and b (any 4-byte aligned f32) rounded, bf16
 // (bf16 != 0) or TF32 (kept as f32), into the 16-byte aligned scratch

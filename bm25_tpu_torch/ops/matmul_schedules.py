@@ -7,7 +7,17 @@ what bounds them).  Operands are row-major float32, any M, K, N unless a
 kernel states a limit:
 
 * ``matmul_sweep(a, b, tile)`` (E1, ``mm_noacc``): a (BM, BN, BK) block tile
-  of ``SWEEP_TILES`` with the C tile in registers over the whole K loop;
+  of ``SWEEP_TILES`` with the C tile in registers over the whole K loop,
+  fed by the ring body: a producer warp copies A's and B's boxes by TMA,
+  as they lie in memory, into a ring of ``sweep_stages(tile)`` stages on
+  mbarriers (the deepest up to ``RING_MAX_STAGES`` that fits the card's
+  shared memory), and consumer warps hold register tiles in which every
+  lane of a warp owns the same rows (``ring_layout``), so A is read as
+  16-byte warp-wide broadcasts and B as 16 (or 8) bytes a lane.  TMA takes
+  rows of whole 16-byte units from a 16-byte aligned base: an operand that
+  is not so (K or N off a multiple of 4, a view off alignment) is first
+  copied into a padded ``torch.empty`` (``_bulk_operand``, timed with the
+  call), and the kernel's loops stop at the real M, N and K.
   ``resident_tile`` picks the one-wave tile that stands for the script's
   ``mm_resident``;
 * ``matmul_row_strip(a, b, strip_m=None, blocks=None)`` (E2,
@@ -29,8 +39,10 @@ kernel states a limit:
   ``torch.empty``, as B's packing pads its panels (data preparation in
   the wrapper, timed with the kernel; the kernel's loops stop at the real
   K and N);
-* ``matmul_pipelined(a, b, tile, stages=2)`` (E3, ``mm_dma``): E1's block
-  tile fed by a ``stages``-slot ``cp.async`` ring;
+* ``matmul_pipelined(a, b, tile, stages=2)`` (E3, ``mm_dma``): E1's ring
+  body on one of ``PIPELINED_TILES`` with the caller's ``stages`` (2, 3 or
+  4; the script's two DMA slots are 2); it takes only operands TMA reads
+  as they are and raises on others;
 * ``matmul_mma(a, b, mode)`` (E4, ``pallas_matmul``): ``"default"`` on TF32
   and ``"bf16in"`` on bf16 tensor cores, in two launches: a pack kernel
   rounds both operands once and writes them K-major, B transposed, rows
@@ -90,6 +102,11 @@ MMA_MODES = ("f32", "default", "bf16in")
 # an H100's opt-in limit of shared memory per block: the rule's default
 # where no card is asked
 H100_SMEM_OPTIN = 232448
+# E1 and E3's ring (csrc/matmul_schedules.cu, matmul_ring_kernel): at most
+# this many stages, from a base aligned to TMA's 128 bytes, then a full and
+# an empty mbarrier for each of the most stages
+RING_MAX_STAGES = 4
+RING_ALIGN = 128
 
 # E4: C tiles of 128 rows (128 or 256 wide); a ring stage holds 128 bytes
 # of K of each operand's rows (64 bf16 or 32 TF32 values); the packed rows
@@ -133,17 +150,17 @@ def matmul_mma_plain(a: torch.Tensor, b: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("matmul_schedules")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.bm25_matmul_sweep.argtypes = [p, p, p, ll, ll, ll, i, i, i, i, p]
+    lib.bm25_matmul_ring.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, i, i,
+                                     i, p]
     lib.bm25_matmul_row_strip.argtypes = [p, p, p, ll, ll, ll, ll, i, ll,
                                           ll, ll, i, p]
-    lib.bm25_matmul_pipelined.argtypes = [p, p, p, ll, ll, ll, i, i, p]
     lib.bm25_matmul_mma.argtypes = [p, p, p, ll, ll, ll, p, ll, i, ll, ll,
                                      i, p]
     lib.bm25_mma_pack.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
     lib.bm25_smem_optin_bytes.argtypes = [i]
-    for fn in (lib.bm25_matmul_sweep, lib.bm25_matmul_row_strip,
-               lib.bm25_matmul_pipelined, lib.bm25_matmul_mma,
-               lib.bm25_mma_pack, lib.bm25_smem_optin_bytes):
+    for fn in (lib.bm25_matmul_ring, lib.bm25_matmul_row_strip,
+               lib.bm25_matmul_mma, lib.bm25_mma_pack,
+               lib.bm25_smem_optin_bytes):
         fn.restype = i
     return lib
 
@@ -240,19 +257,71 @@ def resident_tile(m: int, n: int, bk: int = 16,
     return max(fits, key=lambda t: (cdiv(m, t.m) * cdiv(n, t.n), t.m * t.n))
 
 
+@dataclasses.dataclass(frozen=True)
+class RingLayout:
+    """How the ring body's consumer warps hold a tile's C: ``warps`` warps
+    (one more produces); warp w holds rows ``w * rows`` to ``(w + 1) *
+    rows - 1``, the same rows on every lane, and lane l holds columns
+    ``l * cols`` to ``(l + 1) * cols - 1``."""
+
+    warps: int
+    rows: int
+    cols: int
+
+
+def ring_layout(tile) -> RingLayout:
+    """The consumer warps' layout at a sweep tile (csrc's ``RingShape``):
+    16 rows a warp, 32 at BM = 256, and BN / 32 columns a lane."""
+    t = Tile(*tile)
+    warps = 8 if t.m >= 128 else t.m // 16
+    return RingLayout(warps, t.m // warps, t.n // 32)
+
+
+def ring_smem_bytes(tile, stages: int) -> int:
+    """Shared memory of a ring of ``stages`` at ``tile``: room to align,
+    the stages (A's BM x BK box, then B's BK x BN) and the barriers."""
+    t = Tile(*tile)
+    return (RING_ALIGN + stages * (t.m * t.k + t.k * t.n) * 4
+            + 2 * RING_MAX_STAGES * 8)
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_stages(tile, smem_limit: int = H100_SMEM_OPTIN) -> int:
+    """E1's ring depth at ``tile``: the deepest up to ``RING_MAX_STAGES``
+    whose ring fits ``smem_limit``; raises where not even two fit.  Cached:
+    the wrapper asks it on every call."""
+    fits = [s for s in range(2, RING_MAX_STAGES + 1)
+            if ring_smem_bytes(tile, s) <= smem_limit]
+    if not fits:
+        raise ValueError(f"no ring of two stages at tile {tuple(tile)} fits "
+                         f"{smem_limit} bytes of shared memory")
+    return fits[-1]
+
+
+def _ring(name: str, a: torch.Tensor, b: torch.Tensor, t: Tile,
+          stages: int) -> torch.Tensor:
+    """Launch the ring body on a CUDA (a, b) with ``stages`` stages, each
+    operand staged into a padded copy where TMA cannot read it as it lies
+    (the kernel reads the real (M, K) and (K, N) parts); counted as
+    ``name``."""
+    (m, k), n = a.shape, b.shape[1]
+    a_op, b_op = _bulk_operand(a), _bulk_operand(b)
+    return _launch(name, "bm25_matmul_ring", a_op, b_op, a_op.shape[1],
+                   b_op.shape[1], t.m, t.n, t.k, stages, mnk=(m, n, k))
+
+
 def matmul_sweep(a: torch.Tensor, b: torch.Tensor,
                  tile=Tile(128, 128, 16)) -> torch.Tensor:
     """E1: C = A @ B on the (BM, BN, BK) block tile ``tile`` of
-    ``SWEEP_TILES``, the C tile in registers over the whole K loop."""
+    ``SWEEP_TILES``, the C tile in registers over the whole K loop, fed by
+    a TMA ring of ``sweep_stages(tile)`` stages.  Any shape: an operand TMA
+    cannot read as it lies is staged into a padded copy first."""
     _check(a, b, "matmul_sweep")
     t = _tile(tile, SWEEP_TILES, "matmul_sweep")
+    stages = sweep_stages(t, smem_optin_bytes(a.device))
     if a.device.type == "cpu":
         return matmul_plain(a, b)
-    k, n = b.shape
-    vec = int(k % 4 == 0 and n % 4 == 0 and a.data_ptr() % 16 == 0
-              and b.data_ptr() % 16 == 0)
-    return _launch("matmul_sweep", "bm25_matmul_sweep", a, b, t.m, t.n, t.k,
-                   vec)
+    return _ring("matmul_sweep", a, b, t, stages)
 
 
 def row_strip_smem_bytes(k: int, strip_m: int,
@@ -325,9 +394,9 @@ def row_strip_l2_bytes(m: int, n: int, k: int, plan: RowStripPlan) -> dict:
 
 def _bulk_operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` where its rows are whole 16-byte units from a 16-byte aligned
-    start, as the bulk copies take them; else a copy into a ``torch.empty``
-    whose rows are padded to a multiple of 4 floats (the padding is never
-    read into a sum)."""
+    start, as bulk copies and TMA take them; else a copy into a
+    ``torch.empty`` whose rows are padded to a multiple of 4 floats (the
+    padding is never read into a sum)."""
     cols = x.shape[1]
     if cols % 4 == 0 and x.data_ptr() % 16 == 0:
         return x
@@ -400,9 +469,9 @@ def matmul_row_strip(a: torch.Tensor, b: torch.Tensor,
 def matmul_pipelined(a: torch.Tensor, b: torch.Tensor,
                      tile=Tile(128, 128, 16), stages: int = 2
                      ) -> torch.Tensor:
-    """E3: C = A @ B on a block tile of ``PIPELINED_TILES`` fed by a
-    ``stages``-slot (2, 3 or 4) ``cp.async`` ring.  Its 16-byte copies need
-    K and N multiples of 4 and 16-byte aligned operands, or it raises
+    """E3: C = A @ B on a block tile of ``PIPELINED_TILES``: E1's ring body
+    with ``stages`` (2, 3 or 4) TMA stages.  It takes K and N multiples of
+    4 and 16-byte aligned operands, which TMA reads as they lie, or raises
     ``ValueError``."""
     _check(a, b, "matmul_pipelined")
     t = _tile(tile, PIPELINED_TILES, "matmul_pipelined")
@@ -415,8 +484,7 @@ def matmul_pipelined(a: torch.Tensor, b: torch.Tensor,
                          "16-byte aligned")
     if a.device.type == "cpu":
         return matmul_plain(a, b)
-    return _launch("matmul_pipelined", "bm25_matmul_pipelined", a, b, t.m,
-                   stages)
+    return _ring("matmul_pipelined", a, b, t, stages)
 
 
 @dataclasses.dataclass(frozen=True)

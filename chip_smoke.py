@@ -71,15 +71,19 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    bit-equal to its twin and its TF32 and bf16 products within
    ``K 2^-22 (|A^| @ |B^|)``, also on 128 x 256 tiles with ragged edges
    and on operands 4 bytes off 16-byte alignment; the E2 strip that does
-   not fit shared memory and E3 on K % 4 != 0, which must raise); then
+   not fit shared memory and E3 on K % 4 != 0, which must raise; E1 and
+   E3's ring body on operands TMA cannot read as they lie (E1 stages
+   them), K below the K step, K = 0, M and N below the tile, K = 37 BK + 3
+   at every ring depth, and +-0/inf/NaN); then
    ``bench_schedules``'s sweep at the scripts' sizes 1028, 2048 and 4096
    (each variant checked against ``torch.matmul`` or the float64 product
    before it is timed), with the kernels' launches (E4's pack too)
    counted over the sweep; then every variant against its twin at 1028^3
    and 2048^3 (bit-equal, or within E4's bound), E4's pack bit-equal and
    timed at 1028^3; E2's record is the wrapper's default strip height at
-   1028, E4's carries both modes; last, E4's pack and product device
-   time per call at 1028^3 and 4096^3 in both modes (``torch.profiler``);
+   1028, E4's carries both modes; last, E1's device time per call at
+   128 x 128 x 16 and E4's pack and product device time per call in both
+   modes, at 1028^3 and 4096^3 (``torch.profiler``);
 11. entry points, on the card: the port's CLI (``info`` and ``query`` with
    term boosts under ``--engine dense`` and ``sparse`` on an index built
    by ``build_index(..., Tokenizer(stemmer=None), save_to=...)``, ``demo``,
@@ -359,10 +363,10 @@ def side_max(tk, entries: int):
         tk.SIDE_MAX = saved
 
 
-def device_us(torch, fn, prefixes, calls: int = 5) -> dict:
-    """Device microseconds per call of ``fn()`` for each kernel whose name
-    starts with one of ``prefixes``, summed by name over ``calls`` calls
-    (``torch.profiler``)."""
+def kernel_us(torch, fn, prefixes, calls: int) -> dict:
+    """{kernel name: (device microseconds, launches recorded)} over
+    ``calls`` calls of ``fn()``, for each kernel whose name starts with one
+    of ``prefixes`` (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -377,8 +381,31 @@ def device_us(torch, fn, prefixes, calls: int = 5) -> dict:
         name = e.key.replace("(anonymous namespace)::", "")
         name = name.removeprefix("void ").split("(")[0]
         if e.device_time_total > 0 and name.startswith(prefixes):
-            out[name] = round(out.get(name, 0.0)
-                              + e.device_time_total / calls, 1)
+            us, n = out.get(name, (0.0, 0))
+            out[name] = (us + e.device_time_total, n + e.count)
+    return out
+
+
+def device_us(torch, fn, prefixes, calls: int = 5) -> dict:
+    """Device microseconds per call of ``fn()`` for each kernel whose name
+    starts with one of ``prefixes``, summed by name over ``calls`` calls
+    (``torch.profiler``)."""
+    return {name: round(us / calls, 1)
+            for name, (us, _) in kernel_us(torch, fn, prefixes,
+                                           calls).items()}
+
+
+def launch_us(torch, fn, prefixes, calls: int = 5) -> dict:
+    """Device microseconds per launch of each kernel whose name starts
+    with one of ``prefixes``: the mean over the launches the profiler
+    recorded in ``calls`` calls of ``fn()`` (it may record fewer than were
+    made, which a sum per call would read as a faster kernel)."""
+    out = {}
+    for name, (us, n) in kernel_us(torch, fn, prefixes, calls).items():
+        out[name] = round(us / n, 1)
+        if n != calls:
+            log(f"[kernels] torch.profiler recorded {n} of {calls} "
+                f"launches of {name}; the mean is over those {n}")
     return out
 
 
@@ -1316,9 +1343,69 @@ def phase_schedule_cases(torch, bs, ms, pm, dev) -> dict:
             raise AssertionError(f"{what} did not raise")
     log("[kernels] E1-E3 analytic corner case exact; raised as required: "
         + "; ".join(raised))
+    ring_edge_cases(torch, ms, pm, dev)
     log("[kernels] E4 largest |diff| / bound at the edge cases, and the "
         f"unrounded inputs' reading there: {readings}")
     return readings
+
+
+def ring_edge_cases(torch, ms, pm, dev) -> None:
+    """E1 and E3's ring body at its edges: operands TMA cannot read as they
+    lie (E1 stages them), K below the K step and K = 0 (C is +0), M and N
+    below the tile, K = 37 BK + 3 (the ring's phase bits wrap at every
+    depth), and +-0, +-inf and NaN (the twin's bits, NaN where it has
+    NaN)."""
+    calls = ([(f"E1 {tuple(t)}", lambda a, b, t=t: ms.matmul_sweep(a, b, t))
+              for t in ms.SWEEP_TILES]
+             + [(f"E3 {tuple(t)} stages {st}",
+                 lambda a, b, t=t, st=st: ms.matmul_pipelined(a, b, t, st))
+                for t in ms.PIPELINED_TILES for st in ms.STAGES])
+
+    def check(a, b, what, e3=True, want=None):
+        want = pm.matmul_plain(a, b) if want is None else want
+        nan = torch.isnan(want)
+        for name, fn in calls:
+            if name.startswith("E3") and not e3:
+                continue
+            got = fn(a, b)
+            if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                    got.masked_fill(nan, 0).view(torch.int32),
+                    want.masked_fill(nan, 0).view(torch.int32))):
+                raise AssertionError(f"{name} {what}: bits differ")
+
+    for m, k, n, off in ((37, 61, 130, 0), (37, 64, 132, 1), (20, 30, 9, 3)):
+        a, b = matmul_operands(torch, dev, m, k, n, torch.float32, k)
+        x = torch.zeros(a.numel() + off, device=dev)[off:].view(m, k)
+        y = torch.zeros(b.numel() + off, device=dev)[off:].view(k, n)
+        x.copy_(a)
+        y.copy_(b)
+        check(x, y, f"staged ({m}, {k}, {n}) {4 * off} bytes off", False,
+              pm.matmul_plain(a, b))
+    for m, k, n in ((70, 5, 132), (9, 0, 36), (3, 40, 8), (129, 3, 65)):
+        a, b = matmul_operands(torch, dev, m, k, n, torch.float32, m + n)
+        check(a, b, f"({m}, {k}, {n})", k % 4 == 0 and n % 4 == 0)
+    for bk in (8, 16, 32):
+        k = 37 * bk + 3
+        a, b = matmul_operands(torch, dev, 70, k, 132, torch.float32, bk)
+        want = pm.matmul_plain(a, b)
+        for t in (t for t in ms.SWEEP_TILES if t.k == bk):
+            for stages in range(2, ms.RING_MAX_STAGES + 1):
+                compare(torch, ms._ring("matmul_sweep", a, b, t, stages),
+                        want, True, f"E1 {tuple(t)} stages {stages} K={k}")
+            compare(torch, ms.matmul_sweep(a, b, t), want, True,
+                    f"E1 {tuple(t)} K={k}")
+    a, b = matmul_operands(torch, dev, 70, 37 * 16 + 4, 132, torch.float32, 7)
+    check(a, b, "K = 37 x 16 + 4")
+    a, b = matmul_operands(torch, dev, 40, 36, 72, torch.float32, 5)
+    a[0], a[1, ::2], a[2, 3] = -0.0, 0.0, float("inf")
+    a[3, 7], a[4, :] = float("nan"), -0.0
+    b[5, :8], b[6, 9], b[7, 10] = float("-inf"), float("nan"), float("inf")
+    b[:, 11] = -0.0
+    check(a, b, "+-0, inf, NaN")
+    log("[kernels] E1/E3 ring edges: E1 on staged operands (K % 4 != 0, "
+        "views 4 and 12 bytes off), K below the K step, K = 0 (+0), M and N "
+        "below the tile, K = 37 BK + 3 at ring depths 2-4, and +-0/inf/NaN: "
+        "the twin's bits at every tile and E3 stage count")
 
 
 def matmul_schedules(torch, pm, dev, record) -> None:
@@ -1411,7 +1498,27 @@ def matmul_schedules(torch, pm, dev, record) -> None:
                   for mode, rec in pack.items()}}
     log(f"[kernels] E4 largest |diff| / (K 2^-22 (|A^| @ |B^|)) over every "
         f"checked case, with the unrounded inputs' reading there: {readings}")
+    e1_device_split(torch, ms, dev, record)
     e4_device_split(torch, ms, dev, record)
+
+
+def e1_device_split(torch, ms, dev, record) -> None:
+    """E1's device time per call (one launch) at 128 x 128 x 16 at 1028^3
+    and 4096^3 (``torch.profiler``, after every timing of phase 10),
+    beside the call's back-to-back time; the 1028^3 figure goes into the
+    kernels line as ``device_ms``."""
+    tile = ms.Tile(128, 128, 16)
+    for s in (MATMUL_N, MATMUL_BIG):
+        a, b = matmul_operands(torch, dev, s, s, s, torch.float32, 0)
+        call = cuda_ms(torch, lambda: ms.matmul_sweep(a, b, tile), 10)
+        us = launch_us(torch, lambda: ms.matmul_sweep(a, b, tile),
+                       ("matmul_ring_kernel",))
+        log(f"[kernels] E1 {tuple(tile)} at {s}^3: device us per call "
+            f"{sum(us.values()):.1f} ({us}; torch.profiler), "
+            f"{call * 1e3:.1f} us a call back to back")
+        if s == MATMUL_N and us:
+            record["matmul_sweep"]["device_ms"] = sum(us.values()) / 1e3
+        del a, b
 
 
 def e4_pack_record(torch, ms, a, b, mode) -> tuple:
@@ -1430,13 +1537,14 @@ def e4_pack_record(torch, ms, a, b, mode) -> tuple:
 
 
 def e4_device_split(torch, ms, dev, record) -> None:
-    """E4's two kernels' device time per call at 1028^3 and 4096^3 in both
-    modes (``torch.profiler``, after every timing of phase 10); the
-    1028^3 figures go into the kernels line as ``device_ms``."""
+    """E4's two kernels' device time per call (one launch each) at 1028^3
+    and 4096^3 in both modes (``torch.profiler``, after every timing of
+    phase 10); the 1028^3 figures go into the kernels line as
+    ``device_ms``."""
     for s in (MATMUL_N, MATMUL_BIG):
         a, b = matmul_operands(torch, dev, s, s, s, torch.float32, 0)
         for mode in ms.ROUNDING:
-            us = device_us(torch, lambda: ms.matmul_mma(a, b, mode),
+            us = launch_us(torch, lambda: ms.matmul_mma(a, b, mode),
                            ("mma_pack_kernel", "mma_wgmma_kernel"))
             pack_us = sum(v for k, v in us.items() if k.startswith("mma_p"))
             prod_us = sum(v for k, v in us.items() if k.startswith("mma_w"))

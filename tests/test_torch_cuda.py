@@ -690,6 +690,101 @@ def test_cuda_matmul_schedules_analytic_corner_case(cuda_device):
         assert torch.equal(got.double(), exact)
 
 
+def ring_calls():
+    """(what, fn(a, b)) for E1 at every sweep tile and E3 at every (tile,
+    stages): one ring body, two entry points."""
+    calls = [(f"E1 {tuple(t)}", lambda a, b, t=t: ms.matmul_sweep(a, b, t))
+             for t in ms.SWEEP_TILES]
+    calls += [(f"E3 {tuple(t)} stages {st}",
+               lambda a, b, t=t, st=st: ms.matmul_pipelined(a, b, t, st))
+              for t in ms.PIPELINED_TILES for st in ms.STAGES]
+    return calls
+
+
+def same_bits(got, want):
+    """Equal bits, NaN only where the twin has NaN (any payload)."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.masked_fill(nan, 0).view(torch.int32),
+        want.masked_fill(nan, 0).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_sweep_stages_operands_tma_cannot_read(cuda_device):
+    # K or N off a multiple of 4 and views 4 or 12 bytes off alignment go
+    # through a padded copy: one launch a call, the twin's bits
+    dev = cuda_device
+    for m, k, n, off_a, off_b in ((37, 61, 130, 0, 0), (37, 64, 132, 1, 0),
+                                  (37, 64, 132, 0, 3), (20, 30, 9, 1, 1)):
+        a, b = matmul_operands(m, k, n, torch.float32, dev, seed=k + off_a)
+        x = torch.zeros(a.numel() + off_a, device=dev)[off_a:].view(m, k)
+        y = torch.zeros(b.numel() + off_b, device=dev)[off_b:].view(k, n)
+        x.copy_(a)
+        y.copy_(b)
+        want = pm.matmul_plain(a, b)
+        for t in ms.SWEEP_TILES:
+            before = ms.launches["matmul_sweep"]
+            got = ms.matmul_sweep(x, y, t)
+            assert ms.launches["matmul_sweep"] == before + 1
+            assert torch.equal(got, want), (m, k, n, off_a, off_b, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(70, 5, 132), (9, 0, 36), (3, 40, 8),
+                                   (1, 12, 4), (129, 3, 65), (5, 0, 7)])
+def test_cuda_matmul_ring_edges(cuda_device, m, k, n):
+    # K below every K step, K = 0 (C is +0), M and N below the tile
+    a, b = matmul_operands(m, k, n, torch.float32, cuda_device, seed=m + n)
+    want = pm.matmul_plain(a, b)
+    for what, fn in ring_calls():
+        if what.startswith("E3") and (k % 4 or n % 4):
+            continue  # E3 raises there (test_cuda_matmul_schedules_raise)
+        got = fn(a, b)
+        assert torch.equal(got, want), what
+        if k == 0:
+            assert (got.view(torch.int32) == 0).all(), what  # +0, not -0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [8, 16, 32])
+def test_cuda_matmul_ring_wraps_its_phase_bits(cuda_device, bk):
+    # K = 37 BK + 3: 38 stages, the ring's phase bits wrap many times at
+    # every depth, and the last stage is a tail
+    k = 37 * bk + 3
+    a, b = matmul_operands(70, k, 132, torch.float32, cuda_device, seed=bk)
+    want = pm.matmul_plain(a, b)
+    for t in (t for t in ms.SWEEP_TILES if t.k == bk):
+        assert torch.equal(ms.matmul_sweep(a, b, t), want), t
+        for stages in range(2, ms.RING_MAX_STAGES + 1):
+            before = ms.launches["matmul_sweep"]
+            got = ms._ring("matmul_sweep", a, b, t, stages)
+            assert ms.launches["matmul_sweep"] == before + 1
+            assert torch.equal(got, want), (t, stages)
+    if bk == 16:  # E3 at each of its stage counts, K a multiple of 4
+        a, b = matmul_operands(70, k + 1, 132, torch.float32, cuda_device)
+        want = pm.matmul_plain(a, b)
+        for t in ms.PIPELINED_TILES:
+            for stages in ms.STAGES:
+                got = ms.matmul_pipelined(a, b, t, stages)
+                assert torch.equal(got, want), (t, stages)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_ring_special_values(cuda_device):
+    # +-0, +-inf and NaN in both operands: the twin's bits, NaN where the
+    # twin has NaN
+    dev = cuda_device
+    a, b = matmul_operands(40, 36, 72, torch.float32, dev, seed=5)
+    a[0], a[1, ::2], a[2, 3] = -0.0, 0.0, float("inf")
+    a[3, 7], a[4, :] = float("nan"), -0.0
+    b[5, :8], b[6, 9], b[7, 10] = float("-inf"), float("nan"), float("inf")
+    b[:, 11] = -0.0
+    want = pm.matmul_plain(a, b)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    for what, fn in ring_calls():
+        assert same_bits(fn(a, b), want), what
+
+
 def assert_mma_within_bound(got, a, b, mode):
     """E4 against its twin within K 2^-22 (|A^| @ |B^|) and within a
     quarter of the unrounded inputs' reading of it (raises past either);

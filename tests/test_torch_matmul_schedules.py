@@ -321,6 +321,86 @@ def test_row_strip_checks_and_bulk_staging():
         assert torch.equal(got[:, :y.shape[1]], y)
 
 
+# E1 and E3's ring body: the stage counts and the consumer warps' layout
+# the card will launch (csrc/matmul_schedules.cu, RingShape)
+RING_CASES = ([("E1", t, None) for t in ms.SWEEP_TILES]
+              + [("E3", t, st) for t in ms.PIPELINED_TILES
+                 for st in ms.STAGES])
+
+
+@pytest.mark.parametrize("kernel,tile,stages", RING_CASES)
+def test_ring_depth_fits_shared_memory(kernel, tile, stages):
+    if kernel == "E1":
+        stages = ms.sweep_stages(tile)
+        # the deepest up to the cap: every sweep tile's 4 stages fit an
+        # H100 (a 256 x 128 x 32 stage is 48 KB)
+        assert stages == ms.RING_MAX_STAGES == 4
+    else:
+        assert tile in ms.SWEEP_TILES  # E3 runs E1's instantiations
+    assert 2 <= stages <= ms.RING_MAX_STAGES
+    stage = (tile.m * tile.k + tile.k * tile.n) * 4
+    assert stage % ms.RING_ALIGN == 0  # every stage starts TMA-aligned
+    assert ms.ring_smem_bytes(tile, stages) == (
+        ms.RING_ALIGN + stages * stage + 2 * ms.RING_MAX_STAGES * 8)
+    assert ms.ring_smem_bytes(tile, stages) <= ms.H100_SMEM_OPTIN
+    # a smaller card's limit takes a shallower ring, and one that holds
+    # not even two stages raises
+    two = ms.ring_smem_bytes(tile, 2)
+    assert ms.sweep_stages(tile, two) == 2
+    assert ms.sweep_stages(tile, ms.ring_smem_bytes(tile, 3) - 1) == 2
+    with pytest.raises(ValueError, match="two stages"):
+        ms.sweep_stages(tile, two - 1)
+
+
+@pytest.mark.parametrize("tile", ms.SWEEP_TILES)
+def test_ring_layout_covers_each_c_tile_once(tile):
+    lay = ms.ring_layout(tile)
+    assert lay.rows in (16, 32) and lay.cols in (2, 4)
+    assert lay.rows * lay.cols <= 128  # accumulators a thread
+    assert 32 * (lay.warps + 1) <= 1024  # one producer warp more
+    hits = np.zeros((tile.m, tile.n), np.int64)
+    for w in range(lay.warps):
+        for lane in range(32):  # every lane on the warp's rows
+            hits[w * lay.rows:(w + 1) * lay.rows,
+                 lane * lay.cols:(lane + 1) * lay.cols] += 1
+    assert (hits == 1).all()
+    # a warp's B reads are 16 (or 8) bytes a lane, neighbours adjacent:
+    # one 512 (256) byte run a row, conflict-free
+    assert lay.cols * 4 * 32 == tile.n * 4
+
+
+# (rows, cols, view offset in floats): K or N off a multiple of 4, views
+# 4 and 12 bytes off 16-byte alignment, and operands TMA reads as they lie
+STAGING = [(7, 13, 0), (13, 8, 0), (9, 12, 1), (9, 12, 3), (5, 16, 0),
+           (3, 1, 2)]
+
+
+@pytest.mark.parametrize("rows,cols,off", STAGING)
+def test_sweep_stages_operands_tma_cannot_read(rows, cols, off):
+    rng = np.random.default_rng(rows * cols + off)
+    x = torch.zeros(rows * cols + off)[off:].view(rows, cols)
+    x.copy_(torch.from_numpy(rng.standard_normal((rows, cols),
+                                                 dtype=np.float32)))
+    y = torch.from_numpy(rng.standard_normal((cols, 6), dtype=np.float32))
+    # the operands E1's ring launches on (ops/matmul_schedules.py::_ring)
+    a_op, b_op = ms._bulk_operand(x), ms._bulk_operand(y)
+    as_is = cols % 4 == 0 and off % 4 == 0
+    assert (a_op is x) == as_is
+    assert a_op.shape == (rows, -(-cols // 4) * 4)
+    assert a_op.data_ptr() % 16 == 0
+    assert torch.equal(a_op[:, :cols], x)
+    assert b_op.shape == (cols, 8) and torch.equal(b_op[:, :6], y)
+    # what the kernel reads, the real (M, K) and (K, N) parts of the staged
+    # operands, gives the twin's product; the wrapper on CPU tensors is the
+    # twin, at every tile
+    want = matmul_plain(x, y)
+    assert torch.equal(matmul_plain(a_op[:, :cols].contiguous(),
+                                    b_op[:, :6].contiguous()), want)
+    for t in ms.SWEEP_TILES:
+        assert torch.equal(ms.matmul_sweep(x, y, t), want)
+    assert not any(ms.launches.values())
+
+
 @pytest.mark.parametrize("stages", ms.STAGES)
 def test_pipelined_twin_matches_dma_body(scripts, operands, stages):
     a, b = operands
