@@ -1,7 +1,8 @@
 """The benchmark's synthetic corpus and queries (host-only numpy): the
 port's copy of the head of ``bm25_tpu/bench/query_bench.py``
 (``BenchConfig``, ``make_synthetic_index``, ``make_queries``).  The JAX
-benchmark harness below it is not ported yet (ROADMAP A4).
+benchmark harness below it is not ported yet (ROADMAP.md: the query
+benchmark harness).
 """
 
 from __future__ import annotations

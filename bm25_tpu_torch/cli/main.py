@@ -18,9 +18,11 @@ benchmarks``.  What differs:
   save_to=...)``), and ``query`` reads the saved tokenizer config;
 * ``bench --suite matmul`` runs the port's ``bench_matmul`` on the device;
   ``bench --suite query`` raises ``NotImplementedError``: the query
-  benchmark harness is not ported (ROADMAP A4);
+  benchmark harness is not ported (ROADMAP.md: the query benchmark
+  harness);
 * ``checkpoint``, ``warm``, ``cache`` and ``serve`` are not registered until
-  device checkpoints and serving are ported (ROADMAP A12, A13).
+  device checkpoints and serving are ported (ROADMAP.md: device
+  checkpoints, serving).
 """
 
 from __future__ import annotations
@@ -166,7 +168,7 @@ def cmd_bench(args) -> int:
         return 0
     raise NotImplementedError(
         "bench --suite query: the query benchmark harness is not ported "
-        "yet (ROADMAP A4)")
+        "yet (ROADMAP.md: the query benchmark harness)")
 
 
 def cmd_demo(args) -> int:

@@ -26,34 +26,39 @@
 // the warp).  Every operand is re-read from L2 once per output tile row
 // or column: it is bound by load issue, and is the baseline.
 //
-// matmul_tiled: shared-memory block tiling with register blocking, the
-// counterpart of the reference's block_tiled_vectorized kernel (its body,
-// matmul_tiled_kernel, is in matmul_tiled.cuh, shared with E1's
-// matmul_sweep in matmul_schedules.cu).  A block
-// of 256 threads owns a BM x BN tile of C; per step of BK along K it
-// stages the BM x BK slice of A (transposed, so a thread's TM rows are
-// contiguous) and the BK x BN slice of B in shared memory, then each
-// thread does TM x TN FMAs per k on f32 accumulators held in registers.
-// Instantiated tiles (BM = BN, TM = TN): 128 x 128 (TM 8, the reference's
-// shape) and 64 x 64 (TM 4), with BK 16 for f32 and BK 8 for bf16 (the
-// faster K step of each dtype at 1028^3 on an H100).  Ragged M, N and K
-// are masked in the kernel (no padded copies).  Loads are 16 bytes wide
-// (4 f32 or 8 bf16) where K and N are multiples of that width and A and
-// B are 16-byte aligned; otherwise the scalar instantiation runs.
+// matmul_tiled ("optimized"): the TMA ring body of matmul_ring.cuh (shared
+// with E1's matmul_sweep and E3's matmul_pipelined), typed for f32 and
+// bf16, on a balanced walk of its C tiles.  A producer warp streams A's
+// and B's boxes by TMA into a ring of stages on mbarriers; 8 consumer
+// warps, a 2 x 4 grid, hold register tiles of R rows x 4 columns a lane,
+// reading 16 bytes at a time from A rows padded onto separate banks;
+// bf16 widens to f32 on read.  Tiles (BM x BN x BK, R): 128 x 128 x 64
+// (16) for f32 and x 32 for bf16, whose threads keep 64 accumulators, one
+// block an SM; 64 x 128 x 32 (8), two blocks an SM.  ops/matmul.py::
+// b6_plan picks the tile, the ring depth that fits and min(tiles, SMs x
+// blocks an SM) blocks; block b walks tiles b, b + grid, ... of the order
+// full tiles first, then the thin edge tiles, so the edges land beside
+// the least work, and the producer runs into a block's next tile while
+// its consumers store the last one.  A thin tile gives one (row, 4
+// columns) item to each consumer thread; its ring still streams a stage
+// per BK of K, which is slow next to its few FMAs, so it gains most from
+// running beside a full tile, as the second block of an SM.  No split-K
+// and no atomics: every C element is written once, by one chain over k.
 //
 // What bounds it on an H100: f32 FMA issue.  At the reference's 1028^3
 // shape B6 does 2.17 GFLOP over 12.7 MB of operands, ~170 FLOP per byte,
 // far above the card's ridge, so the CUDA cores' 67 TFLOP/s f32 peak is
-// the ceiling.  A 128 x 128 tile gives 9 x 9 = 81 blocks for 132 SMs,
-// under one wave; the wrapper picks the tile by block count (64 x 64:
-// 289 blocks there).  The 8 x 8 register tile makes 64 FMAs for 16
-// shared-memory reads per k, and a warp's reads of A are broadcasts.
-// Single-buffered staging (a barrier per BK step) is the simple first
-// version: cp.async/TMA pipelining and tensor cores are later work.
+// the ceiling (0.0324 ms).  Filling the SMs is the other half: 1028 =
+// 8 x 128 + 4, so 128 x 128 tiles (81 blocks) leave a busiest SM with
+// 16.8 M FMAs, twice an even share; 64 x 128 tiles give 128 full tiles,
+// one an SM, and 25 thin ones beside them, 1.09 x an even share.  TMA
+// takes row strides of whole 16-byte units from 16-byte aligned bases:
+// the wrapper stages any other operand (a bf16 row of 1028 values is
+// 2,056 bytes) into a padded copy.
 //
 // All offsets are int64.
 
-#include "matmul_tiled.cuh"  // matmul_tiled_kernel, shared with E1
+#include "matmul_ring.cuh"  // the ring body, shared with E1 and E3
 
 namespace {
 
@@ -90,25 +95,21 @@ int launch_naive(const void* a, const void* b, void* c, int64_t m, int64_t n,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int BM, int BK, int TM, bool VEC>
-int launch_tiled(const void* a, const void* b, void* c, int64_t m, int64_t n,
-                 int64_t k, cudaStream_t s) {
-  const int64_t tiles_n = (n + BM - 1) / BM;
-  const int64_t blocks = (m + BM - 1) / BM * tiles_n;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  matmul_tiled_kernel<T, BM, BM, BK, TM, TM, VEC>
-      <<<(unsigned)blocks, TILED_THREADS, 0, s>>>(
-          static_cast<const T*>(a), static_cast<const T*>(b),
-          static_cast<T*>(c), m, n, k, tiles_n);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool VEC>
-int dispatch_tiled(const void* a, const void* b, void* c, int64_t m,
-                   int64_t n, int64_t k, int tile, cudaStream_t s) {
-  constexpr int BK = sizeof(T) == 4 ? 16 : 8;  // f32 : bf16
-  if (tile == 128) return launch_tiled<T, 128, BK, 8, VEC>(a, b, c, m, n, k, s);
-  if (tile == 64) return launch_tiled<T, 64, BK, 4, VEC>(a, b, c, m, n, k, s);
+// B6's tiles: (BM, BN, BK) and the rows R a consumer thread holds
+template <typename T>
+int launch_b6(const void* a, const void* b, void* c, int64_t m, int64_t n,
+              int64_t k, int64_t lda, int64_t ldb, int bm, int bn, int bk,
+              int stages, int64_t grid, int dev, cudaStream_t s) {
+  constexpr bool F32 = sizeof(T) == 4;
+  const T* A = static_cast<const T*>(a);
+  const T* B = static_cast<const T*>(b);
+  T* C = static_cast<T*>(c);
+  if (bm == 128 && bn == 128 && bk == (F32 ? 64 : 32))
+    return launch_ring<T, 128, 128, F32 ? 64 : 32, 16, true>(
+        A, B, C, m, n, k, lda, ldb, stages, grid, dev, s);
+  if (bm == 64 && bn == 128 && bk == 32)
+    return launch_ring<T, 64, 128, 32, 8, true>(A, B, C, m, n, k, lda, ldb,
+                                               stages, grid, dev, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -131,22 +132,38 @@ int bm25_matmul_naive(const void* a, const void* b, void* c, long long m,
               : launch_naive<float>(a, b, c, m, n, k, s);
 }
 
-// B6, block-tiled: the same product with a tile x tile block tile (128 or
-// 64) and a K step of 16 (f32) or 8 (bf16).  vec selects the 16-byte
-// loads: K and N multiples of 4 (f32) or 8 (bf16), A and B 16-byte aligned.
+int bm25_smem_optin_bytes(int device) {
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  return v;
+}
+
+// B6, optimized: the same product on the ring, all f32 or all bf16, with
+// a bm x bn x bk tile (128 x 128 x 64 or 64 x 128 x 32 for f32, 128 x 128
+// x 32 or 64 x 128 x 32 for bf16), a ring of `stages` (2 to
+// RING_MAX_STAGES) and `grid` blocks (1 to the tile count).  A (M, K) and
+// B (K, N) have row strides lda >= K and ldb >= N elements, whole 16-byte
+// units, from 16-byte aligned bases (TMA's rule); the loops stop at the
+// real M, N, K.
 int bm25_matmul_tiled(const void* a, const void* b, void* c, long long m,
-                      long long n, long long k, int bf16, int tile, int vec,
-                      void* stream) {
+                      long long n, long long k, long long lda, long long ldb,
+                      int bf16, int bm, int bn, int bk, int stages,
+                      long long grid, void* stream) {
   if (m <= 0 || n <= 0) return 0;
-  const int vw = bf16 ? 8 : 4;
-  if (k < 0 || (vec && (k % vw || n % vw))) return (int)cudaErrorInvalidValue;
+  const int64_t esize = bf16 ? 2 : 4;
+  if (k < 0 || lda < k || ldb < n || (lda * esize) % 16 ||
+      (ldb * esize) % 16 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16 || stages < 2 ||
+      stages > RING_MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return vec ? dispatch_tiled<__nv_bfloat16, true>(a, b, c, m, n, k, tile, s)
-               : dispatch_tiled<__nv_bfloat16, false>(a, b, c, m, n, k, tile,
-                                                      s);
-  return vec ? dispatch_tiled<float, true>(a, b, c, m, n, k, tile, s)
-             : dispatch_tiled<float, false>(a, b, c, m, n, k, tile, s);
+  return bf16 ? launch_b6<__nv_bfloat16>(a, b, c, m, n, k, lda, ldb, bm, bn,
+                                         bk, stages, grid, dev, s)
+              : launch_b6<float>(a, b, c, m, n, k, lda, ldb, bm, bn, bk,
+                                 stages, grid, dev, s);
 }
 
 }  // extern "C"

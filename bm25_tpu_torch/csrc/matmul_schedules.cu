@@ -35,30 +35,15 @@
 //   the whole K loop and is written once.  Twelve tiles: BM x BN in {64x64,
 //   128x64, 128x128, 256x128} times BK in {8, 16, 32}; the script's
 //   mm_resident (one grid cell over C, K in tk strips) is the same kernel
-//   on the one-wave tile the wrapper picks.  The body, matmul_ring_kernel
-//   (shared with E3), replaced B6's single-buffered block-tiled kernel,
-//   whose loads through registers waited at two barriers a BK step, whose
-//   transposed stores of A hit one bank four ways and whose B reads came
-//   from lanes 32 bytes apart:
-//   - copies by TMA: a producer warp streams A's box (BK values of K by BM
-//     rows, k-contiguous as A lies) and B's (BN columns by BK rows) with
-//     cp.async.bulk.tensor into a ring of stages, a full and an empty
-//     mbarrier per stage; no pack, no transpose, no swizzle; zeros past
-//     every edge.  TMA takes row strides of whole 16-byte units from a
-//     16-byte aligned base: the wrapper stages an operand that is not so
-//     into a padded copy;
-//   - warp-broadcast register tiles: every lane of a consumer warp holds
-//     the same R rows of C (16, or 32 at 256 x 128) and BN / 32 columns of
-//     its own (lane l: 4 l .. 4 l + 3 at BN = 128, 2 l, 2 l + 1 at 64).
-//     Per four k a warp reads each row's four A values as one 16-byte
-//     broadcast (one shared-memory wavefront) and four rows of B as 16
-//     (or 8) bytes a lane, neighbouring lanes on neighbouring addresses:
-//     at 128 x 128, 8 warps of 16 rows, 64 accumulators a lane, that is 20
-//     reads for 256 FMAs, where B6's body and the old E3 read 64 scalars;
-//   - a warp frees a stage once its reads of it are done; the ring's phase
-//     bits carry over the whole K loop;
-//   - the epilogue stores 16 (or 8) bytes a lane where the lane's columns
-//     lie inside N and N is a multiple of 4 (2), else masked scalars.
+//   on the one-wave tile the wrapper picks.  The body is the ring of
+//   matmul_ring.cuh (shared with E3 and B6's "optimized"), one block per C
+//   tile in row-major order, 16 rows a warp (32 at BM = 256): a producer
+//   warp streams A's and B's boxes by TMA into a ring of stages on
+//   mbarriers, and consumer warps hold warp-broadcast register tiles (at
+//   128 x 128, 8 warps of 16 rows, 64 accumulators a lane: 20 shared-memory
+//   reads for 256 FMAs).  TMA takes row strides of whole 16-byte units from
+//   a 16-byte aligned base: the wrapper stages an operand that is not so
+//   into a padded copy.
 //   What bounds it: the FMA issue rate (the reads take under a tenth of
 //   the issue slots, and the shared-memory pipe serves half as many
 //   wavefronts as the FMA pipes take warp-FMAs at 128 x 128) and filling
@@ -68,7 +53,7 @@
 //   ruled out: every output sums k in one chain.  E1 takes the deepest
 //   ring up to RING_MAX_STAGES that fits the card's shared memory (the
 //   wrapper's sweep_stages: 4 at every tile on an H100; a 256 x 128 x 32
-//   stage is 48 KB).  A wait that never ends traps.
+//   stage is 48 KB).
 // E2 matmul_row_strip: the TPU keeps one operand whole in VMEM and streams
 //   the other once.  B (4.2 MB at 1028^2) cannot sit in 227 KB of shared
 //   memory, but an A strip can: a block holds strip_m (8, 16 or 32) rows of
@@ -149,17 +134,12 @@
 //   call.  Simple first: no persistent blocks, stream-K, clusters or TMA
 //   store.  A wait that never ends traps.
 //
-// E1 and E3 are simple first: no persistent blocks, clusters or setmaxnreg.
+// E1 and E3 are simple first: one block per tile, no clusters or setmaxnreg.
 
-#include <cuda.h>          // CUtensorMap (types only: no libcuda link)
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled_v12000
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "matmul_ring.cuh"  // the ring body and the mbarrier/TMA helpers
 
 namespace {
 
-constexpr int DEFAULT_SMEM = 48 * 1024;
 constexpr int STRIP_WARPS = 8;  // E2's consumer warps; one more produces
 constexpr int STRIP_THREADS = 32 * (STRIP_WARPS + 1);
 constexpr int STRIP_MIN_STAGES = 3;        // E2's ring of B tiles: as
@@ -172,63 +152,8 @@ constexpr int MMA_TILE = 128, MMA_ROW_BYTES = 128, MMA_STAGES = 4;
 constexpr int MMA_CONSUMER_WARPS = 8;
 constexpr int MMA_THREADS = 32 * (MMA_CONSUMER_WARPS + 1);
 constexpr int PACK_TILE = 32, PACK_THREADS = 256;  // E4's pack
-// E1 and E3: the ring holds at most this many stages (its barriers are
-// laid out for this many), from a base aligned to TMA's 128 bytes
-constexpr int RING_MAX_STAGES = 4, RING_ALIGN = 128;
 
 // ---------------------------------------------------------------- E2 ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// one arrival that also adds `bytes` to the phase's expected transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.  No
-// wait of this kernel lasts more than a few milliseconds; one that spins
-// 2^26 times is a protocol fault and traps rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// `bytes` from global memory to this CTA's shared memory, completing on
-// `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__host__ __device__ constexpr int64_t imin(int64_t x, int64_t y) {
-  return x < y ? x : y;
-}
 
 template <int SM>
 struct StripShape {
@@ -283,12 +208,6 @@ __device__ __forceinline__ void load_a4(float4 (&av)[8], const float* ak,
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     av[i] = *reinterpret_cast<const float4*>(ak + i * lda);
-}
-
-// The warp is done reading a ring slot: one arrival on its empty barrier.
-__device__ __forceinline__ void release_slot(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
 }
 
 // Work item i of `strips` x `groups` is strip i % strips of column group
@@ -485,13 +404,6 @@ row_strip_kernel(const float* __restrict__ a, const float* __restrict__ bp,
       }
     }
   }
-}
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= DEFAULT_SMEM) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int SM>
@@ -715,19 +627,6 @@ __device__ __forceinline__ void wgmma_step<false, 256>(float (&d)[128],
 #undef WGMMA_REGS64
 #undef WGMMA_REGS128
 
-// One TMA load of a box of `map` at (c0 along K, c1 along rows) into
-// shared memory, completing on `bar`; boxes past the tensor's edges are
-// zero-filled.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Shared memory of a 128 x BN block: the ring (A's 128-row box, then B's
 // BN-row box, per stage), its barriers, and room to align it to 1024.
 template <int BN>
@@ -832,26 +731,6 @@ mma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled from the driver through the runtime, so the
-// library links no libcuda.
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // The map of a packed (rows, kp) operand: boxes of 128 bytes of K by
 // box_rows rows, swizzled 128B for wgmma, zeros past the edges.
 int encode_packed(CUtensorMap* map, const void* base, int64_t rows,
@@ -897,225 +776,15 @@ int launch_wgmma(const void* ap, const void* bt, float* c, int64_t m,
 
 // ---------------------------------------------------------- E1 and E3 ----
 
-// The ring body's shape at a (BM, BN, BK) tile: WARPS consumer warps (one
-// more produces), each holding R rows of C with every lane on the same
-// rows and TN columns of its own (ops/matmul_schedules.py::ring_layout
-// mirrors it); a stage is A's BM x BK box, then B's BK x BN box.
+// The ring body (matmul_ring.cuh) at a sweep tile, one block per C tile in
+// row-major order; a warp holds 16 rows, 32 at BM = 256.
 template <int BM, int BN, int BK>
-struct RingShape {
-  static constexpr int WARPS = BM >= 128 ? 8 : BM / 16;
-  static constexpr int R = BM / WARPS;  // 16, or 32 at BM = 256
-  static constexpr int TN = BN / 32;    // 4 at BN = 128, 2 at 64
-  static constexpr int THREADS = 32 * (WARPS + 1);
-  static constexpr int A_FLOATS = BM * BK, B_FLOATS = BK * BN;
-  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
-  static constexpr int STAGE_BYTES = STAGE_FLOATS * 4;
-  // two blocks an SM where the accumulators leave the registers for them
-  static constexpr int MIN_BLOCKS = R * TN < 64 ? 2 : 1;
-  static_assert(BK % 4 == 0 && BN % 32 == 0 && BM % WARPS == 0, "tile");
-  static_assert(STAGE_BYTES % RING_ALIGN == 0, "stages stay aligned");
-};
-
-// shared memory of a ring of `stages`: room to align, the stages, then
-// full[RING_MAX_STAGES] and empty[RING_MAX_STAGES]
-template <int BM, int BN, int BK>
-constexpr size_t ring_smem_bytes(int stages) {
-  return RING_ALIGN + (size_t)stages * RingShape<BM, BN, BK>::STAGE_BYTES +
-         2 * RING_MAX_STAGES * sizeof(uint64_t);
-}
-
-template <int TN> struct Vec;
-template <> struct Vec<4> {
-  static __device__ __forceinline__ void load(float (&v)[4], const float* p) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-template <> struct Vec<2> {
-  static __device__ __forceinline__ void load(float (&v)[2], const float* p) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x, v[1] = x.y;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[2]) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  }
-};
-
-// One stage's products, k ascending: acc[i][j] += a(row i, kk) b(kk, j)
-// for kk < BK (FULL) or kk < kmax (the K tail: the zeros TMA filled past K
-// are never summed).  `as` is the warp's first row of the A box (rows BK
-// floats apart), `bs` the lane's first column of the B box (rows BN
-// floats apart).
-template <int BN, int BK, int R, int TN, bool FULL>
-__device__ __forceinline__ void ring_stage(float (&acc)[R][TN],
-                                           const float* as, const float* bs,
-                                           int kmax) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 4) {
-    if (FULL || kk < kmax) {
-      float bv[4][TN];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) Vec<TN>::load(bv[q], bs + (kk + q) * BN);
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        // the same 16 bytes for the whole warp: one broadcast
-        const float4 av = *reinterpret_cast<const float4*>(as + i * BK + kk);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (FULL || kk + q < kmax) {
-            const float x = part(av, q);
-#pragma unroll
-            for (int j = 0; j < TN; ++j)
-              acc[i][j] = __fmaf_rn(x, bv[q][j], acc[i][j]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// C = A @ B on a grid of BM x BN tiles, block (tm, tn) = (blockIdx.x /
-// tiles_n, blockIdx.x % tiles_n).  map_a covers A as (K, M) boxes of BK x
-// BM, map_b B as (N, K) boxes of BN x BK (inner dimension first); both are
-// unused where K = 0 (C is +0).  Warps 0 .. WARPS-1 consume, warp WARPS's
-// lane 0 produces.
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(RingShape<BM, BN, BK>::THREADS,
-                                  RingShape<BM, BN, BK>::MIN_BLOCKS)
-matmul_ring_kernel(const __grid_constant__ CUtensorMap map_a,
-                   const __grid_constant__ CUtensorMap map_b,
-                   float* __restrict__ c, int64_t m, int64_t n, int64_t k,
-                   int tiles_n, int stages) {
-  using S = RingShape<BM, BN, BK>;
-  extern __shared__ __align__(16) uint8_t ring_smem[];
-  float* ring = reinterpret_cast<float*>(
-      ring_smem + ((RING_ALIGN - (smem_u32(ring_smem) & (RING_ALIGN - 1))) &
-                   (RING_ALIGN - 1)));
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * S::STAGE_FLOATS);
-  uint64_t* empty = full + RING_MAX_STAGES;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tm = blockIdx.x / tiles_n, tn = blockIdx.x % tiles_n;
-  const int64_t steps = (k + BK - 1) / BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);         // the producer's expect_tx
-      mbar_init(&empty[s], S::WARPS);  // every consumer warp is done
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();  // the barriers are initialised before any use
-
-  if (warp == S::WARPS) {  // the producer
-    if (lane == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int64_t t = 0; t < steps; ++t) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        float* sa = ring + stage * S::STAGE_FLOATS;
-        mbar_expect_tx(&full[stage], S::STAGE_BYTES);  // zero fill included
-        tma_load(sa, &map_a, (int)(t * BK), tm * BM, &full[stage]);
-        tma_load(sa + S::A_FLOATS, &map_b, tn * BN, (int)(t * BK),
-                 &full[stage]);
-        if (++stage == stages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
-    return;
-  }
-
-  float acc[S::R][S::TN];
-#pragma unroll
-  for (int i = 0; i < S::R; ++i)
-#pragma unroll
-    for (int j = 0; j < S::TN; ++j) acc[i][j] = 0.0f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int64_t t = 0; t < steps; ++t) {
-    mbar_wait(&full[stage], phase);
-    const float* as = ring + stage * S::STAGE_FLOATS + warp * S::R * BK;
-    const float* bs = ring + stage * S::STAGE_FLOATS + S::A_FLOATS +
-                      lane * S::TN;
-    const int64_t left = k - t * BK;
-    if (left >= BK)
-      ring_stage<BN, BK, S::R, S::TN, true>(acc, as, bs, BK);
-    else
-      ring_stage<BN, BK, S::R, S::TN, false>(acc, as, bs, (int)left);
-    release_slot(&empty[stage], lane);
-    if (++stage == stages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-
-  const int64_t col = (int64_t)tn * BN + lane * S::TN;
-  const bool wide = n % S::TN == 0 && col + S::TN <= n;
-#pragma unroll
-  for (int i = 0; i < S::R; ++i) {
-    const int64_t row = (int64_t)tm * BM + warp * S::R + i;
-    if (row >= m) break;
-    float* cr = c + row * n + col;
-    if (wide) {
-      Vec<S::TN>::store(cr, acc[i]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < S::TN; ++j)
-        if (col + j < n) cr[j] = acc[i][j];
-    }
-  }
-}
-
-// The map of a row-major f32 (rows, cols) matrix with row stride ld
-// floats (a multiple of 4, from a 16-byte aligned base): boxes of
-// box_cols x box_rows, no swizzle, zeros past the edges.
-int encode_rows(CUtensorMap* map, const float* base, int64_t rows,
-                int64_t cols, int64_t ld, int box_cols, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(ld * 4)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-template <int BM, int BN, int BK>
-int launch_ring(const float* a, const float* b, float* c, int64_t m,
-                int64_t n, int64_t k, int64_t lda, int64_t ldb, int stages,
-                int dev, cudaStream_t s) {
-  const int64_t tiles_n = (n + BN - 1) / BN;
-  const int64_t blocks = (m + BM - 1) / BM * tiles_n;
-  if (blocks > 0x7fffffff || (m + BM - 1) / BM * BM > 0x7fffffff ||
-      tiles_n * BN > 0x7fffffff || k > 0x7fffffff)
-    return (int)cudaErrorInvalidConfiguration;  // TMA's coordinates are int
-  CUtensorMap map_a = {}, map_b = {};
-  if (k > 0) {
-    if (int err = encode_rows(&map_a, a, m, k, lda, BK, BM)) return err;
-    if (int err = encode_rows(&map_b, b, k, n, ldb, BN, BK)) return err;
-  }
-  // the opt-in to the deepest ring's shared memory, once per device
-  static bool allowed[64] = {};
-  if (dev >= 64 || !allowed[dev]) {
-    if (int err = allow_smem(matmul_ring_kernel<BM, BN, BK>,
-                             ring_smem_bytes<BM, BN, BK>(RING_MAX_STAGES)))
-      return err;
-    if (dev < 64) allowed[dev] = true;
-  }
-  matmul_ring_kernel<BM, BN, BK>
-      <<<(unsigned)blocks, RingShape<BM, BN, BK>::THREADS,
-         ring_smem_bytes<BM, BN, BK>(stages), s>>>(map_a, map_b, c, m, n, k,
-                                                   (int)tiles_n, stages);
-  return (int)cudaGetLastError();
+int launch_sweep(const float* a, const float* b, float* c, int64_t m,
+                 int64_t n, int64_t k, int64_t lda, int64_t ldb, int stages,
+                 int dev, cudaStream_t s) {
+  const int64_t tiles = (m + BM - 1) / BM * ((n + BN - 1) / BN);
+  return launch_ring<float, BM, BN, BK, (BM >= 256 ? 32 : 16), false>(
+      a, b, c, m, n, k, lda, ldb, stages, tiles, dev, s);
 }
 
 }  // namespace
@@ -1124,13 +793,6 @@ extern "C" {
 
 const char* bm25_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-int bm25_smem_optin_bytes(int device) {
-  int v = 0;
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  return v;
 }
 
 #define STRIP(SM, CALL)                                                    \
@@ -1170,8 +832,8 @@ int bm25_matmul_row_strip(const void* a, const void* bp, void* c,
 
 #define RING_TILE(BM, BN, BK)                                              \
   if (bm == BM && bn == BN && bk == BK)                                    \
-    return launch_ring<BM, BN, BK>(A, B, C, m, n, k, lda, ldb, stages,     \
-                                   dev, s);
+    return launch_sweep<BM, BN, BK>(A, B, C, m, n, k, lda, ldb, stages,    \
+                                    dev, s);
 
 // E1 and E3: C = A @ B on the (bm, bn, bk) tile of the sweep through a ring
 // of `stages` (2 to RING_MAX_STAGES) TMA stages.  A (M, K) and B (K, N)

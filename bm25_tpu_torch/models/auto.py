@@ -37,7 +37,8 @@ def create_engine(
     """Build the device engine for this index.
 
     mode: "auto" / "dense" / "sparse"; "sharded" and "sharded_sparse"
-    raise ``NotImplementedError`` (not ported yet, ROADMAP A14).  Extra
+    raise ``NotImplementedError`` (not ported yet, ROADMAP.md: the
+    sharded engines).  Extra
     kwargs pass through to the chosen engine's ``from_scored_index``.
     Under mode="auto" kwargs the chosen engine doesn't take are dropped;
     explicit modes keep strict kwargs and raise on unknown options.
@@ -51,7 +52,7 @@ def create_engine(
     if mode in ("sharded", "sharded_sparse"):
         raise NotImplementedError(
             f"mode={mode!r}: the sharded engines are not ported yet "
-            "(ROADMAP A14)")
+            "(ROADMAP.md: the sharded engines)")
     if mode == "dense":
         return _build(DenseEngine, index, kwargs, filter_kwargs=False)
     if mode == "sparse":

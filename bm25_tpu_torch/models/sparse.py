@@ -405,7 +405,8 @@ class SparseEngine:
         ``hot_budget_bytes`` (default: the raw CSC bytes) at 4 bytes per
         (token, doc) entry, and by the vocabulary.  The cost model that
         picks H and ``max_buckets`` in the JAX package was measured on a
-        TPU and is not ported (ROADMAP A9), so H is always explicit here.
+        TPU and is not ported (ROADMAP.md: the H100 layout cost model), so H
+        is always explicit here.
         ``score_dtype`` ("float32" or "bfloat16") is the type the returned
         scores are rounded to.
         """
@@ -414,7 +415,8 @@ class SparseEngine:
         if isinstance(hot_tokens, str) or isinstance(hot_tokens, bool):
             raise NotImplementedError(
                 f"hot_tokens={hot_tokens!r}: the layout cost model is not "
-                "ported (ROADMAP A9); pass an integer"
+                "ported (ROADMAP.md: the H100 layout cost model); pass an "
+                "integer"
             )
         if hot_tokens < 0:
             raise ValueError(f"hot_tokens must be >= 0, got {hot_tokens}")
@@ -576,7 +578,8 @@ class SparseEngine:
     def _search_impl(self, queries, top_k: int, weights, doc_mask):
         if doc_mask is not None:
             raise NotImplementedError(
-                "doc_mask filtering is not ported yet (ROADMAP A5)")
+                "doc_mask filtering is not ported yet (ROADMAP.md: the "
+                "sparse doc mask)")
         queries, weights = validate_query_batch(queries, self.vocab_size,
                                                 weights)
         k = min(top_k, self.num_docs)

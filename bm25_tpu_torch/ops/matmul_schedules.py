@@ -52,7 +52,8 @@ kernel states a limit:
   kernel streams both by TMA into a ring of shared-memory stages on
   mbarriers and runs ``wgmma`` on C tiles of 128 x 128, or 128 x 256
   where 128 x 128 tiles would take more than one wave.  ``"f32"``, the
-  script's baseline, is B6's ``matmul_tiled`` and counts as its launch.
+  script's baseline, is B6's ``"optimized"`` (``matmul_tiled``, the same
+  ring as E1 on a balanced walk) and counts as its launch.
 
 TF32 is the card's counterpart of XLA's DEFAULT precision, one low-
 precision pass: 10 explicit significand bits, rounded to nearest with ties
@@ -83,7 +84,10 @@ import functools
 import torch
 
 from bm25_tpu_torch.ops import _build
-from bm25_tpu_torch.ops.matmul import H100_SMS, Tile, matmul, matmul_plain
+from bm25_tpu_torch.ops.matmul import (  # noqa: F401 (re-exported)
+    H100_SMEM_OPTIN, H100_SMS, RING_ALIGN, RING_MAX_STAGES, Tile,
+    _bulk_operand, _on_device, matmul, matmul_plain, ring_smem_bytes,
+    ring_stages, sm_count, smem_optin_bytes)
 from bm25_tpu_torch.utils.padding import cdiv, next_multiple
 
 SWEEP_TILES = tuple(Tile(m, n, k) for m, n in ((64, 64), (128, 64),
@@ -99,14 +103,6 @@ STRIP_MIN_STAGES, STRIP_MAX_STAGES = 3, 8
 PIPELINED_TILES = (Tile(64, 64, 16), Tile(128, 128, 16))
 STAGES = (2, 3, 4)
 MMA_MODES = ("f32", "default", "bf16in")
-# an H100's opt-in limit of shared memory per block: the rule's default
-# where no card is asked
-H100_SMEM_OPTIN = 232448
-# E1 and E3's ring (csrc/matmul_schedules.cu, matmul_ring_kernel): at most
-# this many stages, from a base aligned to TMA's 128 bytes, then a full and
-# an empty mbarrier for each of the most stages
-RING_MAX_STAGES = 4
-RING_ALIGN = 128
 
 # E4: C tiles of 128 rows (128 or 256 wide); a ring stage holds 128 bytes
 # of K of each operand's rows (64 bf16 or 32 TF32 values); the packed rows
@@ -157,10 +153,8 @@ def _lib() -> ctypes.CDLL:
     lib.bm25_matmul_mma.argtypes = [p, p, p, ll, ll, ll, p, ll, i, ll, ll,
                                      i, p]
     lib.bm25_mma_pack.argtypes = [p, p, p, ll, ll, ll, ll, i, p]
-    lib.bm25_smem_optin_bytes.argtypes = [i]
     for fn in (lib.bm25_matmul_ring, lib.bm25_matmul_row_strip,
-               lib.bm25_matmul_mma, lib.bm25_mma_pack,
-               lib.bm25_smem_optin_bytes):
+               lib.bm25_matmul_mma, lib.bm25_mma_pack):
         fn.restype = i
     return lib
 
@@ -197,51 +191,12 @@ def _launch(name: str, fn: str, a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def _on_device(device: torch.device, fn, *args) -> int:
-    """``fn(*args, stream)`` with ``device`` current, on its current
-    stream (read in one call into torch's C layer where the build has it:
-    the wrapper's host work counts where it outlasts the kernel).  The
-    device is switched only where it is not the current one."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if device.index == torch.cuda.current_device():
-        return fn(*args, raw(device.index) if raw else
-                  torch.cuda.current_stream(device).cuda_stream)
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
-
-
 def _tile(tile, tiles, what: str) -> Tile:
     t = Tile(*tile)
     if t not in tiles:
         raise ValueError(f"{what} has no tile {tuple(t)}; the tiles "
                          f"(m, n, k) are {[tuple(x) for x in tiles]}")
     return t
-
-
-@functools.cache
-def _card_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's SM count (read once per device), an H100's on the
-    CPU."""
-    if device.type == "cuda":
-        return _card_sms(device.index or 0)
-    return H100_SMS
-
-
-@functools.cache
-def _card_smem_optin(index: int) -> int:
-    return _lib().bm25_smem_optin_bytes(index)
-
-
-def smem_optin_bytes(device: torch.device) -> int:
-    """The opt-in limit of shared memory per block: read from the card,
-    an H100's on the CPU."""
-    if device.type == "cuda":
-        return _card_smem_optin(device.index or 0)
-    return H100_SMEM_OPTIN
 
 
 def resident_tile(m: int, n: int, bk: int = 16,
@@ -277,25 +232,12 @@ def ring_layout(tile) -> RingLayout:
     return RingLayout(warps, t.m // warps, t.n // 32)
 
 
-def ring_smem_bytes(tile, stages: int) -> int:
-    """Shared memory of a ring of ``stages`` at ``tile``: room to align,
-    the stages (A's BM x BK box, then B's BK x BN) and the barriers."""
-    t = Tile(*tile)
-    return (RING_ALIGN + stages * (t.m * t.k + t.k * t.n) * 4
-            + 2 * RING_MAX_STAGES * 8)
-
-
 @functools.lru_cache(maxsize=64)
 def sweep_stages(tile, smem_limit: int = H100_SMEM_OPTIN) -> int:
     """E1's ring depth at ``tile``: the deepest up to ``RING_MAX_STAGES``
     whose ring fits ``smem_limit``; raises where not even two fit.  Cached:
     the wrapper asks it on every call."""
-    fits = [s for s in range(2, RING_MAX_STAGES + 1)
-            if ring_smem_bytes(tile, s) <= smem_limit]
-    if not fits:
-        raise ValueError(f"no ring of two stages at tile {tuple(tile)} fits "
-                         f"{smem_limit} bytes of shared memory")
-    return fits[-1]
+    return ring_stages(tile, 4, smem_limit)
 
 
 def _ring(name: str, a: torch.Tensor, b: torch.Tensor, t: Tile,
@@ -390,20 +332,6 @@ def row_strip_l2_bytes(m: int, n: int, k: int, plan: RowStripPlan) -> dict:
     ceil(M / strip_m) K N 4, and A once per column group."""
     return {"b_l2_bytes": cdiv(m, plan.strip_m) * k * n * 4,
             "a_l2_bytes": plan.groups * m * k * 4}
-
-
-def _bulk_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` where its rows are whole 16-byte units from a 16-byte aligned
-    start, as bulk copies and TMA take them; else a copy into a
-    ``torch.empty`` whose rows are padded to a multiple of 4 floats (the
-    padding is never read into a sum)."""
-    cols = x.shape[1]
-    if cols % 4 == 0 and x.data_ptr() % 16 == 0:
-        return x
-    padded = torch.empty((x.shape[0], next_multiple(cols, 4)),
-                         dtype=x.dtype, device=x.device)
-    padded[:, :cols] = x
-    return padded
 
 
 def pack_panels(b: torch.Tensor, plan: RowStripPlan) -> torch.Tensor:
@@ -574,8 +502,9 @@ def matmul_mma(a: torch.Tensor, b: torch.Tensor,
     """E4: C = A @ B with f32 accumulation in one of the script's input
     precisions: ``"default"`` (TF32 tensor cores), ``"bf16in"`` (inputs
     rounded to bf16, bf16 tensor cores) or ``"f32"`` (B6's
-    ``matmul_tiled``).  On the card the pack and the ``wgmma`` product,
-    two launches; the packed operands are scratch, freed on return."""
+    ``"optimized"``, ``matmul_tiled``).  On the card the pack and the
+    ``wgmma`` product, two launches; the packed operands are scratch,
+    freed on return."""
     _mma_mode(a, b, mode, MMA_MODES, "matmul_mma")
     if mode == "f32":
         return matmul(a, b, algorithm="optimized")

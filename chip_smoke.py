@@ -51,11 +51,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (its JSON on one line), with B6's launch counts over these calls; then
    both kernels against their twin (bit-equal) and against ``"xla"``
    (within ``2 K 2^-24 (|A| @ |B|)``, plus one bf16 ulp for bf16), all
-   timed; ``"optimized"`` at 4096^3 f32 against ``"xla"``; B6 edge cases
-   (ragged M, N and K, 1 x 1 x 1, empty M or N, K = 0, bf16, every tile
-   override, the analytic corner case, which is exact); and each
-   gather/scatter/shape/union op through ``custom`` on CUDA tensors, equal
-   to the same call on CPU tensors;
+   timed; ``"optimized"`` at 2048^3 and 4096^3 f32 against ``"xla"``, both
+   timed; B6 edge cases (ragged M, N and K, 1 x 1 x 1, empty M or N, K =
+   0, bf16, every tile override, the analytic corner case, which is
+   exact); the optimized kernel's ring at its edges in f32 and bf16 at
+   every tile, ring depth and on 3 blocks (K = 0, K below the K step, K =
+   37 BK + 3, M and N below a tile, K and N at 8 j + 4, views 4 bytes off
+   alignment, +-0/inf/NaN: the twin's bits) and into a C prefilled with
+   NaN (every element written); each gather/scatter/shape/union op
+   through ``custom`` on CUDA tensors, equal to the same call on CPU
+   tensors; last, the optimized kernel's device time per call at 1028^3
+   and 4096^3 (``torch.profiler``);
 9. selection gather (E5-E7): the three ``super_row_gather`` kernels
    against their twin (bit-equal) at edge cases (rows 0 and R - 1, the
    window clamped to R - W, duplicates, a span wider than the window so
@@ -158,6 +164,7 @@ DENSE_DOCS = 131072  # the JAX bench's sharded_docs corpus
 SPARSE_DOCS = 524288  # BenchConfig's default corpus
 MATMUL_N = 1028  # the reference's matmul benchmark: M = K = N
 MATMUL_BIG = 4096
+MATMUL_BIG_SIZES = (2048, MATMUL_BIG)  # B6 optimized beside 1028^3
 RESIDENT_H = 256  # the tallest of the dyngather tables that fits
 SCHEDULE_SIZES = (1028, 2048, 4096)  # the matmul scripts' sizes
 SCHEDULE_TWIN_SIZES = (1028, 2048)  # the twin is a loop over K
@@ -1030,26 +1037,49 @@ def matmul_main(torch, pm, dev, record) -> None:
             f"twin {plain_ms:.3f} ms")
     del inputs, outs
 
-    big = MATMUL_BIG
-    a, b = matmul_operands(torch, dev, big, big, big, torch.float32, 6)
-    got = pm.matmul(a, b)
-    err = order_bound(torch, got, pm.matmul(a, b, algorithm="xla"), a, b)
-    ms = cuda_ms(torch, lambda: pm.matmul(a, b), 5)
-    xla_ms = cuda_ms(torch, lambda: pm.matmul(a, b, algorithm="xla"), 5)
-    big_flops = big * big * (2 * big - 1)
-    log(f"[kernels] B6 optimized at {big}^3 f32 (tile "
-        f"{tuple(pm.pick_tile(big, big, torch.float32))}): {ms:.3f} ms "
-        f"({big_flops / ms / 1e6:.1f} GFLOP/s), xla {xla_ms:.3f} ms "
-        f"({big_flops / xla_ms / 1e6:.1f} GFLOP/s); max |diff| vs xla "
-        f"{err:.3e} (within the order bound)")
-    del a, b, got
-    f32 = torch.float32
-    b6_bound = bound(3 * n * n * 4, [(flops, F32_OPS_PER_S)])
+    for big in MATMUL_BIG_SIZES:
+        a, b = matmul_operands(torch, dev, big, big, big, torch.float32, 6)
+        got = pm.matmul(a, b)
+        err = order_bound(torch, got, pm.matmul(a, b, algorithm="xla"), a, b)
+        ms = cuda_ms(torch, lambda: pm.matmul(a, b), 5)
+        xla_ms = cuda_ms(torch, lambda: pm.matmul(a, b, algorithm="xla"), 5)
+        big_flops = big * big * (2 * big - 1)
+        log(f"[kernels] B6 optimized at {big}^3 f32 "
+            f"({pm.b6_plan(big, big, torch.float32, sms=pm.sm_count(dev))}):"
+            f" {ms:.4f} ms ({big_flops / ms / 1e6:.1f} GFLOP/s), xla "
+            f"{xla_ms:.4f} ms ({big_flops / xla_ms / 1e6:.1f} GFLOP/s); max "
+            f"|diff| vs xla {err:.3e} (within the order bound)")
+        del a, b, got
+    f32, bf16 = torch.float32, torch.bfloat16
     for name, algo in (("matmul_naive", "naive"),
                        ("matmul_tiled", "optimized")):
         record[name] = kernel_record(
             launches[name], 0.0, times[(f32, algo)], times[(f32, "plain")],
-            b6_bound, times[(f32, "xla")])
+            bound(3 * n * n * 4, [(flops, F32_OPS_PER_S)]),
+            times[(f32, "xla")])
+        # the same kernel on bf16 operands (the xla call widens to f32)
+        record[name]["bf16"] = kernel_record(
+            launches[name], 0.0, times[(bf16, algo)], times[(bf16, "plain")],
+            bound(3 * n * n * 2, [(flops, F32_OPS_PER_S)]),
+            times[(bf16, "xla")])
+
+
+def b6_device_split(torch, pm, dev, record) -> None:
+    """B6 optimized's device time per call (one launch) at 1028^3 and
+    4096^3 f32 (``torch.profiler``, after every timing of phase 8), beside
+    the call's back-to-back time; the 1028^3 figure goes into the kernels
+    line as ``device_ms``."""
+    for s in (MATMUL_N, MATMUL_BIG):
+        a, b = matmul_operands(torch, dev, s, s, s, torch.float32, 0)
+        call = cuda_ms(torch, lambda: pm.matmul(a, b), 10)
+        us = launch_us(torch, lambda: pm.matmul(a, b),
+                       ("matmul_ring_kernel",))
+        log(f"[kernels] B6 optimized at {s}^3: device us per call "
+            f"{sum(us.values()):.1f} ({us}; torch.profiler), "
+            f"{call * 1e3:.1f} us a call back to back")
+        if s == MATMUL_N and us:
+            record["matmul_tiled"]["device_ms"] = sum(us.values()) / 1e3
+        del a, b
 
 
 def phase_matmul_cases(torch, pm, dev) -> None:
@@ -1084,6 +1114,84 @@ def phase_matmul_cases(torch, pm, dev) -> None:
             raise AssertionError(f"B6 {algo}: analytic corner case inexact")
     log("[kernels] B6 analytic corner case (a[r, c] = r - c, b[r, c] = "
         "r + c, n = 32): both kernels equal a @ b exactly")
+    b6_ring_edge_cases(torch, pm, dev)
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal bits, NaN only where the twin has NaN (any payload)."""
+    nan = torch.isnan(want)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return (got.dtype == want.dtype and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.masked_fill(nan, 0).view(bits),
+                            want.masked_fill(nan, 0).view(bits)))
+
+
+def b6_ring_edge_cases(torch, pm, dev) -> None:
+    """B6 optimized (the ring) at its edges in f32 and bf16, at every tile
+    and every ring depth up to the plan's, on the planned grid and on 3
+    blocks (many tiles a block): K = 0 (+0), K below the K step, K = 37
+    BK + 3 (the phase bits wrap), M and N below a tile, K and N at 8 j +
+    4 (bf16 staged), views 4 bytes off alignment (staged), +-0/inf/NaN
+    (the twin's bits); then C prefilled with NaN, which the walk
+    overwrites."""
+    sms = pm.sm_count(dev)
+
+    def check(a, b, what, want=None):
+        (m, k), n = a.shape, b.shape[1]
+        want = pm.matmul_plain(a, b) if want is None else want
+        for tile in pm.TILES[a.dtype]:
+            plan = pm.b6_plan(m, n, a.dtype, *tile, sms)
+            for stages in range(2, plan.stages + 1):
+                for grid in {plan.grid, min(3, plan.grid)}:
+                    got = pm._optimized(
+                        a, b, plan._replace(stages=stages, grid=grid))
+                    if not same_bits(torch, got, want):
+                        raise AssertionError(
+                            f"B6 ring {tuple(tile)} stages {stages} grid "
+                            f"{grid} {what} {a.dtype}: bits differ")
+                    if k == 0 and bool((got.view(torch.int16
+                                                 if a.dtype == torch.bfloat16
+                                                 else torch.int32)).any()):
+                        raise AssertionError(f"B6 ring {what}: not +0")
+        if not same_bits(torch, pm.matmul(a, b), want):
+            raise AssertionError(f"B6 optimized {what} {a.dtype}: bits differ")
+
+    for dt in pm.DTYPES:
+        bk = pm.TILES[dt][0].k
+        esize = torch.empty((), dtype=dt).element_size()
+        for m, k, n in ((9, 0, 36), (70, 5, 132), (70, 37 * bk + 3, 132),
+                        (3, 40, 8), (129, 3, 65), (37, 44, 76),
+                        (100, 36, 1028)):
+            a, b = matmul_operands(torch, dev, m, k, n, dt, m + k)
+            check(a, b, f"({m}, {k}, {n})")
+        off = 4 // esize  # 4 bytes
+        for m, k, n in ((37, 64, 132), (20, 30, 9)):
+            a, b = matmul_operands(torch, dev, m, k, n, dt, k)
+            x = torch.zeros(a.numel() + off, dtype=dt, device=dev)[off:]
+            y = torch.zeros(b.numel() + off, dtype=dt, device=dev)[off:]
+            x, y = x.view(m, k), y.view(k, n)
+            x.copy_(a)
+            y.copy_(b)
+            check(x, y, f"({m}, {k}, {n}) 4 bytes off", pm.matmul_plain(a, b))
+        a, b = matmul_operands(torch, dev, 40, 36, 72, dt, 5)
+        a[0], a[1, ::2], a[2, 3] = -0.0, 0.0, float("inf")
+        a[3, 7], a[4, :] = float("nan"), -0.0
+        b[5, :8], b[6, 9], b[7, 10] = float("-inf"), float("nan"), float("inf")
+        b[:, 11] = -0.0
+        check(a, b, "+-0, inf, NaN")
+        for m, k, n in ((MATMUL_N, 64, MATMUL_N), (300, 70, 1030)):
+            a, b = matmul_operands(torch, dev, m, k, n, dt, 9)
+            plan = pm.b6_plan(m, n, dt, sms=sms)
+            c = torch.full((m, n), float("nan"), dtype=dt, device=dev)
+            got = pm._optimized(a, b, plan, out=c)
+            if got is not c or not same_bits(torch, c, pm.matmul_plain(a, b)):
+                raise AssertionError(f"B6 ({m}, {k}, {n}) {dt} into a NaN C: "
+                                     "an element was not written, or wrong")
+    log("[kernels] B6 ring edges in f32 and bf16 at every tile, ring depths "
+        "2 to the plan's, the planned grid and 3 blocks: K = 0 (+0), K < "
+        "BK, K = 37 BK + 3, M and N below a tile, K and N at 8 j + 4, "
+        "views 4 bytes off (staged), +-0/inf/NaN: the twin's bits; a C "
+        "prefilled with NaN is overwritten everywhere with the twin's bits")
 
 
 def named_ops_cases(torch, dev) -> None:
@@ -1786,6 +1894,7 @@ def drive(torch, dev) -> dict:
         matmul_main(torch, pm, dev, record)
         phase_matmul_cases(torch, pm, dev)
         named_ops_cases(torch, dev)
+        b6_device_split(torch, pm, dev, record)
     torch.cuda.empty_cache()
     with Phase("9. selection gather (E5-E7)"):
         selection_gather(torch, dev, record)

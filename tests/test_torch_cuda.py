@@ -428,8 +428,9 @@ def test_cuda_matmul_kernels_bit_equal_to_twin(cuda_device, m, k, n, dtype):
 
 @pytest.mark.cuda
 def test_cuda_matmul_scalar_path_on_misaligned_pointers(cuda_device):
-    """K and N allow 16-byte loads, the pointers do not: the scalar
-    instantiation runs, with the same bits."""
+    """K and N are whole 16-byte units, A's pointer is not 16-byte
+    aligned: the optimized kernel's TMA reads a padded copy, with the same
+    bits."""
     for dtype in pm.DTYPES:
         a, b = matmul_operands(96, 64, 80, dtype, cuda_device, seed=1)
         flat = torch.empty(a.numel() + 1, dtype=dtype, device=cuda_device)
@@ -454,7 +455,7 @@ def test_cuda_matmul_empty_and_checks(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         pm.matmul(a, b.T.contiguous().T)
     with pytest.raises(ValueError, match="instantiation"):
-        pm.matmul(a, b, tile_k=32)
+        pm.matmul(a, b, tile_k=16)
 
 
 @pytest.mark.cuda
@@ -471,6 +472,96 @@ def test_cuda_matmul_xla_is_full_f32_with_tf32_allowed(cuda_device):
     finally:
         matmul.allow_tf32 = saved
     assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+# B6 optimized, the ring (csrc/matmul_ring.cuh) on a balanced walk:
+# (m, k, n) per dtype's K step bk: K = 0, K below the K step, K = 37 bk +
+# 3 (the phase bits wrap), M and N below a tile, K and N at 8 j + 4 (bf16
+# operands staged), N = 1028 (thin right-edge tiles)
+def b6_edge_shapes(bk):
+    return [(9, 0, 36), (70, 5, 132), (70, 37 * bk + 3, 132), (3, 40, 8),
+            (129, 3, 65), (37, 44, 76), (100, 36, 1028)]
+
+
+def b6_bits_equal(got, want):
+    """Equal bits, NaN only where the twin has NaN (any payload)."""
+    nan = torch.isnan(want)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return got.dtype == want.dtype and torch.equal(torch.isnan(got), nan) \
+        and torch.equal(got.masked_fill(nan, 0).view(bits),
+                        want.masked_fill(nan, 0).view(bits))
+
+
+def b6_every_plan(a, b, want):
+    """B6's ring at every tile of the dtype and every ring depth up to the
+    plan's, on the planned grid and on 3 blocks (many tiles a block): the
+    twin's bits, one launch each."""
+    (m, k), n = a.shape, b.shape[1]
+    for tile in pm.TILES[a.dtype]:
+        plan = pm.b6_plan(m, n, a.dtype, *tile, pm.sm_count(a.device))
+        for stages in range(2, plan.stages + 1):
+            for grid in {plan.grid, min(3, plan.grid)}:
+                before = pm.launches["matmul_tiled"]
+                got = pm._optimized(a, b, plan._replace(stages=stages,
+                                                        grid=grid))
+                assert pm.launches["matmul_tiled"] == before + 1
+                assert b6_bits_equal(got, want), (tile, stages, grid)
+                if k == 0:  # +0, not -0
+                    assert not got.view(torch.int16 if got.element_size()
+                                        == 2 else torch.int32).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+@pytest.mark.parametrize("case", range(7))
+def test_cuda_b6_ring_edges(cuda_device, dtype, case):
+    m, k, n = b6_edge_shapes(pm.TILES[dtype][0].k)[case]
+    a, b = matmul_operands(m, k, n, dtype, cuda_device, seed=m + k)
+    b6_every_plan(a, b, pm.matmul_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+def test_cuda_b6_ring_views_off_alignment(cuda_device, dtype):
+    # views 4 bytes off 16-byte alignment go through a padded copy
+    dev, esize = cuda_device, torch.empty((), dtype=dtype).element_size()
+    off = 4 // esize
+    for m, k, n in ((37, 64, 132), (20, 30, 9)):
+        a, b = matmul_operands(m, k, n, dtype, dev, seed=k)
+        x = torch.zeros(a.numel() + off, dtype=dtype, device=dev)[off:]
+        y = torch.zeros(b.numel() + off, dtype=dtype, device=dev)[off:]
+        x, y = x.view(m, k), y.view(k, n)
+        x.copy_(a)
+        y.copy_(b)
+        assert x.data_ptr() % 16 and y.data_ptr() % 16
+        b6_every_plan(x, y, pm.matmul_plain(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+def test_cuda_b6_ring_special_values(cuda_device, dtype):
+    a, b = matmul_operands(40, 36, 72, dtype, cuda_device, seed=5)
+    a[0], a[1, ::2], a[2, 3] = -0.0, 0.0, float("inf")
+    a[3, 7], a[4, :] = float("nan"), -0.0
+    b[5, :8], b[6, 9], b[7, 10] = float("-inf"), float("nan"), float("inf")
+    b[:, 11] = -0.0
+    want = pm.matmul_plain(a, b)
+    assert torch.isnan(want).any() and torch.isinf(want).any()
+    b6_every_plan(a, b, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+@pytest.mark.parametrize("m,k,n", [(1028, 64, 1028), (300, 70, 1030),
+                                   (1028, 1028, 1028)])
+def test_cuda_b6_writes_every_element(cuda_device, dtype, m, k, n):
+    # C prefilled with NaN: the walk overwrites every element,
+    # with the twin's bits
+    a, b = matmul_operands(m, k, n, dtype, cuda_device, seed=n)
+    plan = pm.b6_plan(m, n, dtype, sms=pm.sm_count(cuda_device))
+    c = torch.full((m, n), float("nan"), dtype=dtype, device=cuda_device)
+    assert pm._optimized(a, b, plan, out=c) is c
+    assert torch.equal(c, pm.matmul_plain(a, b))
 
 
 # -- the named ops on CUDA tensors -----------------------------------------------------
@@ -801,7 +892,7 @@ def test_cuda_matmul_mma_within_bound(cuda_device, m, k, n, mode):
     before = ms.launches["matmul_mma"]
     assert_mma_within_bound(ms.matmul_mma(a, b, mode), a, b, mode)
     assert ms.launches["matmul_mma"] == before + 1
-    # "f32" is B6's tiled kernel, counted as its launch
+    # "f32" is B6's optimized kernel (the ring), counted as its launch
     tiled = pm.launches["matmul_tiled"]
     assert torch.equal(ms.matmul_mma(a, b, "f32"), pm.matmul_plain(a, b))
     assert pm.launches["matmul_tiled"] == tiled + 1

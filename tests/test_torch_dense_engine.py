@@ -428,7 +428,8 @@ def test_explicit_modes_are_strict(route_index):
     assert isinstance(create_engine(route_index, mode="dense", session=CPU),
                       DenseEngine)
     for mode in ("sharded", "sharded_sparse"):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md: the sharded engines"):
             create_engine(route_index, mode=mode, session=CPU)
     with pytest.raises(ValueError, match="unknown engine mode"):
         create_engine(route_index, mode="nope", session=CPU)

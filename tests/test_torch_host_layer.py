@@ -361,7 +361,7 @@ def test_retriever_fit_builds_a_port_engine(tmp_path, mode):
     assert loaded.tokenizer.config() == tok.config()
     got = loaded.retrieve(QUERIES, k=3)
     assert_matches_oracle(*got, *oracle.search(ids, top_k=3))
-    if mode == "auto":  # weighted sparse search is not ported yet (A5)
+    if mode == "auto":  # weighted queries, on the engine "auto" picks
         weighted = [{"quick": 2.0, "fox": 0.5}, "dog"]
         wid, wts = tok.tokenize_weighted_queries(weighted, r.index.vocab)
         assert_matches_oracle(*loaded.retrieve(weighted, k=3),

@@ -175,22 +175,25 @@ def test_shape_algorithm_and_operand_errors():
 
 def test_tile_rule():
     f32, bf = torch.float32, torch.bfloat16
-    # by block count: the 128 x 128 tile fills the card only from 132 blocks
-    assert pm.pick_tile(1028, 1028, f32) == pm.Tile(64, 64, 16)
-    assert pm.pick_tile(4096, 4096, f32) == pm.Tile(128, 128, 16)
-    assert pm.pick_tile(1028, 1028, f32, sms=64) == pm.Tile(128, 128, 16)
-    assert pm.pick_tile(100, 100, f32) == pm.Tile(64, 64, 16)  # most blocks
-    # the K step is the dtype's: 16 for f32, 8 for bf16
-    assert pm.pick_tile(1028, 1028, bf) == pm.Tile(64, 64, 8)
-    assert pm.pick_tile(4096, 4096, bf) == pm.Tile(128, 128, 8)
+    # by balance: 128 x 128 leaves 1028^3's busiest SM twice an even share
+    # (81 tiles, 132 SMs), 64 x 128 within BALANCE of it
+    assert pm.pick_tile(1028, 1028, f32) == pm.Tile(64, 128, 32)
+    assert pm.pick_tile(4096, 4096, f32) == pm.Tile(128, 128, 64)
+    assert pm.pick_tile(1028, 1028, f32, sms=64) == pm.Tile(128, 128, 64)
+    # neither balances: the least work on the busiest SM
+    assert pm.pick_tile(100, 100, f32) == pm.Tile(64, 128, 32)
+    # the K step is the dtype's: 64 f32 or 32 bf16 values at 128 x 128
+    assert pm.pick_tile(1028, 1028, bf) == pm.Tile(64, 128, 32)
+    assert pm.pick_tile(4096, 4096, bf) == pm.Tile(128, 128, 32)
     # overrides choose among the dtype's instantiated tiles
-    assert pm.pick_tile(1028, 1028, f32, tile_k=16) == pm.Tile(64, 64, 16)
-    assert pm.pick_tile(1028, 1028, f32, tile_m=128) == pm.Tile(128, 128, 16)
-    assert pm.pick_tile(9, 9, bf, tile_m=128, tile_k=8) == \
-        pm.Tile(128, 128, 8)
-    for dtype, bad in ((f32, {"tile_m": 256}), (f32, {"tile_n": 32}),
-                       (f32, {"tile_k": 8}), (bf, {"tile_k": 16}),
-                       (f32, {"tile_m": 64, "tile_n": 128})):
+    assert pm.pick_tile(1028, 1028, f32, tile_k=32) == pm.Tile(64, 128, 32)
+    assert pm.pick_tile(1028, 1028, f32, tile_m=128) == pm.Tile(128, 128, 64)
+    assert pm.pick_tile(9, 9, bf, tile_m=128, tile_k=32) == \
+        pm.Tile(128, 128, 32)
+    for dtype, bad in ((f32, {"tile_m": 256}), (f32, {"tile_n": 64}),
+                       (f32, {"tile_k": 16}), (bf, {"tile_k": 64}),
+                       (f32, {"tile_m": 64, "tile_k": 64}),
+                       (f32, {"tile_m": 64, "tile_n": 256})):
         with pytest.raises(ValueError, match=r"\(128, 128, %d\)" %
                            pm.TILES[dtype][0].k):
             pm.pick_tile(100, 100, dtype, **bad)
@@ -207,6 +210,107 @@ def test_tile_rule():
                {"tile_m": 256, "tile_n": 256}):
         with pytest.raises(ValueError, match="takes no tile"):
             pm.matmul(a, b, "naive", **kw)
+
+
+# ragged and square (m, n): thin edges on one side, both, or none, and C
+# smaller than one tile
+PLAN_SHAPES = [(1028, 1028), (4096, 4096), (67, 200), (1, 1), (64, 128),
+               (129, 300), (700, 131), (2048, 1030)]
+
+
+@pytest.mark.parametrize("m,n", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+def test_b6_walk_writes_every_c_element_once(m, n, dtype):
+    # what the kernel walks: block b takes tiles b, b + grid, ... of
+    # tile_order; every C element lies in exactly one tile of one block
+    for tile in pm.TILES[dtype]:
+        for sms in (pm.H100_SMS, 7):
+            grid = pm.grid_size(m, n, tile, sms)
+            order = pm.tile_order(m, n, tile)
+            assert grid == min(len(order), sms * pm.blocks_per_sm(tile))
+            assert len(set(order)) == len(order) == (
+                -(-m // tile.m)) * (-(-n // tile.n))
+            hits = np.zeros((m, n), np.int64)
+            for b in range(grid):
+                for tm, tn in order[b::grid]:
+                    hits[tm * tile.m:(tm + 1) * tile.m,
+                         tn * tile.n:(tn + 1) * tile.n] += 1
+            assert (hits == 1).all(), (tile, sms)
+            assert sum(pm.sm_fmas(m, n, 3, tile, sms)) == m * n * 3
+    plan = pm.b6_plan(m, n, dtype)
+    assert plan.tile in pm.TILES[dtype]
+    assert plan.grid == pm.grid_size(m, n, plan.tile, pm.H100_SMS)
+
+
+@pytest.mark.parametrize("s", [1028, 2048, 4096])
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+def test_b6_busiest_sm_within_balance(s, dtype):
+    # the design rule: on an H100's 132 SMs the busiest SM's FMAs stay
+    # within 1.15 x an even share of s^3
+    plan = pm.b6_plan(s, s, dtype)
+    busiest = max(pm.sm_fmas(s, s, s, plan.tile, pm.H100_SMS))
+    assert busiest <= pm.BALANCE * s**3 / pm.H100_SMS, (plan, busiest)
+    assert pm.BALANCE == 1.15
+    # the full tiles come first, so at 1028^3 each SM takes one full 64 x
+    # 128 tile, and at most one thin edge tile beside it
+    if s == 1028:
+        assert plan.tile.m == 64 and plan.grid == 153
+        assert busiest == (64 * 128 + 4 * 128) * s
+
+
+@pytest.mark.parametrize("dtype", pm.DTYPES)
+def test_b6_ring_fits_shared_memory(dtype):
+    esize = torch.empty((), dtype=dtype).element_size()
+    for tile in pm.TILES[dtype]:
+        # A's rows padded by 16 bytes (so a warp's four rows lie on four
+        # banks), then B's box
+        stage = (tile.m * (tile.k + 16 // esize) + tile.k * tile.n) * esize
+        assert stage % pm.RING_ALIGN == 0  # every stage starts TMA-aligned
+        assert tile.m * (tile.k + 16 // esize) * esize % pm.RING_ALIGN == 0
+        for stages in range(2, pm.RING_MAX_STAGES + 1):
+            got = pm.ring_smem_bytes(tile, stages, esize, padded=True)
+            assert got == (pm.RING_ALIGN + stages * stage
+                           + 2 * pm.RING_MAX_STAGES * 8)
+        # the plan's ring fits blocks_per_sm times in an SM's 228 KB, 1 KB
+        # kept for each block
+        plan = pm.b6_plan(4096, 4096, dtype, tile.m, tile.n, tile.k)
+        got = pm.ring_smem_bytes(tile, plan.stages, esize, padded=True)
+        assert got <= pm.H100_SMEM_OPTIN
+        assert pm.blocks_per_sm(tile) * (got + 1024) <= \
+            pm.H100_SMEM_OPTIN + 1024
+        deeper = pm.ring_smem_bytes(tile, plan.stages + 1, esize, True)
+        assert (plan.stages == pm.RING_MAX_STAGES or pm.blocks_per_sm(tile)
+                * (deeper + 1024) > pm.H100_SMEM_OPTIN + 1024)
+        # a smaller card's limit takes a shallower ring, and one that holds
+        # not even two stages raises
+        two = pm.ring_smem_bytes(tile, 2, esize, padded=True)
+        assert pm.ring_stages(tile, esize, two, padded=True) == 2
+        with pytest.raises(ValueError, match="two stages"):
+            pm.ring_stages(tile, esize, two - 1, padded=True)
+    # 64 x 128: two blocks an SM, four stages each; f32 128 x 128 x 64:
+    # three stages of 67.6 KB
+    assert pm.b6_plan(1028, 1028, dtype).stages == pm.RING_MAX_STAGES
+    if dtype == torch.float32:
+        assert pm.b6_plan(4096, 4096, dtype).stages == 3
+
+
+def test_bulk_operand_pads_rows_to_16_bytes():
+    bf = torch.bfloat16
+    # bf16 rows of whole 16-byte units (8 values), aligned: read as they lie
+    x = torch.arange(48, dtype=bf).view(3, 16)
+    assert pm._bulk_operand(x) is x
+    assert pm._bulk_operand(x.float()[:, :12].contiguous()).shape == (3, 12)
+    # bf16 K = 1028 (2,056-byte rows), K = 12 (f32 would read it as it
+    # lies), a view 2 bytes off alignment: padded to 8 values
+    for y in (torch.ones(3, 1028, dtype=bf), torch.ones(3, 12, dtype=bf),
+              torch.arange(49, dtype=bf)[1:].view(3, 16)):
+        got = pm._bulk_operand(y)
+        assert got is not y and got.dtype == bf
+        assert got.shape == (3, -(-y.shape[1] // 8) * 8)
+        assert got.data_ptr() % 16 == 0 and got.stride(0) * 2 % 16 == 0
+        assert torch.equal(got[:, :y.shape[1]], y)
+    f = torch.ones(3, 12)
+    assert pm._bulk_operand(f) is f
 
 
 def test_through_custom():
@@ -240,3 +344,25 @@ def test_bench_matmul_main_prints_json(capsys):
                               "--iters", "1", "--device", "cpu"]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert [r["algorithm"] for r in out] == list(ALGOS)
+
+
+def test_b6_times_needs_a_card(capsys):
+    # the timing script measures only on a CUDA device; elsewhere it exits
+    # 2 and prints no result
+    from bm25_tpu_torch.bench import b6_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert b6_times.main([]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_optimized_checks_the_given_c():
+    # the kernel writes into a given C only if it is the product's
+    # contiguous (M, N) tensor of A's dtype on A's device
+    a, b = torch.ones(3, 4), torch.ones(4, 5)
+    plan = pm.b6_plan(3, 5, torch.float32)
+    for bad in (torch.zeros(5, 3), torch.zeros(3, 5, dtype=torch.bfloat16),
+                torch.zeros(5, 3).T, torch.zeros(3, 5, device="meta")):
+        with pytest.raises(ValueError, match="out must be"):
+            pm._optimized(a, b, plan, out=bad)

@@ -275,11 +275,13 @@ def test_unported_options_raise(lucene_index):
     eng = SparseEngine.from_scored_index(lucene_index, session=CPU,
                                          hot_tokens=4)
     q = np.zeros((2, 3), np.int32)
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: the sparse doc mask"):
         eng.search(q, doc_mask=np.ones(lucene_index.num_docs, bool))
     with pytest.raises(ValueError, match="weights"):
         eng.search(q, weights=np.ones((2, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md: the H100 layout cost model"):
         SparseEngine.from_scored_index(lucene_index, session=CPU,
                                        hot_tokens="auto")
     with pytest.raises(ValueError, match="out of range"):
