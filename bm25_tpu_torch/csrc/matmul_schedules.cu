@@ -137,6 +137,7 @@
 // E1 and E3 are simple first: one block per tile, no clusters or setmaxnreg.
 
 #include "matmul_ring.cuh"  // the ring body and the mbarrier/TMA helpers
+#include "wgmma.cuh"        // wgmma descriptors and fences, swizzled maps
 
 namespace {
 
@@ -508,65 +509,6 @@ int launch_pack(const float* a, const float* b, void* ap, void* bt,
   return (int)cudaGetLastError();
 }
 
-// A wgmma matrix descriptor for a K-major tile that TMA wrote with the
-// 128-byte swizzle (rows of 128 bytes, 8-row groups 1024 bytes apart, the
-// tile 1024-byte aligned): start address >> 4, leading offset 16 bytes
-// (unused by this layout), stride offset 1024 bytes, layout 1 = 128B
-// swizzle.  Adding 2 advances the start by 32 bytes, one k16 (bf16) or
-// k8 (TF32) slice along the row; the hardware applies the swizzle.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* tile) {
-  const uint64_t addr = smem_u32(tile);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous wgmma that owns them.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define WGMMA_D8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WGMMA_D64(i)                                                       \
-  WGMMA_D8(i), WGMMA_D8(i + 8), WGMMA_D8(i + 16), WGMMA_D8(i + 24),        \
-      WGMMA_D8(i + 32), WGMMA_D8(i + 40), WGMMA_D8(i + 48),                \
-      WGMMA_D8(i + 56)
-#define WGMMA_REGS64 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-#define WGMMA_REGS128 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
-  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
-  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
-  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
-  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
-  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
-  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
-  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
-  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
-  "%127}"
-
 // d (this warpgroup's 64 x BN f32 accumulator) += A slice (64 rows) @ B
 // slice (BN columns), both K-major in shared memory: one k16 step of
 // bf16, or one k8 step of TF32.
@@ -621,11 +563,6 @@ __device__ __forceinline__ void wgmma_step<false, 256>(float (&d)[128],
       : WGMMA_D64(0), WGMMA_D64(64)
       : "l"(da), "l"(db), "r"(1));
 }
-
-#undef WGMMA_D8
-#undef WGMMA_D64
-#undef WGMMA_REGS64
-#undef WGMMA_REGS128
 
 // Shared memory of a 128 x BN block: the ring (A's 128-row box, then B's
 // BN-row box, per stage), its barriers, and room to align it to 1024.
@@ -729,27 +666,6 @@ mma_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-}
-
-// The map of a packed (rows, kp) operand: boxes of 128 bytes of K by
-// box_rows rows, swizzled 128B for wgmma, zeros past the edges.
-int encode_packed(CUtensorMap* map, const void* base, int64_t rows,
-                  int64_t kp, bool bf16, int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const int64_t esize = bf16 ? 2 : 4;
-  const cuuint64_t dims[2] = {(cuuint64_t)kp, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)(kp * esize)};
-  const cuuint32_t box[2] = {(cuuint32_t)(MMA_ROW_BYTES / esize),
-                             (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-      2, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <bool BF16, int BN>

@@ -26,17 +26,32 @@
 //     there; a block has at most 227 KB of shared memory, so here the 50 MB
 //     L2 serves repeated rows instead.  The TPU's unroll sweep (1/4/8/16)
 //     becomes the rows-per-warp sweep.
-//   * Window (E6): winners sorted ascending within a query.  One block of 8
-//     warps per tile of 8 winners stages the 8-aligned window
-//     [w0a, w0a + W), w0a = min(8 * floor(w0 / 8), R - W), into shared
-//     memory by cp.async and serves the 8 rows from it, one warp each.
-//     When w7 - w0a >= W (the tile's span does not fit the window) it takes
-//     the script's own fallback: 8 direct row loads, counted in *fallbacks.
-//     A row outside the window (unsorted input) is also loaded directly, so
-//     the result is the gather for any input.  Requires R >= W, W % 8 == 0
-//     and KP % 8 == 0 (the wrapper checks).  The TPU layout of the ids,
-//     [q, s, t] = rowof[q, 8t + s] for its scalar memory, is not carried:
-//     tile t reads rowof[q, 8t : 8t + 8] directly.
+//   * Window (E6): winners sorted ascending within a query.  The TPU
+//     kernel stages an 8-aligned window of W rows for each tile of 8
+//     winners; here the window becomes the depth of a ring of W row slots
+//     in shared memory that slides along the query's ids.  One block walks
+//     a run of WINDOW_RUN = 64 slots of one query (runs of 64 beat 128
+//     and 256 at the scripts' shape on an H100: more blocks even out the
+//     SMs' share).  Its threads first mark the run's distinct rows (a slot
+//     whose id differs from the slot before it: sorted ids put duplicates
+//     side by side), so each distinct row is read from global memory once
+//     per run, and only rows some winner names.  A producer lane copies
+//     them in order into the ring, one
+//     512-byte cp.async.bulk each on the slot's full mbarrier, up to W
+//     ahead of the stores; consumer warps take the distinct rows in turn
+//     (u = warp, warp + WINDOW_WARPS, ...; W % WINDOW_WARPS == 0, so the
+//     warp that frees a slot is the one that next waits on it), read the
+//     row into registers, free the slot on its empty mbarrier and write
+//     it to every slot of the run that names it with streaming stores
+//     (st.global.cs), so the output does not evict the input from L2.
+//     An unsorted id only starts another distinct row, so the result is
+//     the gather for any input, with no direct path.  The script's
+//     fallback (8 direct row loads where a tile's span w7 - w0a >= W) is
+//     no longer a path here; *fallbacks still gains the number of such
+//     tiles, w0a = min(8 * floor(w0 / 8), R - W), a statement about the
+//     input.  Requires R >= W, W % 8 == 0 and KP % 8 == 0 (the wrapper
+//     checks).  The TPU layout of the ids, [q, s, t] = rowof[q, 8t + s]
+//     for its scalar memory, is not carried.
 //   * Resident (E7): one block per query stages the whole (H, 128) table in
 //     shared memory by cp.async and serves the KP rows from it: E5's "row
 //     in fast memory", where it fits this card (H * 512 bytes up to the
@@ -46,22 +61,27 @@
 // What bounds it on an H100: bytes.  Each kernel writes Q * KP * 512 bytes
 // and needs each distinct (query, row) read once; at the scripts' shape
 // (Q = 512, R = 2048, KP = 1024) that is up to 268 MB read and 268 MB
-// written, about 0.16 ms at 3.35 TB/s.  The window kernel reads W rows per
-// tile of 8 (4-6 times the direct kernel's reads, mostly from L2); the
-// resident kernel reads the whole table once per query.
+// written, about 0.16 ms at 3.35 TB/s.  The direct kernel reads every
+// winner's row (repeats from L1/L2); the window kernel each distinct row
+// once per run; the resident kernel the whole table once per query.
 //
 // Offsets are int64: Q * R * 128 passes 2^31 at the scripts' shape.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "matmul_ring.cuh"  // mbarriers, cp.async.bulk, allow_smem
+
 namespace {
 
 constexpr int VEC_PER_ROW = 32;  // float4s per 128-wide super-row
 constexpr int DIRECT_WARPS = 8;
-constexpr int WINDOW_ROWS = 8;  // winners per window tile, one warp each
+constexpr int WINDOW_TILE = 8;    // winners per tile of the fallback count
+constexpr int WINDOW_RUN = 64;    // slots of one query a block walks
+constexpr int WINDOW_WARPS = 4;   // consumer warps; one more produces
+constexpr int WINDOW_THREADS = 32 * (WINDOW_WARPS + 1);
+constexpr int ROW_BYTES = VEC_PER_ROW * 16;
 constexpr int RESIDENT_THREADS = 512;
-constexpr int DEFAULT_SMEM = 48 * 1024;
 
 __device__ __forceinline__ int clamp_row(int r, int rows) {
   return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
@@ -100,36 +120,103 @@ super_row_gather_kernel(const float4* __restrict__ x,
   }
 }
 
-__global__ void __launch_bounds__(WINDOW_ROWS * 32)
+// Shared memory of a window block: the ring (w row slots), full[w] and
+// empty[w], then each distinct row's first slot (WINDOW_RUN + 1) and row
+// id (WINDOW_RUN).
+size_t window_smem_bytes(int w) {
+  return (size_t)w * (ROW_BYTES + 2 * sizeof(uint64_t)) +
+         (2 * WINDOW_RUN + 1) * sizeof(int);
+}
+
+__global__ void __launch_bounds__(WINDOW_THREADS)
 super_row_gather_window_kernel(const float4* __restrict__ x,
                                const int* __restrict__ rowof, int kp,
                                int r_count, int w, float4* __restrict__ out,
                                int* __restrict__ fallbacks) {
-  extern __shared__ float4 win[];  // (w, 32)
-  const int64_t tile = blockIdx.x;  // over Q * KP / 8
-  const int64_t j0 = tile * WINDOW_ROWS;  // flat (q, j) of the tile's first
-  const int64_t q = j0 / kp;
+  extern __shared__ __align__(128) uint8_t win_smem[];
+  float4* ring = reinterpret_cast<float4*>(win_smem);  // (w, 32)
+  uint64_t* full = reinterpret_cast<uint64_t*>(win_smem + w * ROW_BYTES);
+  uint64_t* empty = full + w;
+  int* first = reinterpret_cast<int*>(empty + w);  // [WINDOW_RUN + 1]
+  int* row = first + WINDOW_RUN + 1;               // [WINDOW_RUN]
+  __shared__ int chunk_rows[WINDOW_RUN / 32];
+
+  const int runs = (kp + WINDOW_RUN - 1) / WINDOW_RUN;
+  const int64_t q = blockIdx.x / runs;
+  const int j0 = (blockIdx.x % runs) * WINDOW_RUN;
+  const int len = min(WINDOW_RUN, kp - j0);
+  const int* rq = rowof + q * kp + j0;
   const float4* xq = x + q * r_count * VEC_PER_ROW;
-  const int w0 = clamp_row(__ldg(rowof + j0), r_count);
-  const int w7 = clamp_row(__ldg(rowof + j0 + WINDOW_ROWS - 1), r_count);
-  const int w0a = min((w0 / 8) * 8, r_count - w);
-  const bool direct = w7 - w0a >= w;  // block-uniform
-  if (!direct) {
-    const float4* src = xq + (int64_t)w0a * VEC_PER_ROW;
-    for (int i = threadIdx.x; i < w * VEC_PER_ROW; i += blockDim.x)
-      cp_async16(win + i, src + i);
-    cp_async_wait_all();
-  } else if (threadIdx.x == 0 && fallbacks != nullptr) {
-    atomicAdd(fallbacks, 1);
+  float4* oq = out + (q * kp + j0) * VEC_PER_ROW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int s = threadIdx.x; s < w; s += blockDim.x) {
+    mbar_init(&full[s], 1);   // the producer's expect_tx
+    mbar_init(&empty[s], 1);  // the consumer warp that read the slot
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = clamp_row(__ldg(rowof + j0 + warp), r_count);
-  const int rel = r - w0a;
-  const float4 v = (!direct && rel >= 0 && rel < w)
-                       ? win[rel * VEC_PER_ROW + lane]
-                       : __ldg(xq + (int64_t)r * VEC_PER_ROW + lane);
-  out[(j0 + warp) * VEC_PER_ROW + lane] = v;
+  // The tiles of 8 whose span does not fit the script's window (KP % 8 ==
+  // 0 and WINDOW_RUN % 8 == 0: a run holds whole tiles).
+  bool wide = false;
+  if (threadIdx.x < len / WINDOW_TILE) {
+    const int w0 = clamp_row(__ldg(rq + WINDOW_TILE * threadIdx.x), r_count);
+    const int w7 = clamp_row(
+        __ldg(rq + WINDOW_TILE * threadIdx.x + WINDOW_TILE - 1), r_count);
+    wide = w7 - min((w0 / 8) * 8, r_count - w) >= w;
+  }
+  // The run's distinct rows: slot j starts one where its id differs from
+  // slot j - 1's.  Count them per 32 slots, then place each.
+  int id[WINDOW_RUN / 32 / (WINDOW_WARPS + 1) + 1];
+  unsigned heads[WINDOW_RUN / 32 / (WINDOW_WARPS + 1) + 1];
+#pragma unroll
+  for (int i = 0; i * (WINDOW_WARPS + 1) < WINDOW_RUN / 32; ++i) {
+    const int c = warp + i * (WINDOW_WARPS + 1), j = 32 * c + lane;
+    id[i] = -1;
+    bool head = false;
+    if (c < WINDOW_RUN / 32 && j < len) {
+      id[i] = clamp_row(__ldg(rq + j), r_count);
+      head = j == 0 || id[i] != clamp_row(__ldg(rq + j - 1), r_count);
+    }
+    heads[i] = __ballot_sync(0xffffffffu, head);
+    if (c < WINDOW_RUN / 32 && lane == 0) chunk_rows[c] = __popc(heads[i]);
+  }
+  const int n_wide = __syncthreads_count(wide);
+  if (threadIdx.x == 0 && n_wide && fallbacks != nullptr)
+    atomicAdd(fallbacks, n_wide);
+#pragma unroll
+  for (int i = 0; i * (WINDOW_WARPS + 1) < WINDOW_RUN / 32; ++i) {
+    const int c = warp + i * (WINDOW_WARPS + 1);
+    if (c >= WINDOW_RUN / 32 || !((heads[i] >> lane) & 1)) continue;
+    int u = __popc(heads[i] & ((1u << lane) - 1));
+    for (int k = 0; k < c; ++k) u += chunk_rows[k];
+    first[u] = 32 * c + lane;
+    row[u] = id[i];
+  }
+  int n_rows = 0;
+  for (int k = 0; k < WINDOW_RUN / 32; ++k) n_rows += chunk_rows[k];
+  if (threadIdx.x == 0) first[n_rows] = len;
+  __syncthreads();  // barriers initialised, first[] and row[] written
+
+  if (warp == WINDOW_WARPS) {  // the producer: distinct rows in order
+    if (lane == 0) {
+      for (int u = 0; u < n_rows; ++u) {
+        const int s = u % w;
+        if (u >= w) mbar_wait(&empty[s], (u / w - 1) & 1);
+        mbar_expect_tx(&full[s], ROW_BYTES);
+        bulk_copy(ring + s * VEC_PER_ROW, xq + (int64_t)row[u] * VEC_PER_ROW,
+                  ROW_BYTES, &full[s]);
+      }
+    }
+  } else {  // consumers: distinct rows warp, warp + WINDOW_WARPS, ...
+    for (int u = warp; u < n_rows; u += WINDOW_WARPS) {
+      const int s = u % w;
+      mbar_wait(&full[s], (u / w) & 1);
+      const float4 v = ring[s * VEC_PER_ROW + lane];
+      release_slot(&empty[s], lane);
+      for (int j = first[u]; j < first[u + 1]; ++j)
+        __stcs(oq + (int64_t)j * VEC_PER_ROW + lane, v);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(RESIDENT_THREADS)
@@ -150,13 +237,6 @@ super_row_gather_resident_kernel(const float4* __restrict__ x,
     const int r = clamp_row(__ldg(rq + j), h);
     oq[(int64_t)j * VEC_PER_ROW + lane] = table[r * VEC_PER_ROW + lane];
   }
-}
-
-template <typename K>
-int opt_in_smem(K kernel, size_t bytes) {
-  if (bytes <= DEFAULT_SMEM) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int RPW>
@@ -207,20 +287,21 @@ int bm25_super_row_gather(const void* x3, const int* rowof, int q_count,
   }
 }
 
-// E6: as E5 with winners sorted within each query; window w rows (w % 8 ==
-// 0, w <= R), KP % 8 == 0.  fallbacks (one int32, may be null) gains the
-// number of tiles served by direct loads.
+// E6: as E5 with winners sorted within each query; a ring of w row slots
+// (w % 8 == 0, w <= R), KP % 8 == 0.  fallbacks (one int32, may be null)
+// gains the number of tiles of 8 whose span does not fit a window of w.
 int bm25_super_row_gather_window(const void* x3, const int* rowof,
                                  int q_count, int r_count, int kp, int w,
                                  void* out, int* fallbacks, void* stream) {
-  const int64_t tiles = (int64_t)q_count * (kp / WINDOW_ROWS);
-  if (tiles <= 0) return 0;
-  if (w <= 0 || w % 8 || w > r_count || kp % WINDOW_ROWS)
+  const int64_t blocks =
+      (int64_t)q_count * ((kp + WINDOW_RUN - 1) / WINDOW_RUN);
+  if (blocks <= 0) return 0;
+  if (w <= 0 || w % 8 || w > r_count || kp % WINDOW_TILE)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)w * VEC_PER_ROW * sizeof(float4);
-  int err = opt_in_smem(super_row_gather_window_kernel, smem);
+  const size_t smem = window_smem_bytes(w);
+  int err = allow_smem(super_row_gather_window_kernel, smem);
   if (err) return err;
-  super_row_gather_window_kernel<<<(unsigned)tiles, WINDOW_ROWS * 32, smem,
+  super_row_gather_window_kernel<<<(unsigned)blocks, WINDOW_THREADS, smem,
                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x3), rowof, kp, r_count, w,
       static_cast<float4*>(out), fallbacks);
@@ -235,7 +316,7 @@ int bm25_super_row_gather_resident(const void* x3, const int* rowof,
   if ((int64_t)q_count * kp <= 0) return 0;
   if (h <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)h * VEC_PER_ROW * sizeof(float4);
-  int err = opt_in_smem(super_row_gather_resident_kernel, smem);
+  int err = allow_smem(super_row_gather_resident_kernel, smem);
   if (err) return err;
   super_row_gather_resident_kernel<<<(unsigned)q_count, RESIDENT_THREADS,
                                      smem,

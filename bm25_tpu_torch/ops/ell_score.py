@@ -15,7 +15,8 @@ over slot-major ELL postings (``tokT``/``valT`` are (L, rows)).
   products ``hc @ hi`` and ``hc @ lo`` (and ``hc_lo @ hi`` for
   non-integer counts), the pad-row mask (``doc_ids < 0`` -> -inf) and the
   maxima of each group of GROUP rows, (Q, rows / GROUP), which the top-k
-  tree starts from.
+  tree starts from.  With a hot tier the card runs the scan, then a hot
+  kernel on the tensor cores over the tokens ``hot_plan`` lists.
 
 Both wrappers launch the hand-written kernels of ``csrc/ell_score.cu``
 (see its header for the design and what bounds it) on CUDA tensors and
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,9 +46,13 @@ SLOT_TILE = 512
 # rows per group maximum (the top-k tree's branch factor)
 GROUP = 8
 NEG_INF = float("-inf")
+# hot tokens a stage of the hot kernel: the plan pads the counts' columns
+# to a multiple of it
+HOT_BK = 64
 
-# kernel launches, counted only where a kernel is launched
-launches = {"ell_score": 0, "ell_score_fused": 0}
+# kernel launches, counted only where a kernel is launched: B1 calls,
+# the hot kernels they launch, B2 calls
+launches = {"ell_score": 0, "ell_score_fused": 0, "ell_score_hot": 0}
 # plain-twin runs (CPU tensors, or a direct call)
 plain_calls = {"ell_score": 0, "ell_score_fused": 0}
 
@@ -144,6 +150,41 @@ def ell_score_fused_plain(ids, tokT, valT, doc_ids, hot_counts=None,
     return base, gmax
 
 
+class HotPlan(NamedTuple):
+    """The hot tokens a chunk uses, as B1's hot kernel takes them."""
+
+    counts: torch.Tensor  # (Q, KP) bf16: hot_counts' columns in tokens order
+    counts_lo: torch.Tensor | None  # the same of hot_counts_lo
+    tokens: torch.Tensor  # (H,) int32: the used tokens ascending, then the rest
+    n_used: torch.Tensor  # (1,) int32: how many are used
+
+
+def hot_plan(hot_counts: torch.Tensor,
+             hot_counts_lo: torch.Tensor | None = None) -> HotPlan:
+    """List the hot tokens some query of the chunk counts (nonzero in
+    ``hot_counts`` or ``hot_counts_lo``), on the counts' device and with no
+    host sync.  ``counts`` holds their columns first, in ``tokens`` order,
+    and zeros after, KP = H rounded up to HOT_BK columns; so ``counts[:,
+    :n] @ hotT[tokens[:n]]`` is ``hot_counts @ hotT`` for n = n_used."""
+    q, h = hot_counts.shape
+    used = (hot_counts != 0).any(dim=0)
+    if hot_counts_lo is not None:
+        used |= (hot_counts_lo != 0).any(dim=0)
+    tokens = torch.argsort((~used).to(torch.int32), stable=True)
+    kp = next_multiple(max(h, 1), HOT_BK)
+
+    def compact(c):
+        if c is None:
+            return None
+        out = c.new_zeros((q, kp))
+        out[:, :h] = c[:, tokens]
+        return out
+
+    return HotPlan(compact(hot_counts), compact(hot_counts_lo),
+                   tokens.to(torch.int32),
+                   used.sum(dtype=torch.int32).reshape(1))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -156,7 +197,7 @@ def _lib() -> ctypes.CDLL:
     lib.bm25_ell_score.argtypes = [p, i, i, p, p, i, i, i, p, p]
     lib.bm25_ell_score.restype = i
     lib.bm25_ell_score_fused.argtypes = [
-        p, p, i, i, p, p, i, i, i, p, p, p, p, p, i, p, p, p]
+        p, p, i, i, p, p, i, i, i, p, p, p, i, p, p, p, p, i, p, p, p]
     lib.bm25_ell_score_fused.restype = i
     return lib
 
@@ -227,12 +268,15 @@ def ell_score_fused(
     hotLo: torch.Tensor | None = None,  # (H, rows) bf16 residual
     weights: torch.Tensor | None = None,  # (Q, T) f32 per-token weights
     hot_counts_lo: torch.Tensor | None = None,  # (Q, H) bf16 count residual
+    plan: HotPlan | None = None,  # hot_plan(hot_counts, hot_counts_lo)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B1: fused bucket scoring -> (masked base (Q, rows), gmax (Q, rows/8)).
 
     ``weights`` makes each match add its token's weight instead of 1;
     ``hot_counts_lo`` (non-integer counts) adds the third split product
-    ``hot_counts_lo @ hotT``.
+    ``hot_counts_lo @ hotT``.  ``plan`` is ``hot_plan`` of the counts, made
+    once per chunk by a caller that scores several buckets (made here when
+    None); the plain twin does not need it.
     """
     if ids.device.type == "cpu":
         return ell_score_fused_plain(ids, tokT, valT, doc_ids, hot_counts,
@@ -254,6 +298,8 @@ def ell_score_fused(
         _expect(hot_counts, "hot_counts", torch.bfloat16, (q, h), device)
         _expect(hotT, "hotT", torch.bfloat16, (h, rows), device)
         _expect(hotLo, "hotLo", torch.bfloat16, (h, rows), device)
+        if hotT.data_ptr() % 16 or hotLo.data_ptr() % 16:
+            raise ValueError("hotT and hotLo must be 16-byte aligned")
     if hot_counts_lo is not None:
         if hot_counts is None:
             raise ValueError("hot_counts_lo requires hot_counts")
@@ -262,15 +308,32 @@ def ell_score_fused(
     gmax = torch.empty((q, rows // GROUP), dtype=torch.float32, device=device)
     if q == 0 or rows == 0:
         return base, gmax
+    kp = 0
+    if h:
+        if plan is None:
+            plan = hot_plan(hot_counts, hot_counts_lo)
+        kp = next_multiple(h, HOT_BK)
+        _expect(plan.counts, "plan.counts", torch.bfloat16, (q, kp), device)
+        if (plan.counts_lo is None) != (hot_counts_lo is None):
+            raise ValueError("plan.counts_lo must come with hot_counts_lo")
+        if plan.counts_lo is not None:
+            _expect(plan.counts_lo, "plan.counts_lo", torch.bfloat16,
+                    (q, kp), device)
+        _expect(plan.tokens, "plan.tokens", torch.int32, (h,), device)
+        _expect(plan.n_used, "plan.n_used", torch.int32, (1,), device)
+    else:
+        plan = HotPlan(None, None, None, None)
     l_tile, _ = _slot_tiling(l_pad)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bm25_ell_score_fused(
             _ptr(ids), _ptr(weights), q, t, _ptr(tokT), _ptr(valT), l_pad,
-            rows, l_tile, _ptr(doc_ids), _ptr(hot_counts),
-            _ptr(hot_counts_lo), _ptr(hotT), _ptr(hotLo), h, _ptr(base),
-            _ptr(gmax), stream)
+            rows, l_tile, _ptr(doc_ids), _ptr(plan.counts),
+            _ptr(plan.counts_lo), kp, _ptr(plan.tokens), _ptr(plan.n_used),
+            _ptr(hotT), _ptr(hotLo), h, _ptr(base), _ptr(gmax), stream)
     _build.check(lib, err, "bm25_ell_score_fused launch")
     launches["ell_score_fused"] += 1
+    if h:
+        launches["ell_score_hot"] += 1
     return base, gmax

@@ -15,9 +15,10 @@ and what bounds them):
 * ``super_row_gather`` (E5): one warp per output super-row,
   ``rows_per_warp`` rows in turn (the TPU kernel's unroll sweep);
 * ``super_row_gather_window`` (E6): winners sorted within each query; a
-  block stages an 8-aligned window of ``window`` rows per tile of 8 winners
-  and serves the tile from it, or loads the 8 rows directly when their span
-  does not fit (the script's fallback, counted into ``fallbacks``);
+  block walks a run of one query's winners and reads each distinct row
+  once, through a ring of ``window`` row slots in shared memory;
+  ``fallbacks`` gains the number of tiles of 8 whose span does not fit
+  the script's window (``window_fallback_tiles``), a property of the ids;
 * ``super_row_gather_resident`` (E7): one block per query holds the whole
   (H, 128) table in shared memory; an H above the card's opt-in limit
   raises ``ValueError``.
@@ -154,11 +155,12 @@ def super_row_gather_window(x3: torch.Tensor, rowof: torch.Tensor,
                             window: int = 32,
                             fallbacks: torch.Tensor | None = None
                             ) -> torch.Tensor:
-    """E6: the gather for winners sorted within each query, through an
-    8-aligned window of ``window`` rows per tile of 8.  Requires R >=
-    window, window % 8 == 0 and KP % 8 == 0, or raises ``ValueError``.
-    ``fallbacks`` (a (1,) int32 tensor on x3's device) gains the number of
-    tiles served by direct loads."""
+    """E6: the gather for winners sorted within each query, through a ring
+    of ``window`` row slots (any order of ids gives the gather; sorted ids
+    read each distinct row once per run).  Requires R >= window, window %
+    8 == 0 and KP % 8 == 0, or raises ``ValueError``.  ``fallbacks`` (a
+    (1,) int32 tensor on x3's device) gains ``window_fallback_tiles(rowof,
+    R, window)``, the tiles of 8 whose span does not fit the window."""
     _check_window(x3, rowof, window)
     if fallbacks is not None and (fallbacks.device != x3.device or
                                   fallbacks.dtype != torch.int32 or

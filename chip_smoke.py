@@ -11,8 +11,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    nvcc per source, all started together;
 3. kernels vs their plain PyTorch twins on the card, at small edge-case
    shapes: B1/B2 (pad rows, pad/OOV ids, ragged Q, a bucket wider than 512
-   slots, with and without the hot tier and per-token weights: the
-   ELL-only base bit-equal, hot results within 2e-5 * max(1, |row max|));
+   slots, with and without the hot tier and per-token weights, Q = 8 with
+   H off the hot kernel's K step, two query blocks on a ragged doc tile:
+   the ELL-only base bit-equal, hot results within 2e-5 * max(1, |row
+   max|));
    B3 (empty grids, ragged D, bf16, weights, duplicate ids: bit-equal);
    B4 (heavy ties, -inf rows, k = N, ragged rows, rows split over
    blocks, k beyond the shared-memory sort, the side buffer on and off,
@@ -26,7 +28,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    B1/B2's launch counts taken over this phase alone; one batch through
    ``create_engine(mode="auto", score_dtype="bfloat16")``, which must
    return the f32 batch's docs and its scores rounded to bf16; then each
-   kernel against its twin at the main path's own shapes, both timed;
+   kernel against its twin at the main path's own shapes, both timed (B1
+   per bucket as its scan and its hot epilogue, and again on a chunk of 8
+   queries, the small-batch path);
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -64,8 +68,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    and 4096^3 (``torch.profiler``);
 9. selection gather (E5-E7): the three ``super_row_gather`` kernels
    against their twin (bit-equal) at edge cases (rows 0 and R - 1, the
-   window clamped to R - W, duplicates, a span wider than the window so
-   the fallback tile runs and is counted, KP off a multiple of 32, H = 8
+   window clamped to R - W, duplicates, unsorted ids, a span wider than
+   the window, counted as a fallback tile, KP off a multiple of 32, H = 8
    resident, and R < W and an H above the shared-memory limit, which must
    raise); then ``gather_bench``'s three experiments at the scripts' shapes
    (inputs from ``default_rng(0)``), with the kernels' launch counts over
@@ -294,6 +298,8 @@ def phase_kernel_cases(torch, ops, split_bf16, dev) -> None:
         (37, 8, 1024, 24, 300, 0, 7, True),
         (37, 8, 1024, 24, 300, 40, 7, True),  # split hot counts
         (9, 3, 512, 1208, 4000, 8, 5, True),
+        (8, 8, 1024, 24, 300, 100, 7, False),  # Q = 8, H off the K step
+        (200, 8, 1000, 16, 300, 130, 3, True),  # two query blocks, ragged
     ]
     for q, t, rows, l_pad, vocab, h, pad_rows, weighted in cases:
         ids, tokT, valT, did, hc, dense, w = random_case(
@@ -551,6 +557,7 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     from bm25_tpu_torch.models.sparse import (hot_counts_for,
                                               hot_ell_for_rows,
                                               split_hot_cold_csr)
+    hot_plan = ops.hot_plan
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     t0 = time.perf_counter()
@@ -626,11 +633,12 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     chunk = engine.plan_chunks(queries)[0][1]
     ids = session.put(chunk)
     hc, _ = hot_counts_for(ids, engine.hot_table, engine.hot_h)
+    plan = hot_plan(hc)  # once per chunk, as the query step makes it
+    used = int(plan.n_used.item())
     b1_err = b1_ms = b1_plain_ms = 0.0
     # B1's bound per batch: every ELL input, the hot rows some query uses
-    # (the kernel skips the others), the outputs; one FMA per matching cold
+    # (the plan lists them), the outputs; one FMA per matching cold
     # posting (f32) and two bf16 products per used (query, hot token, row)
-    hot_used = int((hc != 0).any(dim=0).sum())
     hot_pairs = int((hc != 0).sum())
     cold = chunk[(chunk >= 0)]
     cold = cold[session.get(engine.hot_table)[cold] < 0]
@@ -639,7 +647,7 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     for i, b in enumerate(engine.buckets):
         rows = b["doc_ids"].shape[0]
         b1_bytes += (nbytes(ids, b["tokT"], b["valT"], b["doc_ids"], hc)
-                     + 2 * hot_used * rows * 2 + chunk.shape[0] * rows * 4
+                     + 2 * used * rows * 2 + chunk.shape[0] * rows * 4
                      + chunk.shape[0] * (rows // 8) * 4)
         b1_ops += 2 * 2 * hot_pairs * rows
         args = (ids, b["tokT"], b["valT"], b["doc_ids"], hc, b["hotT"],
@@ -651,15 +659,33 @@ def sparse_main(torch, dev, cfg, ops, session, record):
             compare(torch, x, y, False, f"B1 {n}, bucket {i}")
             for n, x, y in zip(("base", "gmax"), ops.ell_score_fused(*args),
                                ops.ell_score_fused_plain(*args))])
-        ms = cuda_ms(torch, lambda: ops.ell_score_fused(*args), 10)
+        ms = cuda_ms(torch, lambda: ops.ell_score_fused(*args, plan=plan),
+                     10)
         ell_ms = cuda_ms(torch, lambda: ops.ell_score_fused(*args[:4]), 10)
         plain_ms = cuda_ms(torch, lambda: ops.ell_score_fused_plain(*args), 2)
         log(f"[kernels] B1 at ids {tuple(ids.shape)} x bucket {i} "
-            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h}: kernel "
-            f"{ms:.3f} ms ({ell_ms:.3f} ms without the hot tier), plain "
-            f"{plain_ms:.3f} ms")
+            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h} ({used} used): "
+            f"kernel {ms:.3f} ms = scan {ell_ms:.3f} + hot epilogue "
+            f"{ms - ell_ms:.3f} ms; plain {plain_ms:.3f} ms")
         b1_ms += ms
         b1_plain_ms += plain_ms
+        # the small-batch path: a chunk of 8 queries (16 a hot block)
+        a8 = (ids[:8].contiguous(), *args[1:4], hc[:8].contiguous(),
+              *args[5:])
+        compare(torch, ops.ell_score_fused(*a8[:4])[0],
+                ops.ell_score_fused_plain(*a8[:4])[0], True,
+                f"B1 ELL-only base, 8 queries, bucket {i}")
+        for n, x, y in zip(("base", "gmax"), ops.ell_score_fused(*a8),
+                           ops.ell_score_fused_plain(*a8)):
+            compare(torch, x, y, False, f"B1 {n}, 8 queries, bucket {i}")
+        plan8 = hot_plan(a8[4])
+        ms8 = cuda_ms(torch, lambda: ops.ell_score_fused(*a8, plan=plan8),
+                      50)
+        ell8 = cuda_ms(torch, lambda: ops.ell_score_fused(*a8[:4]), 50)
+        log(f"[kernels] B1 at 8 queries x bucket {i} "
+            f"({int(plan8.n_used.item())} hot tokens used): kernel "
+            f"{ms8:.4f} ms = scan {ell8:.4f} + hot epilogue "
+            f"{ms8 - ell8:.4f} ms; the 8-query chunk matches the twin")
     b0 = engine.buckets[0]
     hot_ids, _, hot_csr = split_hot_cold_csr(index, engine.hot_h)
     htok, hval = hot_ell_for_rows(hot_csr, session.get(b0["doc_ids"]))

@@ -100,6 +100,75 @@ def test_cuda_kernels_match_plain_twins(cuda_device, name):
         assert port.launches["ell_score"] == launched["ell_score"] + 1
 
 
+# B1's hot epilogue (wgmma over the tokens hot_plan lists): q, t, rows,
+# l_pad, h, pad_rows, weighted, which queries count hot tokens
+HOT_CASES = {
+    "q8_h_off_the_k_step": (8, 8, 1024, 24, 100, 9, False, "random"),
+    "q24": (24, 8, 1024, 24, 70, 9, False, "random"),
+    "two_query_blocks_every_token": (200, 8, 1024, 16, 130, 0, False,
+                                     "every"),
+    "queries_with_no_hot_token": (37, 8, 512, 16, 64, 5, False, "half"),
+    "no_hot_token_at_all": (20, 8, 512, 16, 64, 5, False, "none"),
+    "split_weighted": (40, 8, 1024, 24, 100, 9, True, "random"),
+    "hot_only_q8": (8, 8, 1024, 0, 64, 100, False, "random"),
+    "ragged_doc_tile": (130, 8, 1000, 24, 40, 3, True, "random"),
+    # one accumulator takes the base and every pass: 64 weighted hot
+    # tokens a query, split counts, on a block of 256 queries
+    "many_hot_tokens_a_query": (300, 64, 512, 16, 256, 3, True, "random"),
+}
+
+
+def within_row_scale(got, want):
+    """-inf where the twin has it; elsewhere within 2e-5 x the row's
+    largest |value| (at least 1)."""
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert torch.equal(got[~fin], want[~fin])
+    diff = torch.where(fin, (got - want).abs(), torch.zeros_like(got))
+    scale = torch.where(fin, want.abs(), torch.zeros_like(want))
+    scale = scale.amax(dim=-1, keepdim=True).clamp_min(1.0)
+    assert bool((diff <= 2e-5 * scale).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(HOT_CASES))
+def test_cuda_hot_epilogue_within_bound(cuda_device, name):
+    q, t, rows, l_pad, h, pad_rows, weighted, which = HOT_CASES[name]
+    args, kw = make_case(5, q, t, rows, l_pad, 300, h, pad_rows, weighted,
+                         cuda_device)
+    hc = args[4].float()
+    if which == "every":
+        tok = torch.arange(h, device=cuda_device)
+        hc[:] = 0
+        hc[tok % q, tok] = 2.0
+    elif which == "half":
+        hc[::2] = 0
+    elif which == "none":
+        hc[:] = 0
+    args[4] = hc.bfloat16()
+    if "hot_counts_lo" in kw and which == "none":
+        kw["hot_counts_lo"] = torch.zeros_like(kw["hot_counts_lo"])
+    plan = port.hot_plan(args[4], kw.get("hot_counts_lo"))
+    used = (hc != 0).any(0)
+    if "hot_counts_lo" in kw:
+        used |= (kw["hot_counts_lo"] != 0).any(0)
+    assert int(plan.n_used.item()) == int(used.sum())
+    launched = dict(port.launches)
+    base_k, gmax_k = port.ell_score_fused(*args, **kw, plan=plan)
+    torch.cuda.synchronize()
+    assert port.launches["ell_score_hot"] == launched["ell_score_hot"] + 1
+    base_p, gmax_p = port.ell_score_fused_plain(*args, **kw)
+    within_row_scale(base_k, base_p)
+    within_row_scale(gmax_k, gmax_p)
+    # the plan made inside the wrapper gives the same bits
+    again, _ = port.ell_score_fused(*args, **kw)
+    assert torch.equal(again, base_k)
+    # the ELL-only base stays bit-equal
+    no_hot = {k: v for k, v in kw.items() if k == "weights"}
+    assert torch.equal(port.ell_score_fused(*args[:4], **no_hot)[0],
+                       port.ell_score_fused_plain(*args[:4], **no_hot)[0])
+
+
 @pytest.mark.cuda
 def test_cuda_launch_errors_raise(cuda_device):
     ids = torch.zeros((4, 3), dtype=torch.int64, device=cuda_device)
@@ -641,9 +710,34 @@ def test_cuda_super_row_gather_window_bit_equal(cuda_device, q, r, kp,
     assert torch.equal(got, srg.super_row_gather_plain(x3, rowof))
     want = int(srg.window_fallback_tiles(rowof, r, window))
     assert int(fb.item()) == want and (want > 0 or r == window)
-    unsorted = rowof.flip(1).contiguous()  # out-of-window rows load directly
+    unsorted = rowof.flip(1).contiguous()  # every id gives the gather
     assert torch.equal(srg.super_row_gather_window(x3, unsorted, window),
                        srg.super_row_gather_plain(x3, unsorted))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [32, 48])
+@pytest.mark.parametrize("ids", ["same", "distinct", "unsorted", "runs"])
+def test_cuda_super_row_gather_window_ring(cuda_device, ids, window):
+    """The ring at its edges: KP = 264 and 8 (off a multiple of the block's
+    run of 256 slots), one row for every slot, a new row at every slot
+    (more than the ring holds), unsorted ids, runs of repeats."""
+    r = 600
+    for kp in (264, 8):
+        x3, rowof = super_row_case(3, r, kp, kp, cuda_device)
+        if ids == "same":
+            rowof[:] = r - 1
+        elif ids == "distinct":
+            rowof = torch.arange(kp, device=cuda_device).repeat(3, 1)
+        elif ids == "runs":
+            rowof = (rowof.sort(dim=1).values // 7 * 7).contiguous()
+        rowof = rowof.int().contiguous()
+        fb = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        got = srg.super_row_gather_window(x3, rowof, window, fallbacks=fb)
+        torch.cuda.synchronize()
+        assert torch.equal(got, srg.super_row_gather_plain(x3, rowof))
+        assert int(fb.item()) == int(srg.window_fallback_tiles(rowof, r,
+                                                               window))
 
 
 @pytest.mark.cuda

@@ -143,3 +143,64 @@ def test_wrapper_refuses_other_devices():
     val = torch.zeros((8, 512), dtype=torch.float32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         port.ell_score(ids, tok, val)
+
+
+@pytest.mark.parametrize("name", ["hot", "pad_rows_oov_ragged_q_hot",
+                                  "weighted_hot_split_counts"])
+def test_hot_plan_products_match_jax(name):
+    """hot_plan (B1's hot kernel runs over the tokens it lists) lists the
+    used hot tokens first, ascending, and the counts' columns in that order
+    with zeros after; its products over the first n_used tokens, added to
+    the ELL-only base in the kernel's order, match the JAX kernel."""
+    ids, tokT, valT, did, hot, extra = make_case(4, *CASES[name])
+    hc, hi, lo = (to_torch(x) for x in hot)
+    hc_lo = to_torch(extra["hot_counts_lo"]) if "hot_counts_lo" in extra \
+        else None
+    hc[0] = 0  # a query with no hot token
+    plan = port.hot_plan(hc, hc_lo)
+    q, h = hc.shape
+    used = (hc != 0).any(0) if hc_lo is None else \
+        (hc != 0).any(0) | (hc_lo != 0).any(0)
+    n = int(plan.n_used)
+    assert n == int(used.sum())
+    assert plan.counts.shape == (q, -(-h // port.HOT_BK) * port.HOT_BK)
+    assert torch.equal(plan.tokens[:n].long(), torch.nonzero(used)[:, 0])
+    assert sorted(plan.tokens.tolist()) == list(range(h))
+    for c, want in ((plan.counts, hc), (plan.counts_lo, hc_lo)):
+        if want is None:
+            assert c is None
+            continue
+        assert torch.equal(c[:, :n], want[:, plan.tokens[:n].long()])
+        assert not c[:, n:].any()
+    rows_used = plan.tokens[:n].long()
+    weights = {k: to_torch(v) for k, v in extra.items() if k == "weights"}
+    base = port.ell_score_fused_plain(to_torch(ids), to_torch(tokT),
+                                      to_torch(valT), to_torch(did),
+                                      **weights)[0]
+    hi_u, lo_u = hi[rows_used].float(), lo[rows_used].float()
+    got = base + plan.counts[:, :n].float() @ hi_u
+    got = got + plan.counts[:, :n].float() @ lo_u
+    if hc_lo is not None:
+        got = got + plan.counts_lo[:, :n].float() @ hi_u
+    got = torch.where(to_torch(did)[None, :] >= 0, got, port.NEG_INF)
+    jax_kw = {k: jnp.asarray(v) for k, v in extra.items()}
+    if "hot_counts_lo" in jax_kw:
+        jax_kw["hot_counts_lo"] = jnp.asarray(
+            hc_lo.float().numpy()).astype(jnp.bfloat16)
+    base_j, _ = jax_ell.ell_score_fused(
+        jnp.asarray(ids), jnp.asarray(tokT), jnp.asarray(valT),
+        jnp.asarray(did), jnp.asarray(hc.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(hot[1]), jnp.asarray(hot[2]), interpret=True, **jax_kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(base_j), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_e6_b1_times_needs_a_card(capsys):
+    # the timing script measures only on a CUDA device; elsewhere it exits
+    # 2 and prints no result
+    from bm25_tpu_torch.bench import e6_b1_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert e6_b1_times.main([]) == 2
+    assert capsys.readouterr().out == ""
