@@ -9,18 +9,48 @@
 //
 // With per-token weights each match adds w[q, t] instead of 1.
 //
-// Design.  The layout is slot-major (tokT/valT are (L, rows)), so one
-// thread owns one doc row and neighbouring threads read neighbouring
-// addresses of every slot: each slot row is one coalesced load.  A block
-// is ROWS_PER_BLOCK rows x QT queries; the query tile's ids (and weights)
-// sit in shared memory and every compare reads them as a broadcast.  The
-// TPU grid walks query tiles and slot tiles in order with the accumulator
-// in VMEM; here the slot loop runs inside the thread and the accumulators
-// are registers.
+// Design of the scan.  The TPU kernel compares every slot's token with
+// all Q x T query ids (a VPU sweep, ~Q T L rows compares); here a slot
+// costs one lookup, and only a match does arithmetic:
+//   - The tables (ell_table_kernel, once per (Q, T) batch of ids, on the
+//     device, no host sync; the sparse step makes them once a chunk for
+//     every bucket): a tile of qp queries gets a table of its distinct
+//     ids, each leading to its (query, c) pairs in query order (c: the
+//     id's count in the query, or with weights the t-ordered sum of its
+//     weights), hashed into buckets of 4 keys at a load of at most a
+//     quarter, with a filter of 8 bits a key slot.  ops/ell_score.py::
+//     table_pairs defines what they hold; qp = 128 queries (fewer as T
+//     grows: tables and accumulators fit two blocks an SM).
+//   - The layout is slot-major (tokT/valT are (L, rows)), so one thread
+//     owns one doc row and a warp reads each slot row as one coalesced
+//     load.  A block of 128 threads is 128 / ROWS groups of ROWS rows, a
+//     group against one table; the tables are copied into shared memory
+//     once, and the block walks doc tiles y, y + gridDim.y, ... (as many
+//     blocks as the SMs hold; the query blocks of a doc tile are grid
+//     neighbours, so its tokens come from L2 after the first).
+//   - A thread loads B slots' tokens at once, checks each token's filter
+//     bit (one 4-byte shared load; most misses end there), probes the
+//     buckets of those that pass (one 16-byte load reads 4 keys; a probe
+//     ends at the key or at a bucket with a free slot), loads valT only
+//     for hits, then adds c x value with one __fmaf_rn a pair into the
+//     (query, row) accumulator in shared memory, laid out [query][row] so
+//     that a warp's lanes fall in different banks.  The next B slots'
+//     tokens are loaded before this batch's hits are added, and a doc
+//     tile's first batch before the write-out of the one before.
+//   - The write-out: where a doc tile is one slot tile and rows % 4 == 0,
+//     the unmasked scan (B2, and B1's first launch where a hot tier
+//     follows) stores the block's (queries x ROWS) box with one TMA store,
+//     which lets the block go on to its next doc tile while the box
+//     drains (3-8% faster than the threads' stores on an H100, PERF.md);
+//     otherwise the threads store 16-byte units (512 contiguous bytes a
+//     query and warp), adding a later slot tile's sums to the earlier
+//     ones' (base + part), and FUSED masks pad rows and writes the maxima
+//     of each 8 rows on the way.
 //
 // Exactness.  The f32 order is the Pallas kernel's: per slot, reduce the
 // matches over T (an integer count, or the sum of the matching weights in
-// t order), then add count * value to the accumulator with one rounding
+// t order: the table's c, computed once), then add c * value to the
+// accumulator of each matching query with one rounding
 // (a fused multiply-add, which is what the JAX kernel compiles to), slots
 // ascending from +0; a bucket wider than SLOT_TILE adds the partial sums
 // of _slot_tiling's balanced tiles in order.  __fmaf_rn/__fadd_rn pin each
@@ -80,12 +110,18 @@
 //     took a second accumulator and so one block an SM, and ran slower
 //     on an H100, as did blocks of 256 queries (they spilled).
 //
-// What bounds it on an H100: the scan is integer compare/add work, ~Q*T*
-// slots operations (~1.2e11 at the 524,288-doc headline shape), read from
-// shared memory as broadcasts.  The hot epilogue moves the base in and
-// out (2 Q rows 4 bytes) and the used hot rows (2 bytes each, twice);
-// its dense products (~2 Q n_used rows 2 FLOP) sit well under the bf16
-// peak.  The scan is not yet redesigned.
+// What bounds it on an H100.  The scan must read the slots' tokens once
+// and the values of the slots that match, and write the (Q, rows) base
+// once, Q rows x 4 bytes; its arithmetic (one FMA a matching (query,
+// posting) pair) is negligible.  It stays above that bound by the
+// lookups: with every slot looked up once per table, a bucket of L slots
+// costs L x rows x Q / qp lookups, and those, not the writes, take most
+// of its time (PERF.md).  What B1 must move beyond the scan is the used
+// hot rows (2 bytes each, hi and lo), the counts, doc_ids and the
+// maxima; its dense products (~2 Q n_used rows 2 FLOP) sit well under
+// the bf16 peak.  The hot kernel also reads and rewrites the base (2 Q
+// rows 4 bytes), the price of two launches, and re-reads the used hot
+// rows once per query block: those, not B1's own work, set its time.
 //
 // Offsets are int64: q*rows and h*rows pass 2^31 at larger corpora.
 
@@ -94,140 +130,560 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "matmul_ring.cuh"  // mbarriers, TMA, cp.async.bulk, allow_smem
 #include "wgmma.cuh"        // wgmma descriptors and fences, swizzled maps
 
 namespace {
 
-constexpr int ROWS_PER_BLOCK = 128;  // one thread per doc row
-constexpr int QT = 16;               // queries per block
-constexpr int GROUP = 8;             // rows per group maximum
+constexpr int GROUP = 8;  // rows per group maximum
 
-struct EllArgs {
-  const int* ids;        // (Q, T)
+// ------------------------------------------------------- the lookup tables --
+
+// A table holds the tokens of `qp` consecutive queries (a tile) and, for
+// each, its (query, c) pairs; as int32 words:
+//   [0]          the number of pairs, then 3 words of padding
+//   [4, 4+cap)   keys: the tile's distinct token ids by open addressing
+//                in buckets of 4 (a key lies in the first bucket from its
+//                table_hash bucket on that had a free slot), EMPTY where
+//                unused
+//   [.., +cap)   meta: start | count << 16 of the token's run of pairs
+//   [.., +cap/4) filter: 8 cap bits, bit filter_hash(key) set for each key
+//   [.., +2n)    pairs (query in the tile, c as f32 bits), n = qp * T slots
+// c is the token's count in the query (an exact integer), or with weights
+// the sum of its weights in t order (the first as it is, then __fadd_rn).
+// Tiles are table_words apart, a multiple of 4 words (16 bytes).
+constexpr int TABLE_HEAD = 4;
+constexpr int EMPTY = -1;
+constexpr int TABLE_THREADS = 256;
+constexpr int TABLE_SCRATCH = 16;  // words before the kernel's keys
+constexpr int MAX_TABLE_ENTRIES = 4096;  // qp * T; keys and pairs fit 16 bits
+
+__host__ __device__ inline int64_t table_words(int cap_log2, int n) {
+  const int64_t cap = (int64_t)1 << cap_log2;
+  return TABLE_HEAD + 2 * cap + cap / 4 + 2 * (int64_t)(n + (n & 1));
+}
+
+constexpr int BUCKET = 4;  // keys a bucket: one 16-byte shared load
+
+// the first bucket a token's key may lie in (cap_log2 >= 4)
+__device__ __forceinline__ uint32_t table_hash(int tok, int cap_log2) {
+  return ((uint32_t)tok * 0x9E3779B1u) >> (32 - (cap_log2 - 2));
+}
+
+// the token's bit of the filter (8 cap bits)
+__device__ __forceinline__ uint32_t filter_hash(int tok, int cap_log2) {
+  return ((uint32_t)tok * 0x85EBCA6Bu) >> (32 - (cap_log2 + 3));
+}
+
+struct TableArgs {
+  const int* ids;        // (Q, T); < 0: pad or OOV, never a key
   const float* weights;  // (Q, T) or null
-  int q_count, t_count;
-  const int* tokT;       // (L, rows)
-  const float* valT;     // (L, rows)
+  int q_count, t_count, qp, cap_log2;
+  int* table;  // (ceil(Q / qp), table_words)
+};
+
+// One block builds one tile's table in shared memory: insert the ids
+// (atomicCAS), sort the entries by (slot, entry) so that each slot's
+// entries lie in query then t order, count the pair starts (one a distinct
+// (slot, query)) with a block scan, then write the pairs, the runs and the
+// keys.  Which slot a colliding key takes depends on the race; the
+// contents (key -> pairs) do not.
+__global__ void __launch_bounds__(TABLE_THREADS) ell_table_kernel(
+    const TableArgs a) {
+  extern __shared__ __align__(16) int t_smem[];
+  const int cap = 1 << a.cap_log2, t = a.t_count, n = a.qp * t;
+  int npow = 1;
+  while (npow < n) npow <<= 1;
+  int* s_warp = t_smem;  // [TABLE_THREADS / 32], then the valid entries
+  int& s_valid = t_smem[TABLE_THREADS / 32];
+  int* s_keys = t_smem + TABLE_SCRATCH;                   // [cap]
+  int* s_meta = s_keys + cap;                             // [cap]
+  uint32_t* s_filter = reinterpret_cast<uint32_t*>(s_meta + cap);  // [cap/4]
+  uint32_t* s_sort = s_filter + cap / 4;                  // [npow]
+  int* s_idx = reinterpret_cast<int*>(s_sort + npow);    // [npow]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int64_t e0 = (int64_t)blockIdx.x * n;  // the tile's first entry
+  const int q_in = min(a.qp, a.q_count - (int)blockIdx.x * a.qp);
+  int* out = a.table + (int64_t)blockIdx.x * table_words(a.cap_log2, n);
+  int2* out_pairs =
+      reinterpret_cast<int2*>(out + TABLE_HEAD + 2 * cap + cap / 4);
+
+  for (int i = tid; i < cap; i += TABLE_THREADS) s_keys[i] = EMPTY;
+  for (int i = tid; i < cap / 4; i += TABLE_THREADS) s_filter[i] = 0;
+  if (tid == 0) s_valid = 0;
+  __syncthreads();
+  int valid = 0;
+  for (int i = tid; i < npow; i += TABLE_THREADS) {
+    uint32_t key = 0xFFFFFFFFu;  // sorts last
+    const int id = i < q_in * t ? __ldg(a.ids + e0 + i) : -1;
+    if (id >= 0) {
+      uint32_t h = table_hash(id, a.cap_log2) * BUCKET;
+      for (;;) {  // the bucket's slots in order, then the next bucket's
+        const int prev = atomicCAS(&s_keys[h], EMPTY, id);
+        if (prev == EMPTY || prev == id) break;
+        h = (h + 1) & (cap - 1);
+      }
+      key = h << 16 | (uint32_t)i;
+      ++valid;
+      const uint32_t f = filter_hash(id, a.cap_log2);
+      atomicOr(&s_filter[f >> 5], 1u << (f & 31));
+    }
+    s_sort[i] = key;
+  }
+  if (valid) atomicAdd(&s_valid, valid);
+  __syncthreads();
+  for (int k = 2; k <= npow; k <<= 1) {  // bitonic sort, ascending
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < npow; i += TABLE_THREADS) {
+        const int l = i ^ j;
+        if (l > i) {
+          const uint32_t x = s_sort[i], y = s_sort[l];
+          if ((x > y) == ((i & k) == 0)) {
+            s_sort[i] = y;
+            s_sort[l] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const int nv = s_valid;
+  // entry p starts a pair where its slot or its query differs from p - 1's
+  auto pair_start = [&](int p) -> int {
+    if (p >= nv) return 0;
+    if (p == 0) return 1;
+    const uint32_t x = s_sort[p], y = s_sort[p - 1];
+    return (x >> 16) != (y >> 16) ||
+           (int)(x & 0xFFFF) / t != (int)(y & 0xFFFF) / t;
+  };
+  // exclusive scan of the pair starts: each thread a run of chunk entries
+  const int chunk = (npow + TABLE_THREADS - 1) / TABLE_THREADS;
+  const int p0 = tid * chunk;
+  int local = 0;
+  for (int c = 0; c < chunk; ++c) local += pair_start(p0 + c);
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < TABLE_THREADS / 32 ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane < TABLE_THREADS / 32) s_warp[lane] = v;
+  }
+  __syncthreads();
+  int run = (warp ? s_warp[warp - 1] : 0) + incl - local;
+  for (int c = 0; c < chunk && p0 + c < npow; ++c) {
+    s_idx[p0 + c] = run;
+    run += pair_start(p0 + c);
+  }
+  const int n_pairs = s_warp[TABLE_THREADS / 32 - 1];
+  __syncthreads();
+  // the pairs, and each token's first pair
+  for (int p = tid; p < nv; p += TABLE_THREADS) {
+    const uint32_t x = s_sort[p];
+    const int slot = x >> 16, i = x & 0xFFFF, q = i / t;
+    if (p == 0 || (s_sort[p - 1] >> 16) != (uint32_t)slot) s_meta[slot] = s_idx[p];
+    if (!pair_start(p)) continue;
+    float c = a.weights ? __ldg(a.weights + e0 + i) : 1.0f;
+    int cnt = 1;
+    for (int r = p + 1; r < nv; ++r) {
+      const uint32_t y = s_sort[r];
+      if ((y >> 16) != (uint32_t)slot || (int)(y & 0xFFFF) / t != q) break;
+      if (a.weights) c = __fadd_rn(c, __ldg(a.weights + e0 + (y & 0xFFFF)));
+      ++cnt;
+    }
+    if (!a.weights) c = (float)cnt;
+    out_pairs[s_idx[p]] = make_int2(q, __float_as_int(c));
+  }
+  __syncthreads();
+  // each token's run ends at its last entry's pair
+  for (int p = tid; p < nv; p += TABLE_THREADS) {
+    const int slot = s_sort[p] >> 16;
+    if (p + 1 < nv && (int)(s_sort[p + 1] >> 16) == slot) continue;
+    const int start = s_meta[slot];
+    s_meta[slot] = start | (s_idx[p] + pair_start(p) - start) << 16;
+  }
+  __syncthreads();
+  if (tid == 0) out[0] = n_pairs;
+  if (tid > 0 && tid < TABLE_HEAD) out[tid] = 0;
+  for (int i = tid; i < cap; i += TABLE_THREADS) {
+    const int key = s_keys[i];
+    out[TABLE_HEAD + i] = key;
+    out[TABLE_HEAD + cap + i] = key == EMPTY ? 0 : s_meta[i];
+  }
+  for (int i = tid; i < cap / 4; i += TABLE_THREADS)
+    out[TABLE_HEAD + 2 * cap + i] = s_filter[i];
+}
+
+int launch_table(const TableArgs& a, cudaStream_t stream) {
+  const int n = a.qp * a.t_count;
+  if (a.qp <= 0 || a.t_count <= 0 || n > MAX_TABLE_ENTRIES ||
+      a.cap_log2 < 4 || a.cap_log2 > 16 || (1 << a.cap_log2) < 2 * n)
+    return (int)cudaErrorInvalidValue;
+  int npow = 1;
+  while (npow < n) npow <<= 1;
+  const size_t cap = (size_t)1 << a.cap_log2;
+  const size_t smem =
+      (TABLE_SCRATCH + 2 * cap + cap / 4 + 2 * (size_t)npow) * sizeof(int);
+  if (int err = allow_smem(ell_table_kernel, smem)) return err;
+  const int tiles = (a.q_count + a.qp - 1) / a.qp;
+  ell_table_kernel<<<tiles, TABLE_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- the scan --
+
+constexpr int SCAN_THREADS = 128;
+
+struct ScanArgs {
+  const int* table;  // (tiles, words) from ell_table_kernel
+  int tiles, qp, cap_log2, q_count, t_count;
+  const int* tokT;    // (L, rows)
+  const float* valT;  // (L, rows)
   int l_pad, rows, l_tile;
   const int* doc_ids;  // (rows,); FUSED only
   float* out;          // (Q, rows)
   float* gmax;         // (Q, rows / GROUP); FUSED only
+  int tma_out;         // set by the launch: out goes by TMA stores
 };
 
-// The scan.  FUSED: then the pad-row mask and the group maxima (B1 with no
-// hot tier); else the ELL-only base as it is (B2, and B1's first launch
-// where a hot tier follows).
-template <bool FUSED, bool WEIGHTED>
-__global__ void __launch_bounds__(ROWS_PER_BLOCK) ell_kernel(const EllArgs a) {
-  // [QT][t_count] ids, then [QT][t_count] weights when WEIGHTED
-  extern __shared__ int s_dyn[];
-  int* s_ids = s_dyn;
-  float* s_w = reinterpret_cast<float*>(s_dyn + QT * a.t_count);
+// B slots of a thread's row: their tokens (-1 past the range or the
+// rows), what the lookups found (0: a miss, else the token's run of
+// pairs: start | count << 16; a key's run is never empty) and the hits'
+// values.
+template <int B>
+struct Batch {
+  int tok[B], hit[B];
+  float val[B];
+};
 
-  const int rows = a.rows, t_count = a.t_count;
-  const int row = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x;
-  const int q0 = blockIdx.y * QT;
-  const bool live = row < rows;
+template <int B>
+__device__ __forceinline__ void load_tokens(Batch<B>& b, const ScanArgs& a,
+                                            int row, int l, int l1) {
+#pragma unroll
+  for (int j = 0; j < B; ++j)
+    b.tok[j] = row < a.rows && l + j < l1
+                   ? __ldg(a.tokT + (int64_t)(l + j) * a.rows + row) : -1;
+}
 
-  // query pads/OOV (< 0) become -2 so they never match a pad slot (-1);
-  // rows of the tile past q_count are all pads
-  for (int i = threadIdx.x; i < QT * t_count; i += blockDim.x) {
-    const int q = q0 + i / t_count;
-    int v = -2;
-    float w = 0.0f;
-    if (q < a.q_count) {
-      const int64_t off = (int64_t)q * t_count + (i % t_count);
-      v = a.ids[off];
-      if (v < 0) v = -2;
-      if constexpr (WEIGHTED) w = a.weights[off];
-    }
-    s_ids[i] = v;
-    if constexpr (WEIGHTED) s_w[i] = w;
+// each token looked up, then the hits' values loaded.  The filter's bit
+// (one 4-byte shared load, all B at once) rules out most misses; past it
+// a probe reads a bucket's 4 keys at once, and a lookup ends at its key
+// or at a bucket with a free slot.  The probes go round by round over the
+// B slots: a round's loads are independent, and a warp waits once a round.
+template <int B>
+__device__ __forceinline__ void look_up(Batch<B>& b, const ScanArgs& a,
+                                        const int* keys, const int* meta,
+                                        const uint32_t* filter, int row,
+                                        int l) {
+  const uint32_t mask = (1u << (a.cap_log2 - 2)) - 1;
+  const int4* buckets = reinterpret_cast<const int4*>(keys);
+  uint32_t h[B], bits[B];
+  int at[B];  // the slot of a found key, else -1
+  uint32_t probing = 0;  // bit j: slot j probes on
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    h[j] = filter_hash(b.tok[j], a.cap_log2);
+    bits[j] = b.tok[j] >= 0 ? filter[h[j] >> 5] : 0;
   }
-  __syncthreads();
-
-  float base[QT];
 #pragma unroll
-  for (int q = 0; q < QT; ++q) base[q] = 0.0f;
-
-  if (live) {
-    for (int l0 = 0; l0 < a.l_pad; l0 += a.l_tile) {
-      const int l1 = min(l0 + a.l_tile, a.l_pad);
-      float part[QT];
+  for (int j = 0; j < B; ++j) {
+    probing |= (bits[j] >> (h[j] & 31) & 1) << j;
+    h[j] = table_hash(b.tok[j], a.cap_log2);
+    at[j] = -1;
+  }
+  while (probing) {
+    int4 k[B];
 #pragma unroll
-      for (int q = 0; q < QT; ++q) part[q] = 0.0f;
-      for (int l = l0; l < l1; ++l) {
-        const int64_t off = (int64_t)l * rows + row;
-        const int tok = a.tokT[off];
-        if (tok < 0) continue;  // pad slot: nothing matches
-        const float val = a.valT[off];
+    for (int j = 0; j < B; ++j)
+      k[j] = probing >> j & 1 ? buckets[h[j]]
+                              : make_int4(EMPTY, EMPTY, EMPTY, EMPTY);
 #pragma unroll
-        for (int q = 0; q < QT; ++q) {
-          const int* qi = s_ids + q * t_count;
-          if constexpr (WEIGHTED) {
-            const float* qw = s_w + q * t_count;
-            float wsum = 0.0f;
-            bool hit = false;
-            for (int t = 0; t < t_count; ++t) {
-              if (qi[t] == tok) {
-                wsum = hit ? __fadd_rn(wsum, qw[t]) : qw[t];
-                hit = true;
-              }
-            }
-            if (hit) part[q] = __fmaf_rn(wsum, val, part[q]);
-          } else {
-            int cnt = 0;
-            for (int t = 0; t < t_count; ++t) cnt += (qi[t] == tok);
-            if (cnt) part[q] = __fmaf_rn((float)cnt, val, part[q]);
-          }
-        }
-      }
-      if (l0 == 0) {
-#pragma unroll
-        for (int q = 0; q < QT; ++q) base[q] = part[q];
-      } else {
-#pragma unroll
-        for (int q = 0; q < QT; ++q) base[q] = __fadd_rn(base[q], part[q]);
-      }
+    for (int j = 0; j < B; ++j) {
+      if (!(probing >> j & 1)) continue;
+      const int t = b.tok[j];
+      const int i = k[j].x == t ? 0 : k[j].y == t ? 1 : k[j].z == t ? 2
+                                                   : k[j].w == t ? 3 : -1;
+      if (i >= 0) at[j] = BUCKET * h[j] + i;
+      if (i >= 0 || k[j].w == EMPTY)  // a bucket fills in order
+        probing &= ~(1u << j);
+      else
+        h[j] = (h[j] + 1) & mask;
     }
   }
-
-  if constexpr (FUSED) {
-    const bool pad_row = !live || a.doc_ids[row] < 0;
-    const int64_t groups = rows / GROUP;
 #pragma unroll
-    for (int q = 0; q < QT; ++q) {
-      float v = pad_row ? -CUDART_INF_F : base[q];
-      base[q] = v;
-      // maxima of 8 neighbouring rows = 8 neighbouring lanes; every lane
-      // takes part in the shuffles (rows % 8 == 0, so a group is either
-      // all live or all past the end)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-      if (live && (threadIdx.x % GROUP) == 0 && q0 + q < a.q_count)
-        a.gmax[(int64_t)(q0 + q) * groups + row / GROUP] = v;
+  for (int j = 0; j < B; ++j) b.hit[j] = at[j] >= 0 ? meta[at[j]] : 0;
+#pragma unroll
+  for (int j = 0; j < B; ++j)
+    b.val[j] = b.hit[j] ? __ldg(a.valT + (int64_t)(l + j) * a.rows + row)
+                        : 0.0f;
+}
+
+// for each hit, in slot order, one __fmaf_rn per pair into the
+// accumulator of (query, row)
+template <int ROWS, int B>
+__device__ __forceinline__ void add_hits(const Batch<B>& b,
+                                         const int2* pairs, float* acc) {
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    if (!b.hit[j]) continue;
+    const int p1 = (b.hit[j] & 0xFFFF) + (b.hit[j] >> 16);
+    for (int p = b.hit[j] & 0xFFFF; p < p1; ++p) {
+      const int2 pr = pairs[p];
+      float* x = acc + pr.x * ROWS;
+      *x = __fmaf_rn(__int_as_float(pr.y), b.val[j], *x);
     }
-  }
-
-  if (live) {
-#pragma unroll
-    for (int q = 0; q < QT; ++q)
-      if (q0 + q < a.q_count) a.out[(int64_t)(q0 + q) * rows + row] = base[q];
   }
 }
 
-template <bool FUSED, bool WEIGHTED>
-int launch_scan(const EllArgs& a, cudaStream_t stream) {
+// A thread's row over slots [l0, l1), whose first batch's tokens `cur`
+// already holds: batch k + 1's tokens are loaded before batch k's hits
+// are added, so that its loads are in flight while batch k's values
+// arrive.
+template <int ROWS, int B>
+__device__ __forceinline__ void scan_slots(Batch<B>& cur, const ScanArgs& a,
+                                           const int* keys, const int* meta,
+                                           const uint32_t* filter,
+                                           const int2* pairs, float* acc,
+                                           int row, int l0, int l1) {
+  look_up(cur, a, keys, meta, filter, row, l0);
+  for (int l = l0 + B; l < l1; l += B) {
+    Batch<B> nxt;
+    load_tokens(nxt, a, row, l, l1);
+    add_hits<ROWS>(cur, pairs, acc);
+    look_up(nxt, a, keys, meta, filter, row, l);
+    cur = nxt;
+  }
+  add_hits<ROWS>(cur, pairs, acc);
+}
+
+// Make this thread's shared-memory writes visible to TMA
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The accumulators' box to out by TMA (one thread), the smem read awaited
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group.read 0;\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0),
+         "r"(c1)
+      : "memory");
+}
+
+// The block's accumulators (G * qp queries x ROWS rows) to out, zeroing
+// them: a slot tile's sums as they are (first) or added to the sums of the
+// tiles before (base + part); after the last tile, FUSED masks pad rows
+// and writes the maxima of each 8 rows.  Rows % 4 == 0 (always so when
+// FUSED): a thread moves 4 rows as one 16-byte unit, the same 4 rows
+// (unit tid % V) for every query, so a warp stores 512 contiguous bytes a
+// query; else one row at a time.
+template <int ROWS, int G, bool FUSED>
+__device__ __forceinline__ void write_out(const ScanArgs& a, float* acc,
+                                          int dt, int q_base, bool first,
+                                          bool last) {
+  const int rows = a.rows, row_base = dt * ROWS;
+  if (FUSED || rows % 4 == 0) {
+    constexpr int V = ROWS / 4;
+    const int total = G * a.qp * V;
+    const int row = row_base + 4 * (threadIdx.x % V);
+    const bool live = row < rows;
+    int pad = 0;  // bit i: row + i is a pad row
+    if (FUSED && last)
+      for (int i = 0; i < 4; ++i)
+        pad |= (!live || __ldg(a.doc_ids + row + i) < 0) << i;
+    float4* acc4 = reinterpret_cast<float4*>(acc);
+    // the same trip count for every lane (qp may be 1 or 2: the shuffle
+    // below needs the whole warp)
+    for (int f0 = 0; f0 < total; f0 += ROWS * G) {
+      const int f = f0 + threadIdx.x;
+      const int q = q_base + f / V;
+      const bool ok = live && f < total && q < a.q_count;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (f < total) {
+        v = acc4[f];
+        acc4[f] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      float4* dst = reinterpret_cast<float4*>(a.out + (int64_t)q * rows + row);
+      if (ok && !first) {
+        const float4 b = *dst;
+        v = make_float4(__fadd_rn(b.x, v.x), __fadd_rn(b.y, v.y),
+                        __fadd_rn(b.z, v.z), __fadd_rn(b.w, v.w));
+      }
+      if (FUSED && last) {
+        if (pad & 1) v.x = -CUDART_INF_F;
+        if (pad & 2) v.y = -CUDART_INF_F;
+        if (pad & 4) v.z = -CUDART_INF_F;
+        if (pad & 8) v.w = -CUDART_INF_F;
+        // a group of 8 rows is two neighbouring lanes' units
+        float m = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        if (ok && f % 2 == 0)
+          a.gmax[(int64_t)q * (rows / GROUP) + row / GROUP] = m;
+      }
+      if (ok) *dst = v;
+    }
+  } else {
+    const int total = G * a.qp * ROWS;
+    for (int f = threadIdx.x; f < total; f += ROWS * G) {
+      const int q = q_base + f / ROWS, row = row_base + f % ROWS;
+      float v = acc[f];
+      acc[f] = 0.0f;
+      if (q >= a.q_count || row >= rows) continue;
+      float* dst = a.out + (int64_t)q * rows + row;
+      *dst = first ? v : __fadd_rn(*dst, v);
+    }
+  }
+}
+
+// Block (x, y): the G tables x G, .., x G + G - 1 (G * qp queries) over
+// doc tiles y, y + gridDim.y, ... of ROWS rows; thread (g, r) = row r of
+// each doc tile against table g.  The tables are copied into shared memory
+// once; the accumulators live there as [query][row], so a warp's lanes
+// (its rows) fall in different banks whichever queries they add to.
+template <int ROWS, int B, bool FUSED>
+__global__ void __launch_bounds__(SCAN_THREADS) ell_scan_kernel(
+    const __grid_constant__ CUtensorMap out_map, const ScanArgs a) {
+  constexpr int G = SCAN_THREADS / ROWS;
+  extern __shared__ __align__(16) int s_dyn[];
+  const int cap = 1 << a.cap_log2, qp = a.qp;
+  const int64_t words = table_words(a.cap_log2, qp * a.t_count);
+  float* acc = reinterpret_cast<float*>(s_dyn);  // [G * qp][ROWS]
+  int* tabs = s_dyn + G * qp * ROWS;            // G tables, words apart
+  const int tid = threadIdx.x, g = tid / ROWS, r = tid % ROWS;
+
+  for (int gg = 0; gg < G; ++gg) {
+    int* dst = tabs + gg * words;
+    const int tile = blockIdx.x * G + gg;
+    if (tile < a.tiles) {
+      const int* src = a.table + (int64_t)tile * words;
+      const int units =
+          (TABLE_HEAD + 2 * cap + cap / 4 + 2 * __ldg(src) + 3) / 4;
+      for (int i = tid; i < units; i += SCAN_THREADS)
+        reinterpret_cast<int4*>(dst)[i] =
+            __ldg(reinterpret_cast<const int4*>(src) + i);
+    }
+  }
+  for (int i = tid; i < G * qp * ROWS / 4; i += SCAN_THREADS)
+    reinterpret_cast<float4*>(acc)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  __syncthreads();
+
+  const int* keys = tabs + g * words + TABLE_HEAD;
+  const int* meta = keys + cap;
+  const uint32_t* filter = reinterpret_cast<const uint32_t*>(meta + cap);
+  const int2* pairs = reinterpret_cast<const int2*>(filter + cap / 4);
+  float* my_acc = acc + g * qp * ROWS + r;
+  const int q_base = blockIdx.x * G * qp;
+  // a group with no table (past the last query) only writes nothing
+  const int tile = blockIdx.x * G + g;
+  const bool scans = tile < a.tiles;
+  const int doc_tiles = (a.rows + ROWS - 1) / ROWS;
+  // the ranges (doc tile, slot tile) in order, once a doc tile where
+  // l_pad == 0; each range's first tokens are loaded before the write-out
+  // of the range before
+  int dt = blockIdx.y, l0 = 0;
+  Batch<B> cur;
+  if (scans)
+    load_tokens(cur, a, dt * ROWS + r, 0, min(a.l_tile, a.l_pad));
+  while (dt < doc_tiles) {
+    const int l1 = min(l0 + a.l_tile, a.l_pad);
+    if (scans)
+      scan_slots<ROWS, B>(cur, a, keys, meta, filter, pairs, my_acc,
+                          dt * ROWS + r, l0, l1);
+    int next_dt = dt, next_l0 = l1;
+    if (next_l0 >= a.l_pad) {
+      next_dt += gridDim.y;
+      next_l0 = 0;
+    }
+    if (scans && next_dt < doc_tiles)
+      load_tokens(cur, a, next_dt * ROWS + r, next_l0,
+                  min(next_l0 + a.l_tile, a.l_pad));
+    if (!FUSED && a.tma_out) {  // one slot tile: the box goes out by TMA
+      fence_async_shared();
+      __syncthreads();
+      if (tid == 0) tma_store(&out_map, acc, dt * ROWS, q_base);
+      __syncthreads();
+      for (int qq = 0; qq < qp; ++qq) my_acc[qq * ROWS] = 0.0f;
+    } else {
+      __syncthreads();
+      write_out<ROWS, G, FUSED>(a, acc, dt, q_base, l0 == 0, l1 == a.l_pad);
+      __syncthreads();
+    }
+    dt = next_dt;
+    l0 = next_l0;
+  }
+  if (!FUSED && a.tma_out && tid == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+template <int ROWS, int B, bool FUSED>
+int launch_scan_kernel(ScanArgs a, cudaStream_t stream) {
+  constexpr int G = SCAN_THREADS / ROWS;
+  // TMA stores the block's box where a doc tile is one slot tile and out's
+  // rows are whole 16-byte units; else the threads store it
+  CUtensorMap out_map = {};
+  a.tma_out = !FUSED && a.l_pad <= a.l_tile && a.rows % 4 == 0 &&
+              G * a.qp <= 256 &&
+              reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  if (a.tma_out)
+    if (int err = encode_rows<float>(&out_map, a.out, a.q_count, a.rows,
+                                     a.rows, ROWS, G * a.qp))
+      return err;
   const size_t smem =
-      (size_t)QT * a.t_count * (sizeof(int) + (WEIGHTED ? sizeof(float) : 0));
-  auto kernel = ell_kernel<FUSED, WEIGHTED>;
+      ((size_t)G * a.qp * ROWS +
+       G * (size_t)table_words(a.cap_log2, a.qp * a.t_count)) * sizeof(int);
+  auto kernel = ell_scan_kernel<ROWS, B, FUSED>;
   if (int err = allow_smem(kernel, smem)) return err;
-  const dim3 grid((a.rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK,
-                  (a.q_count + QT - 1) / QT);
-  kernel<<<grid, ROWS_PER_BLOCK, smem, stream>>>(a);
+  if (int err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared))
+    return err;
+  // as many blocks as the SMs hold at once: the query blocks of a doc tile
+  // are neighbours in the grid, so its tokens come from L2 after the first
+  int dev = 0, sms = 0, per_sm = 0;
+  if (int err = cudaGetDevice(&dev)) return err;
+  if (int err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev))
+    return err;
+  if (int err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, SCAN_THREADS, smem))
+    return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int qblocks = (a.tiles + G - 1) / G;
+  const int doc_tiles = (a.rows + ROWS - 1) / ROWS;
+  const int64_t want = ((int64_t)sms * per_sm + qblocks - 1) / qblocks;
+  const int y = (int)std::min<int64_t>(std::min<int64_t>(want, doc_tiles),
+                                       65535);
+  kernel<<<dim3(qblocks, std::max(y, 1)), SCAN_THREADS, smem, stream>>>(
+      out_map, a);
   return (int)cudaGetLastError();
+}
+
+// The two builds ops/ell_score.py::scan_build picks by T: rows_tile doc
+// rows a block (the block's 128 threads are 128 / rows_tile groups of one
+// table each), batch slots a thread loads at once
+template <bool FUSED>
+int launch_scan(const ScanArgs& a, int rows_tile, int batch,
+                cudaStream_t s) {
+  if (rows_tile == 128 && batch == 8)  // T > 1
+    return launch_scan_kernel<128, 8, FUSED>(a, s);
+  if (rows_tile == 64 && batch == 16)  // one-token queries (B2's build)
+    return launch_scan_kernel<64, 16, FUSED>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------ B1's hot epilogue --
@@ -493,8 +949,12 @@ int launch_hot(const HotArgs& a, const void* counts, const void* counts_lo,
   return (int)cudaGetLastError();
 }
 
-int check_scan(const EllArgs& a) {
-  if (a.t_count <= 0 || a.l_pad < 0 || (a.l_pad > 0 && a.l_tile <= 0))
+int check_scan(const ScanArgs& a) {
+  const int n = a.qp * a.t_count;
+  if (!a.table || a.qp <= 0 || a.t_count <= 0 || n > MAX_TABLE_ENTRIES ||
+      a.cap_log2 < 4 || a.cap_log2 > 16 || (1 << a.cap_log2) < 2 * n ||
+      a.tiles != (a.q_count + a.qp - 1) / a.qp || a.l_pad < 0 ||
+      (a.l_pad > 0 && a.l_tile <= 0))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -507,25 +967,39 @@ const char* bm25_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// B2: (Q, T) ids x (L, rows) slots -> out (Q, rows) f32.
-int bm25_ell_score(const int* ids, int q_count, int t_count, const int* tokT,
-                   const float* valT, int l_pad, int rows, int l_tile,
-                   float* out, void* stream) {
-  if (q_count <= 0 || rows <= 0) return 0;
-  EllArgs a = {ids, nullptr, q_count, t_count, tokT, valT, l_pad, rows,
-               l_tile, nullptr, out, nullptr};
-  if (int err = check_scan(a)) return err;
-  return launch_scan<false, false>(a, static_cast<cudaStream_t>(stream));
+// The scan's lookup tables: (Q, T) ids (and optional f32 weights) ->
+// ceil(Q / qp) tables of table_words(cap_log2, qp * T) int32 words.
+int bm25_ell_table(const int* ids, const float* weights, int q_count,
+                   int t_count, int qp, int cap_log2, int* table,
+                   void* stream) {
+  if (q_count <= 0) return 0;
+  const TableArgs a = {ids, weights, q_count, t_count, qp, cap_log2, table};
+  return launch_table(a, static_cast<cudaStream_t>(stream));
 }
 
-// B1: B2 plus optional (Q, T) f32 weights, the pad-row mask from doc_ids
-// (rows,) and gmax (Q, rows / 8), and, where h_count > 0, the hot tier:
-// the hot plan's (Q, kp) bf16 counts (and their residual), tokens (H,)
-// and n_used (1,) x (H, rows) bf16 hi/lo.  l_pad may be 0 (a bucket with
-// no cold postings).
-int bm25_ell_score_fused(const int* ids, const float* weights, int q_count,
-                         int t_count, const int* tokT, const float* valT,
-                         int l_pad, int rows, int l_tile, const int* doc_ids,
+// B2: the tables of (Q, T) ids x (L, rows) slots -> out (Q, rows) f32.
+int bm25_ell_score(const int* table, int qp, int cap_log2, int q_count,
+                   int t_count, const int* tokT, const float* valT, int l_pad,
+                   int rows, int l_tile, int rows_tile, int batch, float* out,
+                   void* stream) {
+  if (q_count <= 0 || rows <= 0) return 0;
+  const ScanArgs a = {table, (q_count + qp - 1) / qp, qp, cap_log2, q_count,
+                      t_count, tokT, valT, l_pad, rows, l_tile, nullptr, out,
+                      nullptr, 0};
+  if (int err = check_scan(a)) return err;
+  return launch_scan<false>(a, rows_tile, batch,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// B1: B2 (the tables may carry weights) plus the pad-row mask from
+// doc_ids (rows,) and gmax (Q, rows / 8), and, where h_count > 0, the hot
+// tier: the hot plan's (Q, kp) bf16 counts (and their residual), tokens
+// (H,) and n_used (1,) x (H, rows) bf16 hi/lo.  l_pad may be 0 (a bucket
+// with no cold postings).
+int bm25_ell_score_fused(const int* table, int qp, int cap_log2,
+                         int q_count, int t_count, const int* tokT,
+                         const float* valT, int l_pad, int rows, int l_tile,
+                         int rows_tile, int batch, const int* doc_ids,
                          const void* counts, const void* counts_lo, int kp,
                          const int* tokens, const int* n_used,
                          const void* hotT, const void* hotLo, int h_count,
@@ -533,19 +1007,19 @@ int bm25_ell_score_fused(const int* ids, const float* weights, int q_count,
   if (q_count <= 0 || rows <= 0) return 0;
   if (rows % GROUP) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  EllArgs a = {ids, weights, q_count, t_count, tokT, valT, l_pad, rows,
-               l_tile, doc_ids, out, gmax};
-  if (int err = check_scan(a)) return err;
-  if (h_count <= 0)
-    return weights ? launch_scan<true, true>(a, s)
-                   : launch_scan<true, false>(a, s);
+  const ScanArgs a = {table, (q_count + qp - 1) / qp, qp, cap_log2, q_count,
+                      t_count, tokT, valT, l_pad, rows, l_tile, doc_ids, out,
+                      gmax, 0};
+  if (h_count <= 0) {
+    if (int err = check_scan(a)) return err;
+    return launch_scan<true>(a, rows_tile, batch, s);
+  }
   if (!counts || !tokens || !n_used || !hotT || !hotLo || kp % HOT_BK ||
       kp < h_count)
     return (int)cudaErrorInvalidValue;
   if (l_pad > 0) {
-    const int err = weights ? launch_scan<false, true>(a, s)
-                            : launch_scan<false, false>(a, s);
-    if (err) return err;
+    if (int err = check_scan(a)) return err;
+    if (int err = launch_scan<false>(a, rows_tile, batch, s)) return err;
   }
   const HotArgs h = {l_pad > 0 ? out : nullptr,
                      static_cast<const __nv_bfloat16*>(hotT),

@@ -41,7 +41,8 @@ from bm25_tpu_torch.scoring import ScoredIndex
 from bm25_tpu_torch.utils.padding import next_multiple, next_pow2_at_least
 from bm25_tpu_torch.utils.validate import empty_results, validate_query_batch
 from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, ell_score,
-                                          ell_score_fused, hot_plan)
+                                          ell_score_fused, hot_plan,
+                                          scan_table)
 from bm25_tpu_torch.ops.topk import select_top_k, top_k_tree_with_maxes
 from bm25_tpu_torch.runtime.session import Session, get_session
 from bm25_tpu_torch.utils.counts import split_bf16, weighted_counts
@@ -278,6 +279,9 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
         if hot_h:
             hot_counts, hot_lo = hot_counts_for(ids, hot_table, hot_h, w)
             plan = hot_plan(hot_counts, hot_lo)  # once for every bucket
+        # the card's scan tables, once for every bucket (the CPU twins
+        # read none)
+        table = scan_table(ids, w) if ids.is_cuda else None
 
         cand_s, cand_i = [], []
         for b in buckets:
@@ -286,7 +290,7 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
             base, gmax = ell_score_fused(
                 ids, b.get("tokT"), b.get("valT"), did, hot_counts,
                 b.get("hotT"), b.get("hotLo"), weights=w,
-                hot_counts_lo=hot_lo, plan=plan,
+                hot_counts_lo=hot_lo, plan=plan, table=table,
             )
             kk = min(k, rows_b)
             if rows_b > max(2 * kk, 4096) and gmax.shape[1] >= kk:

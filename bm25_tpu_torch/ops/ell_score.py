@@ -22,9 +22,12 @@ Both wrappers launch the hand-written kernels of ``csrc/ell_score.cu``
 (see its header for the design and what bounds it) on CUDA tensors and
 raise on anything the kernels do not take; only a tensor on the CPU runs
 the plain PyTorch twin, which keeps the kernels' f32 order: the ELL-only
-base is bit-equal between the two.  What only Mosaic needed is gone: the
-query-count padding, the transposed group maxima and the bf16 ``valT``
-upcast (``valT`` is f32 here).
+base is bit-equal between the two.  The card's scan looks each slot's
+token up in tables of the queries' tokens (``scan_table``, a third
+kernel, made once per chunk by the sparse step or inside the wrapper);
+``table_pairs`` defines what the tables hold.  What only Mosaic needed is
+gone: the query-count padding, the transposed group maxima and the bf16
+``valT`` upcast (``valT`` is f32 here).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from bm25_tpu_torch.utils.padding import cdiv, next_multiple
@@ -50,11 +54,28 @@ NEG_INF = float("-inf")
 # to a multiple of it
 HOT_BK = 64
 
-# kernel launches, counted only where a kernel is launched: B1 calls,
-# the hot kernels they launch, B2 calls
-launches = {"ell_score": 0, "ell_score_fused": 0, "ell_score_hot": 0}
+# the scan (csrc/ell_score.cu): 128 threads a block, as 128 / rows groups
+# of `rows` doc rows, each group against one table of at most
+# MAX_TABLE_QUERIES queries with at least `sparsity` key slots an id; a
+# thread loads `batch` slots' tokens at once (scan_build picks the two by
+# T)
+SCAN_THREADS = 128
+MAX_TABLE_QUERIES = 128
+# a table's words before its keys, its keys a bucket, and the most ids
+# (queries x T) it holds
+TABLE_HEAD = 4
+TABLE_BUCKET = 4
+MAX_TABLE_ENTRIES = 4096
+# shared memory of a scan block: two an SM on an H100, or one
+SMEM_TWO_BLOCKS = 115712
+SMEM_ONE_BLOCK = 232448
+
+# kernel launches, counted only where a kernel is launched: B1 calls, the
+# scans and the hot kernels B1 launches, B2's scans, the tables
+launches = {"ell_score": 0, "ell_score_fused": 0, "ell_score_scan": 0,
+            "ell_score_hot": 0, "ell_table": 0}
 # plain-twin runs (CPU tensors, or a direct call)
-plain_calls = {"ell_score": 0, "ell_score_fused": 0}
+plain_calls = {"ell_score": 0, "ell_score_fused": 0, "ell_table": 0}
 
 
 def _slot_tiling(l_pad: int) -> tuple[int, int]:
@@ -150,6 +171,174 @@ def ell_score_fused_plain(ids, tokT, valT, doc_ids, hot_counts=None,
     return base, gmax
 
 
+# ---------------------------------------------------------------------------
+# the scan's lookup tables
+# ---------------------------------------------------------------------------
+
+
+class ScanTable(NamedTuple):
+    """The scan's lookup tables for one (Q, T) batch of ids, in the layout
+    of ``csrc/ell_score.cu``: one table a tile of ``qp`` queries."""
+
+    words: torch.Tensor  # (ceil(Q / qp), table_words) int32
+    qp: int  # queries a table
+    cap_log2: int  # 2 ** cap_log2 key slots
+    weighted: bool  # built with per-token weights
+
+
+def table_words(cap_log2: int, n: int) -> int:
+    """int32 words of one table of 2 ** cap_log2 key slots and room for n
+    pairs: the head, keys, runs, filter (8 bits a key slot), then (query,
+    c) pairs; a multiple of 4."""
+    cap = 1 << cap_log2
+    return TABLE_HEAD + 2 * cap + cap // 4 + 2 * (n + (n & 1))
+
+
+def scan_build(t: int) -> tuple[int, int, int]:
+    """(doc rows a block, slots a thread loads at once, key slots an id)
+    of the scan for queries of T ids, one of the two compiled builds:
+    (64, 16, 2) for one-token queries (B2's build: every slot hits one of
+    the Q / qp tables, so a block takes two and reads each token half as
+    often, and three such blocks fit an SM only with the smaller tables)
+    and (128, 8, 4) otherwise, the fastest on an H100 (PERF.md, §6)."""
+    return (64, 16, 2) if t == 1 else (128, 8, 4)
+
+
+def table_geometry(q: int, t: int, qp: int = MAX_TABLE_QUERIES
+                   ) -> tuple[int, int]:
+    """(qp, cap_log2) for Q queries of T ids: the most queries a table (a
+    power of two, at most ``qp`` and Q rounded up) whose tables and
+    accumulators fit two scan blocks of ``scan_build(t)`` an SM (one, at a
+    single query), with 2 ** cap_log2 >= sparsity x qp T key slots."""
+    rows_tile, _, sparsity = scan_build(t)
+    groups = SCAN_THREADS // rows_tile
+    qp = min(qp, 1 << max(q - 1, 0).bit_length())
+    while True:
+        n = qp * t
+        cap_log2 = max((sparsity * n - 1).bit_length(), 4)
+        smem = 4 * groups * (qp * rows_tile + table_words(cap_log2, n))
+        if n <= MAX_TABLE_ENTRIES and (
+                smem <= SMEM_TWO_BLOCKS or (qp == 1 and smem <= SMEM_ONE_BLOCK)):
+            return qp, cap_log2
+        if qp == 1:
+            raise ValueError(f"{t} ids a query: a table of the scan holds "
+                             f"at most {MAX_TABLE_ENTRIES}")
+        qp //= 2
+
+
+def table_pairs(ids, weights=None, qp: int = MAX_TABLE_QUERIES
+                ) -> list[dict[int, list[tuple[int, float]]]]:
+    """What the scan's tables hold, one dict a tile of ``qp`` queries: each
+    distinct id >= 0 of the tile -> its (query in the tile, c) pairs in
+    query order.  c is the id's count in the query, or with weights the
+    f32 sum of its weights in t order (the first as it is), which is what
+    the plain scan's per-slot reduction over T gives for a matching slot."""
+    ids = np.asarray(torch.as_tensor(ids).cpu())
+    w = None if weights is None else np.asarray(
+        torch.as_tensor(weights).cpu(), dtype=np.float32)
+    tiles = []
+    for q0 in range(0, ids.shape[0], qp):
+        runs: dict[int, dict[int, np.float32]] = {}
+        for q in range(q0, min(q0 + qp, ids.shape[0])):
+            for t, tok in enumerate(ids[q].tolist()):
+                if tok < 0:
+                    continue
+                run = runs.setdefault(tok, {})
+                c = np.float32(1.0) if w is None else w[q, t]
+                run[q - q0] = c if q - q0 not in run else run[q - q0] + c
+        tiles.append({tok: [(qq, float(c)) for qq, c in sorted(run.items())]
+                      for tok, run in runs.items()})
+    return tiles
+
+
+def _table_hash(tok: int, cap_log2: int) -> int:
+    """The first bucket (of TABLE_BUCKET key slots) a token may lie in."""
+    return ((tok * 0x9E3779B1) & 0xFFFFFFFF) >> (32 - (cap_log2 - 2))
+
+
+def _filter_bits(keys, cap_log2: int) -> np.ndarray:
+    """The filter of a table's keys: bit ((key * 0x85EBCA6B) mod 2^32) >>
+    (32 - (cap_log2 + 3)) of 8 cap bits set for each key, as uint32
+    words."""
+    bits = np.zeros(1 << (cap_log2 - 2), np.uint32)
+    for tok in keys:
+        f = ((int(tok) * 0x85EBCA6B) & 0xFFFFFFFF) >> (32 - (cap_log2 + 3))
+        bits[f >> 5] |= np.uint32(1 << (f & 31))
+    return bits
+
+
+def scan_table_plain(ids, weights=None,
+                     qp: int = MAX_TABLE_QUERIES) -> ScanTable:
+    """Plain twin of the table kernel: ``table_pairs`` laid out as the
+    kernel lays it out, the tokens inserted in ascending order (the kernel
+    inserts them in parallel, so a colliding key may take another slot:
+    compare tables by ``table_contents``)."""
+    plain_calls["ell_table"] += 1
+    q, t = ids.shape
+    qp, cap_log2 = table_geometry(q, t, qp)
+    cap = 1 << cap_log2
+    tiles = table_pairs(ids, weights, qp)
+    words = np.zeros((len(tiles), table_words(cap_log2, qp * t)), np.int32)
+    for row, tile in zip(words, tiles):
+        keys, meta = row[TABLE_HEAD:][:cap], row[TABLE_HEAD + cap:][:cap]
+        pairs = row[TABLE_HEAD + 2 * cap + cap // 4:]
+        row[TABLE_HEAD + 2 * cap:][:cap // 4] = _filter_bits(
+            tile, cap_log2).view(np.int32)
+        keys[:] = -1
+        p = 0
+        for tok in sorted(tile):
+            h = _table_hash(tok, cap_log2) * TABLE_BUCKET
+            while keys[h] != -1:
+                h = (h + 1) & (cap - 1)
+            keys[h], meta[h] = tok, p | len(tile[tok]) << 16
+            for qq, c in tile[tok]:
+                pairs[2 * p] = qq
+                pairs[2 * p + 1] = np.float32(c).view(np.int32)
+                p += 1
+        row[0] = p
+    return ScanTable(torch.from_numpy(words).to(ids.device), qp, cap_log2,
+                     weights is not None)
+
+
+def table_contents(table: ScanTable) -> list[dict[int, list[tuple[int, float]]]]:
+    """Read a table back into ``table_pairs``' form, checking that every
+    key is found where a lookup probes for it (every bucket from its hash
+    bucket on to its own full, each bucket filled from its first slot),
+    that the filter holds its keys' bits and no other, and that the runs
+    cover the pairs once each."""
+    cap = 1 << table.cap_log2
+    out = []
+    for row in table.words.cpu().numpy():
+        keys, meta = row[TABLE_HEAD:][:cap], row[TABLE_HEAD + cap:][:cap]
+        pairs = row[TABLE_HEAD + 2 * cap + cap // 4:]
+        cs = pairs.view(np.float32)
+        if not np.array_equal(
+                row[TABLE_HEAD + 2 * cap:][:cap // 4].view(np.uint32),
+                _filter_bits(keys[keys != -1], table.cap_log2)):
+            raise ValueError("the filter is not its keys' bits")
+        tile, covered = {}, []
+        buckets = keys.reshape(-1, TABLE_BUCKET)
+        free = buckets == -1
+        if (free[:, :-1] & ~free[:, 1:]).any():
+            raise ValueError("a bucket has a key after a free slot")
+        for h in np.flatnonzero(keys != -1).tolist():
+            tok = int(keys[h])
+            g = _table_hash(tok, table.cap_log2)
+            while g != h // TABLE_BUCKET:
+                if free[g].any():
+                    raise ValueError(f"key {tok} at {h} lies past bucket "
+                                     f"{g}, which has a free slot")
+                g = (g + 1) % len(buckets)
+            start, count = int(meta[h]) & 0xFFFF, int(meta[h]) >> 16
+            covered += range(start, start + count)
+            tile[tok] = [(int(pairs[2 * j]), float(cs[2 * j + 1]))
+                         for j in range(start, start + count)]
+        if sorted(covered) != list(range(int(row[0]))):
+            raise ValueError("the runs do not cover the pairs once each")
+        out.append(tile)
+    return out
+
+
 class HotPlan(NamedTuple):
     """The hot tokens a chunk uses, as B1's hot kernel takes them."""
 
@@ -194,10 +383,13 @@ def hot_plan(hot_counts: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ell_score")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bm25_ell_score.argtypes = [p, i, i, p, p, i, i, i, p, p]
+    lib.bm25_ell_table.argtypes = [p, p, i, i, i, i, p, p]
+    lib.bm25_ell_table.restype = i
+    lib.bm25_ell_score.argtypes = [p, i, i, i, i, p, p, i, i, i, i, i, p, p]
     lib.bm25_ell_score.restype = i
     lib.bm25_ell_score_fused.argtypes = [
-        p, p, i, i, p, p, i, i, i, p, p, p, i, p, p, p, p, i, p, p, p]
+        p, i, i, i, i, p, p, i, i, i, i, i, p, p, p, i, p, p, p, p, i, p, p,
+        p]
     lib.bm25_ell_score_fused.restype = i
     return lib
 
@@ -232,9 +424,53 @@ def _check_slots(ids, tokT, valT, rows, device):
     return tokT.shape[0]
 
 
-def ell_score(ids: torch.Tensor, tokT: torch.Tensor,
-              valT: torch.Tensor) -> torch.Tensor:
-    """B2: score one ELL bucket, (Q, rows) float32."""
+def scan_table(ids: torch.Tensor, weights: torch.Tensor | None = None,
+               qp: int = MAX_TABLE_QUERIES) -> ScanTable:
+    """The scan's lookup tables for (Q, T) int32 ids (pads/OOV < 0) and
+    optional (Q, T) f32 weights, at most ``qp`` queries a table
+    (``table_geometry``); made once and passed to every bucket's
+    ``ell_score_fused`` (or ``ell_score``) of the same ids."""
+    if ids.device.type == "cpu":
+        return scan_table_plain(ids, weights, qp)
+    device = ids.device
+    if device.type != "cuda":
+        raise ValueError(f"scan_table runs on cuda or cpu, not {device}")
+    if ids.dim() != 2:
+        raise ValueError(f"ids must be (Q, T), got {tuple(ids.shape)}")
+    _expect(ids, "ids", torch.int32, ids.shape, device)
+    q, t = ids.shape
+    if weights is not None:
+        _expect(weights, "weights", torch.float32, (q, t), device)
+    qp, cap_log2 = table_geometry(q, t, qp)
+    words = torch.empty((cdiv(q, qp), table_words(cap_log2, qp * t)),
+                        dtype=torch.int32, device=device)
+    table = ScanTable(words, qp, cap_log2, weights is not None)
+    if q == 0:
+        return table
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.bm25_ell_table(_ptr(ids), _ptr(weights), q, t, qp,
+                                 cap_log2, _ptr(words), stream)
+    _build.check(lib, err, "bm25_ell_table launch")
+    launches["ell_table"] += 1
+    return table
+
+
+def _check_table(table: ScanTable, ids, weighted: bool, device):
+    q, t = ids.shape
+    if table.weighted != weighted:
+        raise ValueError("the table was made with" + ("out" if weighted else "")
+                         + " weights")
+    _expect(table.words, "table.words", torch.int32,
+            (cdiv(q, table.qp), table_words(table.cap_log2, table.qp * t)),
+            device)
+
+
+def ell_score(ids: torch.Tensor, tokT: torch.Tensor, valT: torch.Tensor,
+              table: ScanTable | None = None) -> torch.Tensor:
+    """B2: score one ELL bucket, (Q, rows) float32.  ``table`` is
+    ``scan_table(ids)`` (made here when None); the plain twin needs none."""
     if ids.device.type == "cpu":
         return ell_score_plain(ids, tokT, valT)
     device = ids.device
@@ -246,13 +482,17 @@ def ell_score(ids: torch.Tensor, tokT: torch.Tensor,
     out = torch.empty((q, rows), dtype=torch.float32, device=device)
     if q == 0 or rows == 0:
         return out
+    if table is None:
+        table = scan_table(ids)
+    _check_table(table, ids, False, device)
     l_tile, _ = _slot_tiling(l_pad)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bm25_ell_score(
-            _ptr(ids), q, t, _ptr(tokT), _ptr(valT), l_pad, rows, l_tile,
-            _ptr(out), stream)
+            _ptr(table.words), table.qp, table.cap_log2, q, t, _ptr(tokT),
+            _ptr(valT), l_pad, rows, l_tile, *scan_build(t)[:2], _ptr(out),
+            stream)
     _build.check(lib, err, "bm25_ell_score launch")
     launches["ell_score"] += 1
     return out
@@ -269,6 +509,7 @@ def ell_score_fused(
     weights: torch.Tensor | None = None,  # (Q, T) f32 per-token weights
     hot_counts_lo: torch.Tensor | None = None,  # (Q, H) bf16 count residual
     plan: HotPlan | None = None,  # hot_plan(hot_counts, hot_counts_lo)
+    table: ScanTable | None = None,  # scan_table(ids, weights)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """B1: fused bucket scoring -> (masked base (Q, rows), gmax (Q, rows/8)).
 
@@ -276,7 +517,9 @@ def ell_score_fused(
     ``hot_counts_lo`` (non-integer counts) adds the third split product
     ``hot_counts_lo @ hotT``.  ``plan`` is ``hot_plan`` of the counts, made
     once per chunk by a caller that scores several buckets (made here when
-    None); the plain twin does not need it.
+    None), and so is ``table``, ``scan_table(ids, weights)``; the plain
+    twin needs neither.  The card runs the scan unless the bucket has no
+    slots but a hot tier, then the hot kernel where there is a hot tier.
     """
     if ids.device.type == "cpu":
         return ell_score_fused_plain(ids, tokT, valT, doc_ids, hot_counts,
@@ -323,17 +566,27 @@ def ell_score_fused(
         _expect(plan.n_used, "plan.n_used", torch.int32, (1,), device)
     else:
         plan = HotPlan(None, None, None, None)
+    scan = l_pad > 0 or not h
+    if scan:
+        if table is None:
+            table = scan_table(ids, weights)
+        _check_table(table, ids, weights is not None, device)
+    else:
+        table = ScanTable(None, 1, 1, False)
     l_tile, _ = _slot_tiling(l_pad)
     lib = _lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.bm25_ell_score_fused(
-            _ptr(ids), _ptr(weights), q, t, _ptr(tokT), _ptr(valT), l_pad,
-            rows, l_tile, _ptr(doc_ids), _ptr(plan.counts),
-            _ptr(plan.counts_lo), kp, _ptr(plan.tokens), _ptr(plan.n_used),
-            _ptr(hotT), _ptr(hotLo), h, _ptr(base), _ptr(gmax), stream)
+            _ptr(table.words), table.qp, table.cap_log2, q, t, _ptr(tokT),
+            _ptr(valT), l_pad, rows, l_tile, *scan_build(t)[:2],
+            _ptr(doc_ids), _ptr(plan.counts), _ptr(plan.counts_lo), kp,
+            _ptr(plan.tokens), _ptr(plan.n_used), _ptr(hotT), _ptr(hotLo), h,
+            _ptr(base), _ptr(gmax), stream)
     _build.check(lib, err, "bm25_ell_score_fused launch")
     launches["ell_score_fused"] += 1
+    if scan:
+        launches["ell_score_scan"] += 1
     if h:
         launches["ell_score_hot"] += 1
     return base, gmax

@@ -20,7 +20,11 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    blocks, k beyond the shared-memory sort, the side buffer on and off,
    +-0/NaN/+-inf (-0 kept), k wider than JAX's chunk (the tree, counted),
    largest=False: values and indices equal to the twin and the tree); B5 (membership, determinism per seed, greedy
-   at temperature -> 0, the twin's choices up to float noise in z);
+   at temperature -> 0, the twin's choices up to float noise in z); the
+   scan's lookup tables (B2's one-token queries over three tables, rows
+   off a multiple of 4, T = 64 and 300, a token in every query, ids past
+   16 bits, negative values, zero weights, 1,208 and 1,536 slots): each
+   table kernel's tables hold the twin's pairs, B1 and B2 bit-equal;
 4. sparse main path: ``SparseEngine`` at the benchmark shape (524,288
    docs, 32,768-token Zipf vocabulary, hot_tokens=1024, 2 buckets) built
    and searched with 512 queries of 8 tokens at k=1000 and k=100, checked
@@ -29,8 +33,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``create_engine(mode="auto", score_dtype="bfloat16")``, which must
    return the f32 batch's docs and its scores rounded to bf16; then each
    kernel against its twin at the main path's own shapes, both timed (B1
-   per bucket as its scan and its hot epilogue, and again on a chunk of 8
-   queries, the small-batch path);
+   per bucket as a whole and, by ``torch.profiler``, as its scan and its
+   hot epilogue, each with its own bound, the batch's matching (query,
+   cold posting) pairs counted; the scan
+   again on a fan-out batch whose queries share their cold ids, and B1 on
+   a chunk of 8 queries, the small-batch path; the chunk's scan tables
+   against the twin's);
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -109,8 +117,12 @@ After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
 main path, max error against its twin, kernel / twin / one-call library ms
 and its bound: the larger of the bytes it must move over 3.35 TB/s and
-its operations over the peak rate of their type), and the card line from
-nvidia-smi; the very last line is ``{"ok": true, "device": ...}``.
+its operations over the peak rate of their type; B1 as a whole,
+``ell_score_fused``, and as its two launches, ``ell_score_scan`` and
+``ell_score_hot``, each timed by ``torch.profiler`` inside B1's calls and
+bounded by its share of B1's bytes and operations; the scan's tables as
+``ell_table``), and the card line from nvidia-smi; the very
+last line is ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -129,7 +141,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {
     "ell_score_fused": "bm25_tpu_torch/csrc/ell_score.cu",
+    "ell_score_scan": "bm25_tpu_torch/csrc/ell_score.cu",
+    "ell_score_hot": "bm25_tpu_torch/csrc/ell_score.cu",
     "ell_score": "bm25_tpu_torch/csrc/ell_score.cu",
+    "ell_table": "bm25_tpu_torch/csrc/ell_score.cu",
     "gather_add_rows": "bm25_tpu_torch/csrc/gather_rows.cu",
     "top_k_two_stage": "bm25_tpu_torch/csrc/topk.cu",
     "gumbel_choice": "bm25_tpu_torch/csrc/topk.cu",
@@ -146,7 +161,10 @@ SOURCES = {
 }
 REPLACES = {
     "ell_score_fused": "bm25_tpu/ops/ell_score.py:314",
+    "ell_score_scan": "bm25_tpu/ops/ell_score.py:314",
+    "ell_score_hot": "bm25_tpu/ops/ell_score.py:314",
     "ell_score": "bm25_tpu/ops/ell_score.py:161",
+    "ell_table": "bm25_tpu/ops/ell_score.py:161",
     "gather_add_rows": "bm25_tpu/ops/gather_rows.py:56",
     "top_k_two_stage": "bm25_tpu/ops/topk.py:241",
     "gumbel_choice": "bm25_tpu/ops/topk.py:620",
@@ -333,6 +351,80 @@ def phase_kernel_cases(torch, ops, split_bf16, dev) -> None:
             + (", B2 bit-equal" if l_pad else ""))
 
 
+def table_case(rng, q, t, rows, l_pad, vocab, pad_rows, weighted, kind):
+    """random_case's bucket and queries, shaped where the scan's lookup
+    tables are likeliest to go wrong: "distinct" one distinct id a query
+    (B2's build); "hits" half the ids from the bucket's tokens; "shared" a
+    token in every query and half the rows; "negative" negative values;
+    "zero_weights" weights of 0 in every other column."""
+    ids, tokT, valT, did, _, _, w = random_case(
+        rng, q, t, rows, l_pad, vocab, 0, pad_rows, weighted)
+    if kind == "distinct":
+        ids = rng.permutation(vocab)[:q].reshape(q, 1).astype(np.int32)
+    elif kind == "hits":
+        pick = rng.random(ids.shape) < 0.5
+        ids[pick] = rng.choice(tokT[tokT >= 0], int(pick.sum()))
+    elif kind == "shared":
+        tokT[0, ::2] = vocab + 7
+        valT[0, ::2] = rng.standard_normal(len(valT[0, ::2]))
+        ids[2:, 2] = vocab + 7
+    elif kind == "negative":
+        valT = -np.abs(valT)
+    elif kind == "zero_weights":
+        w[:, ::2] = 0.0
+    return ids, tokT, valT, did, w
+
+
+def phase_table_cases(torch, ops, dev) -> None:
+    """B1's and B2's scan on the cases of its lookup tables: each table
+    kernel's tables hold what the twin's hold (``table_contents``), B1's
+    ELL-only base and B2 bit-equal."""
+    rng = np.random.default_rng(1)
+    cases = [
+        # q, t, rows, l_pad, vocab, pad_rows, weighted, kind
+        (300, 1, 1000, 24, 400, 5, False, "distinct"),  # 3 tables, ragged
+        (150, 1, 1001, 12, 200, 0, False, "distinct"),  # rows % 4 != 0: B2
+        (40, 64, 512, 24, 300, 5, False, "hits"),  # 32 queries a table
+        (12, 300, 512, 24, 2000, 5, True, "hits"),  # 4 queries a table
+        (512, 8, 1024, 24, 300, 5, False, "shared"),  # one run, 128 pairs
+        (512, 8, 1024, 24, 300, 5, True, "shared"),
+        (13, 8, 512, 24, 100000, 9, False, "hits"),  # ids past 16 bits
+        (13, 8, 512, 24, 80, 9, False, "negative"),
+        (13, 8, 512, 24, 80, 9, True, "zero_weights"),
+        (140, 4, 1024, 1208, 6000, 5, False, "hits"),  # 3 slot tiles
+        (40, 4, 512, 1536, 6000, 5, True, "hits"),
+    ]
+    for q, t, rows, l_pad, vocab, pad_rows, weighted, kind in cases:
+        ids, tokT, valT, did, w = table_case(rng, q, t, rows, l_pad, vocab,
+                                             pad_rows, weighted, kind)
+        ids_d, tok_d, val_d = (torch.from_numpy(x).to(dev)
+                               for x in (ids, tokT, valT))
+        w_d = None if w is None else torch.from_numpy(w).to(dev)
+        name = (f"q={q} t={t} rows={rows} l_pad={l_pad} {kind}"
+                f"{' weighted' if weighted else ''}")
+        table = ops.scan_table(ids_d, w_d)
+        plain = ops.scan_table_plain(ids_d.cpu(),
+                                     None if w_d is None else w_d.cpu())
+        if ops.table_contents(table) != ops.table_contents(plain):
+            raise AssertionError(f"tables of {name} differ from the twin's")
+        if rows % 8 == 0:
+            args = (ids_d, tok_d, val_d, torch.from_numpy(did).to(dev))
+            for n, x, y in zip(("base", "gmax"),
+                               ops.ell_score_fused(*args, weights=w_d,
+                                                   table=table),
+                               ops.ell_score_fused_plain(*args,
+                                                         weights=w_d)):
+                compare(torch, x, y, True, f"B1 {n} {name}")
+        if w is None:
+            compare(torch, ops.ell_score(ids_d, tok_d, val_d, table=table),
+                    ops.ell_score_plain(ids_d, tok_d, val_d), True,
+                    f"B2 {name}")
+        torch.cuda.synchronize()
+        held = ["B1"] * (rows % 8 == 0) + ["B2"] * (w is None)
+        log(f"[kernels] {name}: tables hold the twin's pairs ({table.qp} "
+            f"queries a table); {' and '.join(held)} bit-equal")
+
+
 def phase_gather_cases(torch, gr, dev) -> None:
     """B3 vs its twin: empty grids, ragged D, bf16, weights, duplicates."""
     rng = np.random.default_rng(1)
@@ -419,6 +511,21 @@ def launch_us(torch, fn, prefixes, calls: int = 5) -> dict:
         if n != calls:
             log(f"[kernels] torch.profiler recorded {n} of {calls} "
                 f"launches of {name}; the mean is over those {n}")
+    return out
+
+
+def launch_ms(torch, fn, kernels, calls: int) -> list:
+    """Device ms a launch of each kernel of ``kernels`` (name prefixes)
+    inside ``calls`` calls of ``fn()``, one launch of each a call: the
+    mean over the launches ``torch.profiler`` recorded."""
+    us = kernel_us(torch, fn, kernels, calls)
+    out = []
+    for prefix in kernels:
+        got = [v for name, v in us.items() if name.startswith(prefix)]
+        n = sum(c for _, c in got)
+        if not n:
+            raise AssertionError(f"torch.profiler recorded no {prefix}")
+        out.append(sum(t for t, _ in got) / n / 1e3)
     return out
 
 
@@ -629,46 +736,128 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     del bf16
 
     # each kernel vs its twin at the main path's shapes: B1 on every
-    # bucket (its ms is the batch's total), B2 on bucket 0's hot ELL
+    # bucket (its ms is the batch's total) as its scan and its hot
+    # epilogue, the scan's tables once a chunk, B2 on bucket 0's hot ELL
     chunk = engine.plan_chunks(queries)[0][1]
     ids = session.put(chunk)
     hc, _ = hot_counts_for(ids, engine.hot_table, engine.hot_h)
     plan = hot_plan(hc)  # once per chunk, as the query step makes it
+    table = ops.scan_table(ids)  # the same
     used = int(plan.n_used.item())
-    b1_err = b1_ms = b1_plain_ms = 0.0
-    # B1's bound per batch: every ELL input, the hot rows some query uses
-    # (the plan lists them), the outputs; one FMA per matching cold
-    # posting (f32) and two bf16 products per used (query, hot token, row)
+    t0 = time.perf_counter()
+    plain_table = ops.scan_table_plain(ids.cpu())
+    table_plain_ms = (time.perf_counter() - t0) * 1e3
+    if ops.table_contents(table) != ops.table_contents(plain_table):
+        raise AssertionError("the chunk's tables differ from the twin's")
+    table_ms = cuda_ms(torch, lambda: ops.scan_table(ids), 20)
+    table_bytes = nbytes(ids, table.words)
+    log(f"[kernels] scan tables of ids {tuple(ids.shape)}: {table.qp} "
+        f"queries a table, {table.words.shape[0]} tables of "
+        f"{table.words.shape[1]} words, the twin's contents; kernel "
+        f"{table_ms:.4f} ms, plain (host) {table_plain_ms:.1f} ms")
     hot_pairs = int((hc != 0).sum())
-    cold = chunk[(chunk >= 0)]
-    cold = cold[session.get(engine.hot_table)[cold] < 0]
-    cold_postings = int(np.diff(index.indptr.astype(np.int64))[cold].sum())
-    b1_bytes = b1_ops = 0
+    hot_of = session.get(engine.hot_table)
+    # each query's distinct cold ids: a matching (query, cold posting) pair
+    # is one FMA of the scan
+    cold_ids = [np.unique(r[(r >= 0)][hot_of[r[r >= 0]] < 0])
+                for r in chunk]
+    cold_any = torch.from_numpy(np.unique(np.concatenate(cold_ids))).to(dev)
+    # the fan-out case: every query's cold ids replaced by one shared run
+    # of the batch's cold ids (the first T in order of appearance)
+    seen = list(dict.fromkeys(
+        int(x) for r in chunk for x in r if x >= 0 and hot_of[x] < 0))
+    shared = np.array(seen[: chunk.shape[1]], np.int32)
+    fan = chunk.copy()
+    cold = (fan >= 0) & (hot_of[np.maximum(fan, 0)] < 0)
+    fan[cold] = np.broadcast_to(shared[np.arange(fan.shape[1])
+                                       % len(shared)], fan.shape)[cold]
+    fan_ids = session.put(fan)
+    fan_table = ops.scan_table(fan_ids)
+    fan_cold = [np.unique(r[cold[i]]) for i, r in enumerate(fan)]
+    b1_err = scan_err = 0.0
+    tot = dict.fromkeys(("ms", "plain", "scan", "scan_plain", "hot",
+                         "hot_plain", "masked", "fan", "fan_masked", "pairs",
+                         "fan_pairs", "scan_bytes", "hot_bytes", "hot_ops"),
+                        0.0)
+    # B1's two launches, timed inside B1's own calls
+    b1_kernels = ("ell_scan_kernel", "ell_hot_kernel")
     for i, b in enumerate(engine.buckets):
         rows = b["doc_ids"].shape[0]
-        b1_bytes += (nbytes(ids, b["tokT"], b["valT"], b["doc_ids"], hc)
-                     + 2 * used * rows * 2 + chunk.shape[0] * rows * 4
-                     + chunk.shape[0] * (rows // 8) * 4)
-        b1_ops += 2 * 2 * hot_pairs * rows
+        q = chunk.shape[0]
+        postings = torch.bincount(b["tokT"][b["tokT"] >= 0].long(),
+                                  minlength=index.vocab_size).cpu().numpy()
+        pairs = int(sum(postings[c].sum() for c in cold_ids))
+        fan_pairs = int(sum(postings[c].sum() for c in fan_cold))
+        # B1's bound, as its scan's and its hot epilogue's.  The scan: ids
+        # and the slots' tokens read once, a value only where the slot's
+        # token is some query's cold id, the (Q, rows) base written once;
+        # one FMA a matching pair.  The hot epilogue: what B1 moves beyond
+        # that (the used hot rows, hi and lo; the plan's counts; doc_ids;
+        # the maxima), no trip of the base; two bf16 products a used
+        # (query, hot token, row).  The two add up to B1's.
+        matched = int(torch.isin(b["tokT"], cold_any).sum())
+        tot["scan_bytes"] += (nbytes(ids, b["tokT"]) + 4 * matched
+                              + q * rows * 4)
+        tot["hot_bytes"] += (2 * used * rows * 2 + q * (rows // ops.GROUP)
+                             * 4 + nbytes(plan.counts, b["doc_ids"]))
+        tot["hot_ops"] += 2 * 2 * hot_pairs * rows
+        tot["pairs"] += pairs
+        tot["fan_pairs"] += fan_pairs
         args = (ids, b["tokT"], b["valT"], b["doc_ids"], hc, b["hotT"],
                 b["hotLo"])
-        compare(torch, ops.ell_score_fused(*args[:4])[0],
+        compare(torch, ops.ell_score_fused(*args[:4], table=table)[0],
                 ops.ell_score_fused_plain(*args[:4])[0], True,
                 f"B1 ELL-only base, bucket {i}")
         b1_err = max([b1_err] + [
             compare(torch, x, y, False, f"B1 {n}, bucket {i}")
-            for n, x, y in zip(("base", "gmax"), ops.ell_score_fused(*args),
+            for n, x, y in zip(("base", "gmax"),
+                               ops.ell_score_fused(*args, plan=plan,
+                                                   table=table),
                                ops.ell_score_fused_plain(*args))])
-        ms = cuda_ms(torch, lambda: ops.ell_score_fused(*args, plan=plan),
-                     10)
-        ell_ms = cuda_ms(torch, lambda: ops.ell_score_fused(*args[:4]), 10)
+        # the scan B1 launches before its hot kernel (no mask): B2's entry
+        # runs that kernel, held bit-equal to its twin
+        scan_want = ops.ell_score_plain(*args[:3])
+        scan_err = max(scan_err, compare(
+            torch, ops.ell_score(*args[:3], table=table), scan_want, True,
+            f"B1's scan, bucket {i}"))
+        del scan_want
+        fan_args = (fan_ids, *args[1:4])
+        compare(torch, ops.ell_score_fused(*fan_args, table=fan_table)[0],
+                ops.ell_score_fused_plain(*fan_args)[0], True,
+                f"B1 ELL-only base, fan-out, bucket {i}")
+
+        def b1_call(a=args, p=plan, t=table):
+            return ops.ell_score_fused(*a, plan=p, table=t)
+
+        ms = cuda_ms(torch, b1_call, 10)
+        scan_ms, hot_ms = launch_ms(torch, b1_call, b1_kernels, 10)
+        masked = cuda_ms(torch, lambda: ops.ell_score_fused(
+            *args[:4], table=table), 10)
+        fan_ms = cuda_ms(torch, lambda: ops.ell_score(
+            *fan_args[:3], table=fan_table), 10)
+        fan_masked = cuda_ms(torch, lambda: ops.ell_score_fused(
+            *fan_args, table=fan_table), 10)
         plain_ms = cuda_ms(torch, lambda: ops.ell_score_fused_plain(*args), 2)
+        scan_plain = cuda_ms(torch, lambda: ops.ell_score_plain(*args[:3]), 1)
+        # the hot epilogue's twin: the hot products, the mask and the
+        # maxima, from a base of +0
+        hot_plain = cuda_ms(torch, lambda: ops.ell_score_fused_plain(
+            ids, None, None, *args[3:]), 2)
         log(f"[kernels] B1 at ids {tuple(ids.shape)} x bucket {i} "
-            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h} ({used} used): "
-            f"kernel {ms:.3f} ms = scan {ell_ms:.3f} + hot epilogue "
-            f"{ms - ell_ms:.3f} ms; plain {plain_ms:.3f} ms")
-        b1_ms += ms
-        b1_plain_ms += plain_ms
+            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h} ({used} used), "
+            f"{pairs} matching (query, cold posting) pairs on {matched} "
+            f"slots: kernel {ms:.4f} ms; torch.profiler a launch: scan "
+            f"{scan_ms:.4f} + hot epilogue {hot_ms:.4f} ms (the masked scan "
+            f"alone, no hot tier: {masked:.4f} ms); plain {plain_ms:.3f} ms "
+            f"= scan {scan_plain:.3f} + hot {hot_plain:.3f} ms")
+        log(f"[kernels] B1 fan-out at bucket {i}: {fan_pairs} pairs, the "
+            f"ELL-only base bit-equal; scan {fan_ms:.4f} ms, masked scan "
+            f"{fan_masked:.4f} ms")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("scan", scan_ms),
+                       ("scan_plain", scan_plain), ("hot", hot_ms),
+                       ("hot_plain", hot_plain), ("masked", masked),
+                       ("fan", fan_ms), ("fan_masked", fan_masked)):
+            tot[key] += v
         # the small-batch path: a chunk of 8 queries (16 a hot block)
         a8 = (ids[:8].contiguous(), *args[1:4], hc[:8].contiguous(),
               *args[5:])
@@ -678,36 +867,59 @@ def sparse_main(torch, dev, cfg, ops, session, record):
         for n, x, y in zip(("base", "gmax"), ops.ell_score_fused(*a8),
                            ops.ell_score_fused_plain(*a8)):
             compare(torch, x, y, False, f"B1 {n}, 8 queries, bucket {i}")
-        plan8 = hot_plan(a8[4])
-        ms8 = cuda_ms(torch, lambda: ops.ell_score_fused(*a8, plan=plan8),
-                      50)
-        ell8 = cuda_ms(torch, lambda: ops.ell_score_fused(*a8[:4]), 50)
+        plan8, table8 = hot_plan(a8[4]), ops.scan_table(a8[0])
+
+        def b1_call8(a=a8, p=plan8, t=table8):
+            return ops.ell_score_fused(*a, plan=p, table=t)
+
+        ms8 = cuda_ms(torch, b1_call8, 50)
+        scan8, hot8 = launch_ms(torch, b1_call8, b1_kernels, 10)
         log(f"[kernels] B1 at 8 queries x bucket {i} "
             f"({int(plan8.n_used.item())} hot tokens used): kernel "
-            f"{ms8:.4f} ms = scan {ell8:.4f} + hot epilogue "
-            f"{ms8 - ell8:.4f} ms; the 8-query chunk matches the twin")
+            f"{ms8:.4f} ms; torch.profiler a launch: scan {scan8:.4f} + hot "
+            f"epilogue {hot8:.4f} ms; the 8-query chunk matches the twin")
     b0 = engine.buckets[0]
     hot_ids, _, hot_csr = split_hot_cold_csr(index, engine.hot_h)
     htok, hval = hot_ell_for_rows(hot_csr, session.get(b0["doc_ids"]))
     b2_args = (session.put(hot_ids.reshape(-1, 1)), session.put(htok),
                session.put(hval))
-    b2_err = compare(torch, ops.ell_score(*b2_args),
+    b2_table = ops.scan_table(b2_args[0])
+    b2_err = compare(torch, ops.ell_score(*b2_args, table=b2_table),
                      ops.ell_score_plain(*b2_args), True, "B2, main shape")
-    b2_ms = cuda_ms(torch, lambda: ops.ell_score(*b2_args), 10)
-    b2_bound = bound(nbytes(*b2_args) + engine.hot_h * htok.shape[1] * 4,
-                     [(2 * int((b2_args[1] >= 0).sum()), F32_OPS_PER_S)])
+    b2_ms = cuda_ms(torch, lambda: ops.ell_score(*b2_args, table=b2_table),
+                    10)
+    # every non-pad slot matches one query: its value read, one FMA
+    b2_slots = int((b2_args[1] >= 0).sum())
+    b2_bound = bound(nbytes(*b2_args[:2]) + 4 * b2_slots
+                     + engine.hot_h * htok.shape[1] * 4,
+                     [(2 * b2_slots, F32_OPS_PER_S)])
     b2_plain_ms = cuda_ms(torch, lambda: ops.ell_score_plain(*b2_args), 3)
-    log(f"[kernels] B1 per batch (all buckets): kernel {b1_ms:.3f} ms, "
-        f"plain {b1_plain_ms:.3f} ms, max_abs_err {b1_err:.3e}")
+    log(f"[kernels] B1 per batch (all buckets): kernel {tot['ms']:.4f} ms; "
+        f"torch.profiler: scans {tot['scan']:.4f} + hot epilogues "
+        f"{tot['hot']:.4f} ms (masked scans alone {tot['masked']:.4f} ms); "
+        f"plain {tot['plain']:.3f} ms = scans {tot['scan_plain']:.3f} + hot "
+        f"{tot['hot_plain']:.3f} ms, max_abs_err {b1_err:.3e}; "
+        f"{int(tot['pairs'])} matching (query, cold posting) pairs a batch; "
+        f"fan-out {int(tot['fan_pairs'])} pairs, scans {tot['fan']:.4f} ms "
+        f"(masked {tot['fan_masked']:.4f} ms)")
     log(f"[kernels] B2 at hot ids ({engine.hot_h}, 1) x hot ELL "
-        f"{tuple(htok.shape)}: kernel {b2_ms:.3f} ms, plain "
+        f"{tuple(htok.shape)}: kernel {b2_ms:.4f} ms, plain "
         f"{b2_plain_ms:.3f} ms, bit-equal")
+    scan_ops = [(2 * tot["pairs"], F32_OPS_PER_S)]
+    hot_ops = [(tot["hot_ops"], BF16_TC_OPS_PER_S)]
     record["ell_score_fused"] = kernel_record(
-        launches["ell_score_fused"], b1_err, b1_ms, b1_plain_ms,
-        bound(b1_bytes, [(2 * cold_postings, F32_OPS_PER_S),
-                         (b1_ops, BF16_TC_OPS_PER_S)]))
+        launches["ell_score_fused"], b1_err, tot["ms"], tot["plain"],
+        bound(tot["scan_bytes"] + tot["hot_bytes"], scan_ops + hot_ops))
+    record["ell_score_scan"] = kernel_record(
+        launches["ell_score_scan"], scan_err, tot["scan"], tot["scan_plain"],
+        bound(tot["scan_bytes"], scan_ops))
+    record["ell_score_hot"] = kernel_record(
+        launches["ell_score_hot"], b1_err, tot["hot"], tot["hot_plain"],
+        bound(tot["hot_bytes"], hot_ops))
     record["ell_score"] = kernel_record(launches["ell_score"], b2_err,
                                         b2_ms, b2_plain_ms, b2_bound)
+    record["ell_table"] = kernel_record(launches["ell_table"], 0.0, table_ms,
+                                        table_plain_ms, bound(table_bytes))
     return index
 
 
@@ -1902,6 +2114,7 @@ def drive(torch, dev) -> dict:
 
     with Phase("3. kernel edge cases"):
         phase_kernel_cases(torch, ops, split_bf16, dev)
+        phase_table_cases(torch, ops, dev)
         phase_gather_cases(torch, gr, dev)
         phase_topk_cases(torch, tk, dev)
         phase_gumbel_cases(torch, tk, dev)

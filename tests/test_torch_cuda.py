@@ -25,7 +25,8 @@ from bm25_tpu_torch.utils.parity import assert_matches_oracle
 port = importlib.import_module("bm25_tpu_torch.ops.ell_score")
 pm = importlib.import_module("bm25_tpu_torch.ops.matmul")
 
-# q, t, rows, l_pad, vocab, h, pad_rows, weighted
+# q, t, rows, l_pad, vocab, h, pad_rows, weighted[, kind] (kind: see
+# make_case)
 CASES = {
     "no_hot": (12, 5, 512, 16, 60, 0, 0, False),
     "hot": (12, 5, 1024, 16, 60, 16, 0, False),
@@ -35,6 +36,27 @@ CASES = {
     "hot_only": (7, 8, 1024, 0, 50, 32, 100, False),
     "weighted": (13, 8, 512, 24, 80, 0, 9, True),
     "weighted_hot_split_counts": (13, 8, 512, 24, 80, 24, 9, True),
+    # the lookup tables' cases: B2's shape over three tables; wide queries
+    # (32 and 4 queries a table); a token in every query; ids past 16
+    # bits; negative values; zero weights; ragged last doc tile (1,000
+    # rows) and query table (300 = 2 x 128 + 44); 1,208 / 1,536 slots
+    "one_token_distinct_ids": (300, 1, 512, 24, 400, 0, 0, False,
+                               "distinct"),
+    "wide_queries_t64": (40, 64, 512, 24, 300, 0, 5, False, "hits"),
+    "wide_queries_t300_weighted": (12, 300, 512, 24, 2000, 0, 5, True,
+                                   "hits"),
+    "fan_out_shared_token": (140, 8, 512, 24, 300, 0, 5, False, "shared"),
+    "fan_out_shared_token_weighted": (140, 8, 512, 24, 300, 0, 5, True,
+                                      "shared"),
+    "ids_above_65535": (13, 8, 512, 24, 100000, 0, 9, False, "hits"),
+    "negative_values": (13, 8, 512, 24, 80, 0, 9, False, "negative"),
+    "zero_weights": (13, 8, 512, 24, 80, 0, 9, True, "zero_weights"),
+    "ragged_tiles": (300, 8, 1000, 24, 300, 0, 5, False, "hits"),
+    "ragged_tiles_weighted_hot": (300, 8, 1000, 24, 300, 40, 5, True,
+                                  "hits"),
+    "slot_tiled_1208_hits": (140, 4, 1024, 1208, 6000, 0, 5, False, "hits"),
+    "slot_tiled_1536_hits_weighted": (40, 4, 512, 1536, 6000, 0, 5, True,
+                                      "hits"),
 }
 
 
@@ -45,7 +67,28 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def make_case(seed, q, t, rows, l_pad, vocab, h, pad_rows, weighted, dev):
+def make_ids(rng, q, t, vocab, tokT, kind):
+    """Query ids (pad, OOV and duplicate ids) for a bucket; kind:
+    "distinct" one distinct id a query (B2's build); "hits" half the ids
+    drawn from the bucket's tokens; "shared" a token in every query (put
+    in half the rows of slot 0 by make_case)."""
+    ids = rng.integers(-1, vocab + 20, (q, t)).astype(np.int32)
+    if kind == "distinct":
+        return rng.permutation(vocab)[:q].reshape(q, 1).astype(np.int32)
+    if kind == "hits":
+        present = tokT[tokT >= 0]
+        pick = rng.random((q, t)) < 0.5
+        ids[pick] = rng.choice(present, int(pick.sum()))
+    elif kind == "shared":
+        ids[:, 2] = vocab + 7
+    ids[0] = -1
+    if t >= 3:
+        ids[1, :3] = ids[1, 0]
+    return ids
+
+
+def make_case(seed, q, t, rows, l_pad, vocab, h, pad_rows, weighted, dev,
+              kind=None):
     rng = np.random.default_rng(seed)
     fill = rng.integers(0, l_pad + 1, rows)
     tokT = np.full((l_pad, rows), -1, np.int32)
@@ -53,13 +96,19 @@ def make_case(seed, q, t, rows, l_pad, vocab, h, pad_rows, weighted, dev):
     for r in range(rows):
         tokT[: fill[r], r] = rng.choice(vocab, fill[r], replace=False)
         valT[: fill[r], r] = rng.standard_normal(fill[r]).astype(np.float32)
-    ids = rng.integers(-1, vocab + 20, (q, t)).astype(np.int32)
-    ids[0] = -1
-    ids[1, :3] = ids[1, 0]
+    if kind == "shared":
+        tokT[0, ::2] = vocab + 7
+        valT[0, ::2] = rng.standard_normal(len(valT[0, ::2]))
+    elif kind == "negative":
+        valT = -np.abs(valT)
+    ids = make_ids(rng, q, t, vocab, tokT, kind)
     did = np.arange(rows, dtype=np.int32)
     if pad_rows:
         did[-pad_rows:] = -1
     w = rng.uniform(0.0, 3.0, (q, t)).astype(np.float32)
+    if kind == "zero_weights":
+        w[:, ::2] = 0.0
+        w[2] = 0.0
 
     def put(a):
         return torch.from_numpy(a).to(dev)
@@ -79,25 +128,110 @@ def make_case(seed, q, t, rows, l_pad, vocab, h, pad_rows, weighted, dev):
     return args, kw
 
 
+def case_args(seed, name, dev):
+    q, t, rows, l_pad, vocab, h, pad_rows, weighted, *kind = CASES[name]
+    return make_case(seed, q, t, rows, l_pad, vocab, h, pad_rows, weighted,
+                     dev, *kind)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(CASES))
 def test_cuda_kernels_match_plain_twins(cuda_device, name):
-    q, t, rows, l_pad, vocab, h, pad_rows, weighted = CASES[name]
-    args, kw = make_case(4, *CASES[name], cuda_device)
+    q, t, rows, l_pad, vocab, h, pad_rows, weighted, *_ = CASES[name]
+    args, kw = case_args(4, name, cuda_device)
     launched = dict(port.launches)
     base_k, gmax_k = port.ell_score_fused(*args, **kw)
+    # the scan runs unless a hot tier scores a bucket with no slots
+    scans = int(bool(l_pad or not h))
     assert port.launches["ell_score_fused"] == \
         launched["ell_score_fused"] + 1
+    assert port.launches["ell_score_scan"] == \
+        launched["ell_score_scan"] + scans
+    assert port.launches["ell_score_hot"] == \
+        launched["ell_score_hot"] + int(bool(h))
+    assert port.launches["ell_table"] == launched["ell_table"] + scans
     base_p, gmax_p = port.ell_score_fused_plain(*args, **kw)
     if not h:
         assert torch.equal(base_k, base_p) and torch.equal(gmax_k, gmax_p)
     else:
         torch.testing.assert_close(base_k, base_p, rtol=1e-5, atol=1e-5)
         torch.testing.assert_close(gmax_k, gmax_p, rtol=1e-5, atol=1e-5)
+        # the ELL-only base stays bit-equal
+        no_hot = {k: v for k, v in kw.items() if k == "weights"}
+        assert torch.equal(port.ell_score_fused(*args[:4], **no_hot)[0],
+                           port.ell_score_fused_plain(*args[:4],
+                                                      **no_hot)[0])
     if l_pad:
         assert torch.equal(port.ell_score(*args[:3]),
                            port.ell_score_plain(*args[:3]))
         assert port.launches["ell_score"] == launched["ell_score"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [n for n in CASES if CASES[n][3]])
+def test_cuda_scan_table_holds_table_pairs(cuda_device, name):
+    """The table kernel's tables hold what table_pairs defines (the slot a
+    colliding key takes may differ from the twin's), every key reachable by
+    linear probing; a table made once serves B1 and B2 alike."""
+    args, kw = case_args(7, name, cuda_device)
+    ids, w = args[0], kw.get("weights")
+    launched = dict(port.launches)
+    table = port.scan_table(ids, w)
+    assert port.launches["ell_table"] == launched["ell_table"] + 1
+    plain = port.scan_table_plain(ids.cpu(), None if w is None else w.cpu())
+    assert (table.qp, table.cap_log2, table.weighted) == (
+        plain.qp, plain.cap_log2, plain.weighted)
+    assert table.words.shape == plain.words.shape
+    assert port.table_contents(table) == port.table_contents(plain)
+    base, gmax = port.ell_score_fused(*args[:4], weights=w, table=table)
+    assert port.launches["ell_table"] == launched["ell_table"] + 1
+    want = port.ell_score_fused_plain(*args[:4], weights=w)
+    assert torch.equal(base, want[0]) and torch.equal(gmax, want[1])
+    if w is None:
+        assert torch.equal(port.ell_score(*args[:3], table=table),
+                           port.ell_score_plain(*args[:3]))
+    else:
+        with pytest.raises(ValueError, match="weights"):
+            port.ell_score(*args[:3], table=table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qp", [port.MAX_TABLE_QUERIES, 32, 4])
+@pytest.mark.parametrize("name", ["wide_slot_tiled", "ragged_tiles",
+                                  "fan_out_shared_token_weighted",
+                                  "wide_queries_t64",
+                                  "one_token_distinct_ids"])
+def test_cuda_scan_bit_equal_at_every_table_size(cuda_device, name, qp):
+    """Both compiled scans (one-token queries and the rest), on tables of
+    at most qp queries (more tables a block, ragged last ones), give the
+    twin's bits, B1 (mask and maxima) and B2 alike."""
+    args, kw = case_args(8, name, cuda_device)
+    w = kw.get("weights")
+    table = port.scan_table(args[0], w, qp)
+    assert table.qp <= qp
+    got = port.ell_score_fused(*args[:4], weights=w, table=table)
+    want = port.ell_score_fused_plain(*args[:4], weights=w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if w is None:
+        assert torch.equal(port.ell_score(*args[:3], table=table),
+                           port.ell_score_plain(*args[:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1001, 1003, 130, 4097])
+def test_cuda_b2_rows_off_a_multiple_of_4(cuda_device, rows):
+    """B2 takes any row count: off a multiple of 4 the scan writes a row a
+    thread (no 16-byte units)."""
+    rng = np.random.default_rng(rows)
+    tokT = np.full((12, rows), -1, np.int32)
+    valT = np.zeros((12, rows), np.float32)
+    for r in range(rows):
+        f = rng.integers(0, 13)
+        tokT[:f, r] = rng.choice(200, f, replace=False)
+        valT[:f, r] = rng.standard_normal(f)
+    ids = rng.permutation(200)[:150].reshape(150, 1).astype(np.int32)
+    args = [torch.from_numpy(x).to(cuda_device) for x in (ids, tokT, valT)]
+    assert torch.equal(port.ell_score(*args), port.ell_score_plain(*args))
 
 
 # B1's hot epilogue (wgmma over the tokens hot_plan lists): q, t, rows,
