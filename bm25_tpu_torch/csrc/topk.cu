@@ -51,10 +51,30 @@
 // counter-based hash of (seed, row, column) gives 32 random bits (the TPU
 // PRNG cannot be reproduced), then the JAX kernel's steps: the top 24 bits
 // u = bits * 2^-24 + 1e-12, g = -log(-log u), z = logit + g, first argmax.
-// One warp per row; each lane walks its columns, then a warp reduction
-// keeps the larger z and, among equal z, the smaller column.  Bounded by
-// two logf per element; negligible at the sampling shapes.
+// The pick is order-free: a NaN z ranks above every number and, among
+// equal z or NaNs, the smaller column wins (torch.argmax's and
+// jnp.argmax's order), so a row of NaNs picks column 0 and no column >= k
+// is ever written.  Each lane takes runs of 4 consecutive columns (one
+// 16-byte load where k % 4 == 0 and the logits are aligned), and the
+// wrapper picks one of three layouts from B, k and the SM count, so that
+// few rows still fill the card:
+//   * a warp per row (8 rows a block) where B alone gives every SM
+//     several warps;
+//   * a block per row where a row needs more lanes; its warps combine
+//     their (z, column) pairs in shared memory;
+//   * a thread-block cluster per row (2-8 blocks, the portable sizes)
+//     where one block a row would leave SMs idle: the row's columns are
+//     cut into one slice per block, and after cluster.sync() the first
+//     block reads the others' pairs through distributed shared memory.
+//     One launch, no global scratch, no atomics.
+// The seed is a kernel argument or, to spare the caller a host sync, the
+// low 32 bits of an int64 on the device.  With an id tensor the kernel
+// writes idx[row, choice], the sampled id, in the same launch.  What it
+// must move is the logits' bytes; what holds it at few wide rows is the
+// two accurate logf a column (a polynomial: no special-function
+// instruction), and at the sampling shapes the launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -73,7 +93,8 @@ constexpr int SORT_SMEM_KEYS = 16384;  // 128 KB of packed pairs
 constexpr int LSD_THREADS = 512;
 constexpr int LSD_WARPS = LSD_THREADS / 32;
 constexpr int MAX_GRID_Y = 65535;
-constexpr int CHOICE_THREADS = 256;
+constexpr int CHOICE_MAX_THREADS = 1024;
+constexpr int CHOICE_MAX_CLUSTER = 8;  // the portable limit
 
 // order key: unsigned order == float order; NaN largest; -0 == +0
 __device__ __forceinline__ uint32_t order_key(float x) {
@@ -620,37 +641,128 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   return x;
 }
 
-__global__ void __launch_bounds__(CHOICE_THREADS)
-gumbel_choice(const float* __restrict__ logits, int b_count, int k,
-              uint32_t seed, long long* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * (CHOICE_THREADS / 32) + threadIdx.x / 32;
-  if (row >= b_count) return;  // whole warps leave together
-  const uint32_t h_row = mix32(mix32(seed) ^ (uint32_t)row);
-  const float* x = logits + (int64_t)row * k;
-  float best = -CUDART_INF_F;
-  int best_c = 0x7fffffff;
-  for (int c = lane; c < k; c += 32) {
-    const uint32_t bits = mix32(h_row ^ (uint32_t)c);
-    // 2^-24 and 1e-12 as f32; the product is exact
-    const float u = __fadd_rn(__fmul_rn((float)(bits >> 8), 0x1p-24f),
-                              0x1.197998p-40f);
-    const float z = __fadd_rn(x[c], -logf(-logf(u)));
-    if (z > best || (z == best && c < best_c)) {
-      best = z;
-      best_c = c;
-    }
+// B5's order on (z, column) pairs: NaN above every number, then the
+// larger z, then the smaller column.  A strict order on distinct columns,
+// so any reduction tree gives the first argmax.
+__device__ __forceinline__ bool beats(float z, int c, float bz, int bc) {
+  const bool zn = isnan(z), bn = isnan(bz);
+  if (zn || bn) return zn && (!bn || c < bc);
+  return z > bz || (z == bz && c < bc);
+}
+
+__device__ __forceinline__ void keep(float z, int c, float& bz, int& bc) {
+  if (beats(z, c, bz, bc)) {
+    bz = z;
+    bc = c;
   }
+}
+
+__device__ __forceinline__ void warp_keep(float& bz, int& bc) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float z = __shfl_xor_sync(0xffffffffu, best, o);
-    const int c = __shfl_xor_sync(0xffffffffu, best_c, o);
-    if (z > best || (z == best && c < best_c)) {
-      best = z;
-      best_c = c;
+    const float z = __shfl_xor_sync(0xffffffffu, bz, o);
+    const int c = __shfl_xor_sync(0xffffffffu, bc, o);
+    keep(z, c, bz, bc);
+  }
+}
+
+// z of column c: the logit plus the Gumbel noise of (row hash, c)
+__device__ __forceinline__ float gumbel_z(float logit, uint32_t h_row, int c) {
+  const uint32_t bits = mix32(h_row ^ (uint32_t)c);
+  // 2^-24 and 1e-12 as f32; the product is exact
+  const float u = __fadd_rn(__fmul_rn((float)(bits >> 8), 0x1p-24f),
+                            0x1.197998p-40f);
+  return __fadd_rn(logit, -logf(-logf(u)));
+}
+
+// B5's layouts: a warp a row (blockDim.x / 32 rows a block), a block a
+// row, a cluster a row (each block on its slice of the row)
+enum ChoiceLayout { WARP_ROWS = 0, BLOCK_ROW = 1, CLUSTER_ROW = 2 };
+
+// out[row] = the chosen column of row's logits, or idx[row, column] when
+// idx is given.
+template <int LAYOUT>
+__global__ void __launch_bounds__(CHOICE_MAX_THREADS)
+gumbel_choice(const float* __restrict__ x, int b_count, int k,
+              const long long* __restrict__ seed_ptr, uint32_t seed,
+              const long long* __restrict__ idx, bool vec,
+              long long* __restrict__ out) {
+  __shared__ float s_z[32];
+  __shared__ int s_c[32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int group = LAYOUT == WARP_ROWS ? 32 : (int)blockDim.x;
+  const int g = LAYOUT == WARP_ROWS ? lane : (int)threadIdx.x;
+  int row = LAYOUT == WARP_ROWS ? (int)(blockIdx.x * (blockDim.x / 32)) + warp
+                                : (int)blockIdx.x;
+  int lo = 0, hi = k, parts = 1, part = 0;
+  if constexpr (LAYOUT == CLUSTER_ROW) {
+    asm("mov.u32 %0, %%clusterid.x;" : "=r"(row));
+    asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(parts));
+    asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(part));
+    // this block's slice of the row: a multiple of 4 columns
+    const int slice = (k + 4 * parts - 1) / (4 * parts) * 4;
+    lo = part * slice;
+    hi = min(k, lo + slice);
+  }
+  float bz = -CUDART_INF_F;
+  int bc = 0x7fffffff;  // loses to every column
+  if (row < b_count) {
+    const float* xr = x + (int64_t)row * k;
+    const uint32_t s = seed_ptr ? (uint32_t)*seed_ptr : seed;
+    const uint32_t h_row = mix32(mix32(s) ^ (uint32_t)row);
+    for (int c = lo + 4 * g; c < hi; c += 4 * group) {
+      float v[4];
+      if (vec) {  // k % 4 == 0: the run lies inside the slice
+        const float4 q = *reinterpret_cast<const float4*>(xr + c);
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = c + j < hi ? xr[c + j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c + j >= hi) break;
+        keep(gumbel_z(v[j], h_row, c + j), c + j, bz, bc);
+      }
     }
   }
-  if (lane == 0) out[row] = best_c;
+  warp_keep(bz, bc);
+  if (LAYOUT != WARP_ROWS && blockDim.x > 32) {  // the block's warps
+    if (lane == 0) {
+      s_z[warp] = bz;
+      s_c[warp] = bc;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const bool have = lane < (int)blockDim.x / 32;
+      bz = have ? s_z[lane] : -CUDART_INF_F;
+      bc = have ? s_c[lane] : 0x7fffffff;
+      warp_keep(bz, bc);
+    }
+  }
+  if constexpr (LAYOUT == CLUSTER_ROW) {  // block 0 reads every block's pair
+    __shared__ float s_part_z;
+    __shared__ int s_part_c;
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    if (threadIdx.x == 0) {
+      s_part_z = bz;
+      s_part_c = bc;
+    }
+    cluster.sync();
+    if (part == 0 && warp == 0) {
+      const bool have = lane < parts;
+      bz = have ? *cluster.map_shared_rank(&s_part_z, lane) : -CUDART_INF_F;
+      bc = have ? *cluster.map_shared_rank(&s_part_c, lane) : 0x7fffffff;
+      warp_keep(bz, bc);
+    }
+    cluster.sync();  // no block leaves while its pair may still be read
+  }
+  if (g == 0 && part == 0 && row < b_count)
+    out[row] = idx ? idx[(int64_t)row * k + bc] : (long long)bc;
 }
 
 }  // namespace
@@ -721,16 +833,58 @@ int bm25_topk_select(const float* x, int rows, int n, int k, int slices,
   return (int)cudaGetLastError();
 }
 
-// B5: (B, k) f32 logits, 32-bit seed -> out (B,) int64 chosen columns.
-int bm25_gumbel_choice(const float* logits, int b_count, int k,
-                       unsigned int seed, long long* out, void* stream) {
+// B5: (B, k) f32 logits x -> out (B,) int64: the Gumbel-max column of
+// each row, or idx[row, column] where idx (B, k) int64 is given.  The
+// seed is the low 32 bits of *seed_ptr (an int64 on the device) or, where
+// seed_ptr is null, `seed`.  Layout (ChoiceLayout): a warp a row, threads
+// / 32 rows a block; a block of `threads` a row; or a cluster of
+// `cluster` such blocks a row (a refused launch returns its error).
+// Launches on `device` (the current device is restored).
+int bm25_gumbel_choice(const float* x, int b_count, int k,
+                       const long long* seed_ptr, unsigned int seed,
+                       const long long* idx, int layout, int threads,
+                       int cluster, long long* out, int device,
+                       void* stream_ptr) {
   if (b_count <= 0) return 0;
-  if (k <= 0) return (int)cudaErrorInvalidValue;
-  const int rows_per_block = CHOICE_THREADS / 32;
-  const int grid = (b_count + rows_per_block - 1) / rows_per_block;
-  gumbel_choice<<<grid, CHOICE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      logits, b_count, k, seed, out);
-  return (int)cudaGetLastError();
+  if (k <= 0 || k > (1 << 30) || layout < WARP_ROWS || layout > CLUSTER_ROW ||
+      threads < 32 || threads % 32 || threads > CHOICE_MAX_THREADS ||
+      (layout == CLUSTER_ROW) != (cluster > 1) ||
+      cluster > CHOICE_MAX_CLUSTER)
+    return (int)cudaErrorInvalidValue;
+  int current = device;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const uint32_t sd = seed;
+  if (layout == WARP_ROWS) {
+    const int rows = threads / 32;
+    gumbel_choice<WARP_ROWS><<<(b_count + rows - 1) / rows, threads, 0,
+                                stream>>>(x, b_count, k, seed_ptr, sd, idx,
+                                          vec, out);
+    err = cudaGetLastError();
+  } else if (layout == BLOCK_ROW) {
+    gumbel_choice<BLOCK_ROW><<<b_count, threads, 0, stream>>>(
+        x, b_count, k, seed_ptr, sd, idx, vec, out);
+    err = cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)b_count * cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, gumbel_choice<CLUSTER_ROW>, x, b_count, k,
+                             seed_ptr, sd, idx, vec, out);
+  }
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
 }
 
 }  // extern "C"

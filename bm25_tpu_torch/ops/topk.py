@@ -18,13 +18,18 @@ ties to the smaller index, distinct indices.  Indices are int64.
   hand-written kernels of ``csrc/topk.cu`` on CUDA tensors; only a tensor
   on the CPU runs their plain twins (``topk_two_stage_plain``,
   ``gumbel_choice_plain``), which follow the kernels step for step.
-* ``top_k_blockwise`` and ``top_k_fused_sampling``.
+* ``top_k_blockwise`` and ``top_k_fused_sampling``, whose ``"pallas"``
+  step (``gumbel_sample``: the logits, then B5's choice and the sampled
+  id in one launch; twin ``gumbel_sample_plain``) reads its seed on the
+  card.
 * ``union_group_select`` / ``gather_group_candidates``: one group
   tournament across buckets, and the candidates of the won groups (plain
   PyTorch on the tree, as in JAX; not wired into ``SparseEngine`` yet).
 
 NaN: the tree ranks NaN smallest, B4 (like the Pallas kernel) largest;
-callers mask non-finite scores first, as every engine does.
+callers mask non-finite scores first, as every engine does.  B5 ranks a
+NaN z largest and takes the first, as ``argmax`` does (a fully -inf row
+of top-k values gives NaN logits and samples its first id).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import ctypes
 import functools
 import logging
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -314,7 +320,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bm25_topk_select.argtypes = [p, i, i, i, i, i, i] + [p] * 12
     lib.bm25_topk_select.restype = i
-    lib.bm25_gumbel_choice.argtypes = [p, i, i, ctypes.c_uint32, p, p]
+    lib.bm25_gumbel_choice.argtypes = [p, i, i, p, ctypes.c_uint32, p, i, i,
+                                       i, p, i, p]
     lib.bm25_gumbel_choice.restype = i
     return lib
 
@@ -514,11 +521,18 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise_plain(seed: int, b: int, k: int,
+def _seed_value(seed) -> int:
+    """A seed's low 32 bits: an int, or a one-element integer tensor."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(()).item()
+    return int(seed) & _M32
+
+
+def gumbel_noise_plain(seed, b: int, k: int,
                        device: torch.device | str = "cpu") -> torch.Tensor:
     """B5's (B, k) f32 Gumbel noise ``-log(-log u)`` for ``seed``: the hash
     of (seed, row, column), its top 24 bits as u = bits * 2^-24 + 1e-12."""
-    s = _mix32(torch.tensor(int(seed) & _M32, dtype=torch.int64,
+    s = _mix32(torch.tensor(_seed_value(seed), dtype=torch.int64,
                             device=device))
     rows = torch.arange(b, dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(k, dtype=torch.int64, device=device)[None, :]
@@ -528,32 +542,161 @@ def gumbel_noise_plain(seed: int, b: int, k: int,
     return -torch.log(-torch.log(u))
 
 
-def gumbel_choice_plain(logits: torch.Tensor, seed: int) -> torch.Tensor:
-    """Plain PyTorch twin of B5: (B,) int64 first argmax of logits + noise."""
+def gumbel_choice_plain(logits: torch.Tensor, seed) -> torch.Tensor:
+    """Plain PyTorch twin of B5: (B,) int64 first argmax of logits + noise
+    (NaN ranks largest, ties to the smaller column)."""
     plain_calls["gumbel_choice"] += 1
     b, k = logits.shape
     z = logits + gumbel_noise_plain(seed, b, k, logits.device)
     return z.argmax(dim=1)
 
 
-def gumbel_choice(logits: torch.Tensor, seed: int) -> torch.Tensor:
-    """B5: one column per row of (B, k) f32 temperature-scaled logits,
-    drawn by Gumbel-max with the 32-bit ``seed`` -> (B,) int64."""
-    if logits.device.type == "cpu":
-        return gumbel_choice_plain(logits, seed)
-    _check_cuda_f32(logits, "logits", "gumbel_choice")
-    b, k = logits.shape
-    out = torch.empty((b,), dtype=torch.int64, device=logits.device)
+# B5's layouts (csrc/topk.cu): a lane takes at least CHOICE_MIN_COLS
+# columns (two 16-byte loads), an SM holds CHOICE_FILL threads, a block
+# at most CHOICE_BLOCK, a cluster 2-8 blocks (the portable sizes), each of
+# CHOICE_BLOCK threads on at least CLUSTER_BLOCK_COLS columns (16 a lane:
+# a cluster's block costs more to start and to join than a block a row's)
+CHOICE_MIN_COLS = 8
+CHOICE_FILL = 2048
+CHOICE_BLOCK = 1024
+CLUSTER_BLOCK_COLS = 16 * CHOICE_BLOCK
+CHOICE_CLUSTERS = (8, 4, 2)
+
+
+class ChoicePlan(NamedTuple):
+    """A B5 launch of ``threads``-thread blocks: a warp a row ("warp"), a
+    block a row ("block"), or a cluster of ``cluster`` blocks a row
+    ("cluster")."""
+    layout: str
+    threads: int
+    cluster: int
+
+
+WARP_PLAN = ChoicePlan("warp", 256, 1)
+# csrc/topk.cu ChoiceLayout
+_LAYOUTS = {"warp": 0, "block": 1, "cluster": 2}
+
+
+def choice_plan(b: int, k: int, sms: int) -> ChoicePlan:
+    """B5's layout for (B, k) logits on a card of ``sms`` SMs.
+
+    Each row gets the lanes that make the rows fill the card (CHOICE_FILL
+    threads an SM), but no fewer than CHOICE_MIN_COLS columns a lane: a
+    warp a row where 32 lanes do, a block (64-1,024 threads) where one
+    block does, else the largest cluster whose blocks each get
+    CLUSTER_BLOCK_COLS columns or more (its size rounded up to a power of
+    two) and of which every row's fits on the card at once; a
+    1,024-thread block where there is none.  (The picks at (512, 100),
+    (512, 1,000), (64, 32,768) and (8, 131,072) were the fastest or within
+    3% of the fastest layout on an H100: ``bench/b5_times.py``.)
+    """
+    lanes = min(cdiv(sms * CHOICE_FILL, max(b, 1)), cdiv(k, CHOICE_MIN_COLS))
+    if lanes <= 32:
+        return WARP_PLAN
+    if lanes <= CHOICE_BLOCK:
+        return ChoicePlan("block", max(64, 1 << (lanes - 1).bit_length()), 1)
+    want = 1 << (cdiv(k, CLUSTER_BLOCK_COLS) - 1).bit_length()
+    blocks = sms * CHOICE_FILL // CHOICE_BLOCK
+    for c in CHOICE_CLUSTERS:
+        if c <= want and b * c <= blocks:
+            return ChoicePlan("cluster", CHOICE_BLOCK, c)
+    return ChoicePlan("block", CHOICE_BLOCK, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(b: int, k: int, index: int) -> ChoicePlan:
+    return choice_plan(b, k, _sm_count(index))
+
+
+def _gumbel_launch(x: torch.Tensor, seed, idx: torch.Tensor | None = None,
+                   plan: ChoicePlan | None = None) -> torch.Tensor:
+    """One B5 launch on (B, k) f32 logits ``x`` -> (B,) int64: the chosen
+    column of each row, or ``idx[row, column]`` where ``idx`` is given.  A
+    ``seed`` tensor on ``x``'s device is read there (no host sync).
+    ``plan`` overrides the layout ``choice_plan`` picks (tests force each
+    one).  The host work is kept small: the raw stream handle, not a
+    ``torch.cuda.Stream``, and no device context (the C entry sets the
+    device only where it is not current)."""
+    _check_cuda_f32(x, "logits", "gumbel_choice")
+    b, k = x.shape
+    dev = x.device
+    if idx is not None and (idx.dtype != torch.int64 or idx.shape != x.shape
+                            or idx.device != dev
+                            or not idx.is_contiguous()):
+        raise TypeError(f"idx must be a contiguous int64 {(b, k)} tensor on "
+                        f"{dev}, got {idx.dtype} {tuple(idx.shape)} on "
+                        f"{idx.device}")
+    out = torch.empty((b,), dtype=torch.int64, device=dev)
     if b == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = lib.bm25_gumbel_choice(logits.data_ptr(), b, k,
-                                     int(seed) & _M32, out.data_ptr(), stream)
-    _build.check(lib, err, "bm25_gumbel_choice launch")
+    if plan is None:
+        plan = _device_plan(b, k, dev.index)
+    seed_ptr = None
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise TypeError("a seed tensor must hold one int64, got "
+                            f"{seed.dtype} {tuple(seed.shape)}")
+        if seed.device == dev:
+            seed_ptr, seed = seed.data_ptr(), 0
+    err = _lib().bm25_gumbel_choice(
+        x.data_ptr(), b, k, seed_ptr, _seed_value(seed),
+        None if idx is None else idx.data_ptr(), _LAYOUTS[plan.layout],
+        plan.threads, plan.cluster, out.data_ptr(), dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    _build.check(_lib(), err, "bm25_gumbel_choice launch")
     launches["gumbel_choice"] += 1
     return out
+
+
+def gumbel_choice(logits: torch.Tensor, seed) -> torch.Tensor:
+    """B5: one column per row of (B, k) f32 temperature-scaled logits,
+    drawn by Gumbel-max with a 32-bit seed -> (B,) int64.  ``seed`` is an
+    int or a one-element int64 tensor (its low 32 bits; read on the card
+    where it lies on the logits' device)."""
+    if logits.device.type == "cpu":
+        return gumbel_choice_plain(logits, seed)
+    return _gumbel_launch(logits, seed)
+
+
+def _sample_logits(vals: torch.Tensor, temperature) -> torch.Tensor:
+    """The sampling step's logits ``(v - v[..., :1]) / t`` in vals' dtype,
+    t = max(temperature, 1e-6) as JAX takes it; a number ``t`` reaches
+    vals' device by a fill, not a host-to-device copy."""
+    t = torch.clamp_min(torch.as_tensor(temperature, dtype=vals.dtype), 1e-6)
+    if t.device != vals.device:
+        t = torch.full((), float(t), dtype=vals.dtype, device=vals.device)
+    return (vals - vals[..., :1]) / t
+
+
+def gumbel_sample_plain(vals: torch.Tensor, idxs: torch.Tensor, seed,
+                        temperature=1.0) -> torch.Tensor:
+    """Plain twin of the fused sampling step on (..., k) top-k values and
+    ids: the logits, B5's choice (its twin), the sampled id -> (..., 1)."""
+    k = vals.shape[-1]
+    flat = _sample_logits(vals, temperature).float().reshape(-1, k)
+    choice = gumbel_choice_plain(flat, seed)
+    return torch.gather(idxs, -1, choice.reshape(vals.shape[:-1] + (1,)))
+
+
+def _rows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x as contiguous (rows, k), a copy only where it must be."""
+    if x.dim() == 2 and x.is_contiguous():
+        return x
+    return x.reshape(-1, k).contiguous()
+
+
+def gumbel_sample(vals: torch.Tensor, idxs: torch.Tensor, seed,
+                  temperature=1.0) -> torch.Tensor:
+    """The fused sampling step on (..., k) top-k values and int64 ids ->
+    (..., 1) sampled ids: the logits formed in the values' dtype, as JAX
+    forms them, then one B5 launch that writes the sampled id,
+    ``idxs[..., choice]``."""
+    if vals.device.type == "cpu":
+        return gumbel_sample_plain(vals, idxs, seed, temperature)
+    k = vals.shape[-1]
+    logits = _sample_logits(vals, temperature).float()
+    out = _gumbel_launch(_rows(logits, k), seed, _rows(idxs, k))
+    return out.reshape(vals.shape[:-1] + (1,))
 
 
 def top_k_fused_sampling(x, k: int, temperature: float = 1.0, axis: int = -1,
@@ -569,8 +712,10 @@ def top_k_fused_sampling(x, k: int, temperature: float = 1.0, axis: int = -1,
     ``generator`` (a ``torch.Generator``; None: the default generator of
     ``x``'s device) takes the place of the JAX version's PRNG key.
     ``implementation="torch"`` draws Gumbel noise from it with
-    ``torch.rand``; ``"pallas"`` draws one 32-bit seed from it and runs
-    kernel B5, so equal generator states give equal draws.
+    ``torch.rand``; ``"pallas"`` draws one 32-bit seed from it, as a
+    tensor on the generator's device, and runs the fused step
+    (``gumbel_sample``: the logits, then one B5 launch), so equal generator
+    states give equal draws and a CUDA generator costs no host sync.
     """
     x = torch.as_tensor(x)
     if implementation not in ("torch", "pallas"):
@@ -579,21 +724,18 @@ def top_k_fused_sampling(x, k: int, temperature: float = 1.0, axis: int = -1,
     axis = axis % x.dim()
     vals_last = torch.movedim(vals, axis, -1)
     idxs_last = torch.movedim(idxs, axis, -1)
-    t = torch.clamp_min(torch.as_tensor(temperature, dtype=vals_last.dtype,
-                                        device=vals_last.device), 1e-6)
-    logits = (vals_last - vals_last[..., :1]) / t
-    flat = logits.float().reshape(-1, k).contiguous()
-    gen_device = generator.device if generator is not None else flat.device
+    gen_device = generator.device if generator is not None else vals.device
     if implementation == "pallas":
-        seed = int(torch.randint(0, 2**32, (1,), generator=generator,
-                                 device=gen_device).item())
-        choice = gumbel_choice(flat, seed)
+        seed = torch.randint(0, 2**32, (1,), generator=generator,
+                             device=gen_device)
+        sampled = gumbel_sample(vals_last, idxs_last, seed, temperature)
     else:
+        flat = _sample_logits(vals_last, temperature).float().reshape(-1, k)
         u = torch.rand(flat.shape, generator=generator, device=gen_device)
         u = u.to(flat.device).clamp_min(torch.finfo(torch.float32).tiny)
         choice = (flat - torch.log(-torch.log(u))).argmax(dim=1)
-    sampled = torch.gather(idxs_last, -1,
-                           choice.reshape(logits.shape[:-1] + (1,)))
+        sampled = torch.gather(idxs_last, -1,
+                               choice.reshape(vals_last.shape[:-1] + (1,)))
     return vals, torch.movedim(sampled, -1, axis)
 
 

@@ -19,8 +19,18 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    B4 (heavy ties, -inf rows, k = N, ragged rows, rows split over
    blocks, k beyond the shared-memory sort, the side buffer on and off,
    +-0/NaN/+-inf (-0 kept), k wider than JAX's chunk (the tree, counted),
-   largest=False: values and indices equal to the twin and the tree); B5 (membership, determinism per seed, greedy
-   at temperature -> 0, the twin's choices up to float noise in z); the
+   largest=False: values and indices equal to the twin and the tree); B5
+   (rows of NaN, NaN among numbers and NaN after -inf, which must pick the
+   first NaN column, in every layout; each layout, the wrapper's pick,
+   a warp a row, a block a row and clusters of 2 and 8 blocks, at
+   (300, 100), (512, 1,000), (64, 32,768), (8, 131,072) and (13, 50,001),
+   deterministic per seed and the twin's choices up to float noise in z;
+   rows of -inf with one 0 at each edge of a run, a lane's stride or a
+   cluster's slice, which must pick that column, in every layout;
+   membership, greedy at temperature -> 0, a fully -inf row through
+   ``top_k_fused_sampling``, which must sample its first top-k id, and
+   that call with a CUDA generator under
+   ``torch.cuda.set_sync_debug_mode("error")``); the
    scan's lookup tables (B2's one-token queries over three tables, rows
    off a multiple of 4, T = 64 and 300, a token in every query, ids past
    16 bits, negative values, zero weights, 1,208 and 1,536 slots): each
@@ -51,9 +61,13 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    100) logits), with B4/B5's launch counts over this phase; then B3, B4
    and B5 against their twins at these shapes (B4 also without its side
    buffer (``SIDE_MAX = 0``), with the fill its side buffer would need
-   after an 11- or a 13-bit first digit, and beside ``torch.topk``), and
+   after an 11- or a 13-bit first digit, and beside ``torch.topk``; B5
+   also as the fused step: the logits, then choice and sampled id in one
+   launch),
    B4 on 524,288-wide random scores at (512, k=1000), (8, k=100) and (64,
-   k=32,768), all timed, B4 also per kernel (``torch.profiler``);
+   k=32,768), and B5 on (512, 1,000), (64, 32,768) and (8, 131,072)
+   logits from ``default_rng(0)``, all timed, B4 and B5 also per kernel
+   (``torch.profiler``);
 7. library entry: ``Retriever`` over a small corpus with the engine
    ``create_engine`` picks (dense), then ``Retriever.fit`` building the
    port's engine itself, both against ``ReferenceEngine``;
@@ -535,6 +549,13 @@ def b4_kernel_us(torch, tk, x, k, calls: int = 5) -> dict:
                      ("radix_", "sort_"), calls)
 
 
+def b5_device_us(torch, tk, logits, calls: int = 10) -> float:
+    """Device microseconds a launch of B5's kernel on ``logits``."""
+    us = launch_us(torch, lambda: tk.gumbel_choice(logits, 12345),
+                   ("gumbel_choice",), calls)
+    return sum(us.values()) / max(len(us), 1)
+
+
 def b4_side_buffer_fill(torch, tk, x, kth, bits: int) -> int:
     """The most keys of any row of ``x`` at or above the top ``bits`` bits
     of its k-th key ``kth``: what B4's side buffer must hold after a first
@@ -623,21 +644,101 @@ def choice_err(torch, tk, logits, seed, got, want) -> float:
     return float(diff.max().item())
 
 
+def b5_edge_columns(k: int) -> list:
+    """Columns at the edges of what a lane, a warp, a block or a cluster's
+    block reads in any B5 layout: the row's ends, a lane's 4-column runs,
+    the strides of 32-1,024 lanes, and the slices of clusters of 2-8."""
+    cols = {0, 1, 2, 3, 4, 5, 31, 32, 33, k - 5, k - 4, k - 3, k - 2, k - 1}
+    for lanes in (32, 64, 128, 256, 1024):
+        cols |= {4 * lanes - 1, 4 * lanes, 4 * lanes + 1}
+    for c in (2, 4, 8):
+        s = -(-k // (4 * c)) * 4
+        for p in range(1, c):
+            cols |= {p * s - 1, p * s, p * s + 1}
+    return sorted(c for c in cols if 0 <= c < k)
+
+
+def b5_nan_rows(torch, dev):
+    """Rows whose choice does not depend on the noise -> (logits, the
+    choices): all NaN, NaN among numbers (the first NaN wins), all -inf,
+    NaN after -inf."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (6, 37)).astype(np.float32))
+    x[0] = float("nan")
+    x[1, [7, 20]] = float("nan")
+    x[2, -1] = float("nan")
+    x[3] = float("-inf")
+    x[4, :30] = float("-inf")
+    x[4, [31, 33]] = float("nan")
+    x[5, 0] = float("nan")
+    return x.to(dev), [0, 7, 36, 0, 31, 0]
+
+
 def phase_gumbel_cases(torch, tk, dev) -> None:
-    """B5: twin agreement, determinism per seed, membership, greedy."""
+    """B5: NaN rows in every layout; twin agreement and determinism per
+    seed in every layout at the sampling shapes and a ragged one;
+    membership; greedy; a fully -inf row through the sampling call; no
+    host sync in the sampling call with a CUDA generator."""
+    plans = {"wrapper's": None, "warp": tk.WARP_PLAN,
+             "block": tk.ChoicePlan("block", 1024, 1),
+             "cluster of 2": tk.ChoicePlan("cluster", 1024, 2),
+             "cluster of 8": tk.ChoicePlan("cluster", 1024, 8)}
+    x, want = b5_nan_rows(torch, dev)
+    wide = torch.full((3, 50001), float("nan"), device=dev)
+    wide[1, 40000] = 1.0
+    wide[2] = float("-inf")
+    wide[2, 49999] = float("nan")
+    for name, plan in plans.items():
+        for seed in (0, 1, 2**32 - 1):
+            got = tk._gumbel_launch(x, seed, plan=plan)
+            if got.tolist() != want or not torch.equal(
+                    got, tk.gumbel_choice_plain(x, seed)):
+                raise AssertionError(f"B5 ({name} layout) on NaN rows: "
+                                     f"{got.tolist()}, want {want}")
+        got = tk._gumbel_launch(wide, 5, plan=plan).tolist()
+        if got != [0, 0, 49999]:
+            raise AssertionError(f"B5 ({name} layout) on wide NaN rows: "
+                                 f"{got}")
+    log("[kernels] B5 on NaN rows (all NaN, NaN among numbers and after "
+        "-inf, 37 and 50,001 wide): the first NaN column, equal to the "
+        "twin, in every layout")
+    for k in (37, 100, 4099, 50001, 131072):
+        cols = b5_edge_columns(k)
+        x = torch.full((len(cols), k), float("-inf"), device=dev)
+        x[torch.arange(len(cols)), torch.tensor(cols)] = 0.0
+        for name, plan in plans.items():
+            got = tk._gumbel_launch(x, 9, plan=plan).tolist()
+            if got != cols:
+                raise AssertionError(f"B5 ({name} layout) at k={k} missed an "
+                                     f"edge column: {got}, want {cols}")
+    log("[kernels] B5 on rows of -inf with one 0 at each edge of a run, a "
+        "lane's stride or a cluster's slice (k = 37 to 131,072): that "
+        "column, in every layout")
     rng = np.random.default_rng(3)
-    logits = torch.from_numpy(rng.standard_normal((300, 100)).astype(
-        np.float32)).to(dev)
-    logits[0, 50:] = float("-inf")
-    for seed in (0, 1, 2**32 - 1):
-        got = tk.gumbel_choice(logits, seed)
-        if not torch.equal(got, tk.gumbel_choice(logits, seed)):
-            raise AssertionError("B5: same seed, different choices")
-        choice_err(torch, tk, logits, seed, got,
-                   tk.gumbel_choice_plain(logits, seed))
-        if int(got[0]) >= 50:
-            raise AssertionError("B5 chose a -inf column")
+    for b, k in ((300, 100), (512, 1000), (64, 32768), (8, 131072),
+                 (13, 50001)):
+        logits = torch.from_numpy(rng.standard_normal((b, k)).astype(
+            np.float32)).to(dev)
+        logits[0, k // 2:] = float("-inf")
+        err = 0.0
+        for name, plan in plans.items():
+            for seed in (0, 1, 2**32 - 1):
+                got = tk._gumbel_launch(logits, seed, plan=plan)
+                if not torch.equal(got, tk._gumbel_launch(logits, seed,
+                                                          plan=plan)):
+                    raise AssertionError(f"B5 ({name} layout) at ({b}, {k})"
+                                         ": same seed, different choices")
+                err = max(err, choice_err(torch, tk, logits, seed, got,
+                                          tk.gumbel_choice_plain(logits,
+                                                                 seed)))
+                if int(got[0]) >= k // 2:
+                    raise AssertionError("B5 chose a -inf column")
+        log(f"[kernels] B5 at ({b}, {k}) (the wrapper picks the "
+            f"{tk._device_plan(b, k, dev.index or 0).layout} layout): every "
+            f"layout deterministic per seed and the twin's choices up to "
+            f"float noise (max z gap {err:.3e})")
     x = torch.from_numpy(rng.random((64, 2000), np.float32)).to(dev)
+    x[5] = float("-inf")
     _, ti = tk.top_k_tree(x, 10)
     gen = torch.Generator(device=dev)
     _, s1 = tk.top_k_fused_sampling(x, 10, implementation="pallas",
@@ -647,13 +748,24 @@ def phase_gumbel_cases(torch, tk, dev) -> None:
     if not torch.equal(s1, s2) or not bool((s1 == ti).any(dim=1).all()):
         raise AssertionError("B5 sampling: not deterministic per seed, or "
                              "a choice outside the top k")
+    if int(s1[5, 0]) != 0:
+        raise AssertionError("B5 sampling on a fully -inf row: "
+                             f"{int(s1[5, 0])}, not its first top-k id 0")
     _, greedy = tk.top_k_fused_sampling(x, 10, temperature=0.0,
                                         implementation="pallas",
                                         generator=gen)
     if not torch.equal(greedy[:, 0], ti[:, 0]):
         raise AssertionError("B5 at temperature 0 is not greedy")
-    log("[kernels] B5: twin's choices up to float noise, deterministic per "
-        "seed, members of the top k, greedy at temperature 0")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tk.top_k_fused_sampling(x, 10, implementation="pallas",
+                                generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[kernels] B5 sampling: deterministic per seed, members of the top "
+        "k, a fully -inf row's first top-k id, greedy at temperature 0, "
+        "and no host sync with a CUDA generator (sync debug mode 'error')")
 
 
 def sparse_main(torch, dev, cfg, ops, session, record):
@@ -930,6 +1042,7 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
     from bm25_tpu_torch import (DenseEngine, ReferenceEngine, create_engine,
                                 top_k)
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
+    from bm25_tpu_torch.bench.b5_times import bound_ms as b5_bound
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     with Phase("5. dense main path"):
@@ -1142,9 +1255,42 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
         b5_ms = cuda_ms(torch, lambda: tk.gumbel_choice(logits, 12345), 20)
         b5_plain_ms = cuda_ms(torch, lambda: tk.gumbel_choice_plain(logits,
                                                                     12345), 5)
+        b5_bnd = b5_bound(*logits.shape)
         log(f"[kernels] B5 at logits {tuple(logits.shape)}: kernel "
-            f"{b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, max z gap of "
-            f"differing choices {b5_err:.3e}")
+            f"{b5_ms:.4f} ms, device {b5_device_us(torch, tk, logits)} us "
+            f"(torch.profiler), plain {b5_plain_ms:.4f} ms, bound "
+            f"{b5_bnd[0]:.6f} ms ({b5_bnd[1]}), max z gap of differing "
+            f"choices {b5_err:.3e}")
+        # the fused step after B4 at k=100 (the logits, then one B5
+        # launch), against its twin
+        _, idxs = picked[cfg.top_k2]
+        seed = torch.tensor([12345], dtype=torch.int64, device=dev)
+        got = tk.gumbel_sample(vals, idxs, seed)
+        want = tk.gumbel_sample_plain(vals, idxs, seed)
+        fused_err = choice_err(torch, tk, logits, 12345,
+                               (idxs == got).float().argmax(1),
+                               (idxs == want).float().argmax(1))
+        fused_ms = cuda_ms(torch, lambda: tk.gumbel_sample(vals, idxs, seed),
+                           20)
+        log(f"[kernels] B5 fused (the logits, then choice and id in one "
+            f"launch) at "
+            f"{tuple(vals.shape)}: kernel {fused_ms:.4f} ms, bound "
+            f"{b5_bound(*vals.shape, ids=True)[0]:.6f} ms, max z gap "
+            f"{fused_err:.3e}")
+        # B5 where few rows must fill the card, from default_rng(0)
+        rng = np.random.default_rng(0)
+        for b, k in ((512, 1000), (64, 32768), (8, 131072)):
+            x = torch.from_numpy(rng.standard_normal((b, k)).astype(
+                np.float32)).to(dev)
+            err = choice_err(torch, tk, x, 12345, tk.gumbel_choice(x, 12345),
+                             tk.gumbel_choice_plain(x, 12345))
+            ms = cuda_ms(torch, lambda: tk.gumbel_choice(x, 12345), 20)
+            bnd = b5_bound(b, k)
+            log(f"[kernels] B5 at ({b}, {k}), "
+                f"{tk._device_plan(b, k, dev.index or 0).layout} layout: "
+                f"kernel {ms:.4f} ms, device {b5_device_us(torch, tk, x)} us "
+                f"(torch.profiler), bound {bnd[0]:.6f} ms ({bnd[1]}), max z "
+                f"gap {err:.3e}")
         # B4's kernels one by one, after every timing of this phase
         for what, x, k in profiled:
             log(f"[kernels] B4 at {what} k={k}: device us per call "
@@ -1155,8 +1301,7 @@ def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
     record["top_k_two_stage"] = kernel_record(
         op_launches["top_k_two_stage"], *b4[cfg.top_k])
     record["gumbel_choice"] = kernel_record(
-        op_launches["gumbel_choice"], b5_err, b5_ms, b5_plain_ms,
-        bound(nbytes(logits) + logits.shape[0] * 4))
+        op_launches["gumbel_choice"], b5_err, b5_ms, b5_plain_ms, b5_bnd)
 
 
 def library_entry(session) -> None:

@@ -540,6 +540,165 @@ def test_cuda_fused_sampling_member_and_greedy(cuda_device):
     assert torch.equal(greedy[:, 0], ti[:, 0])
 
 
+# the three layouts at each shape: the wrapper's pick, and each forced
+LAYOUTS = {"warp": tk.WARP_PLAN,
+           "block": tk.ChoicePlan("block", 1024, 1),
+           "cluster": tk.ChoicePlan("cluster", 1024, 8),
+           "cluster2": tk.ChoicePlan("cluster", 1024, 2)}
+B5_SHAPES = [(512, 100), (512, 1000), (64, 32768), (8, 131072), (13, 50001)]
+
+
+def nan_rows(device):
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (6, 37)).astype(np.float32))
+    x[0] = float("nan")
+    x[1, [7, 20]] = float("nan")
+    x[2, -1] = float("nan")
+    x[3] = float("-inf")
+    x[4, :30] = float("-inf")
+    x[4, [31, 33]] = float("nan")
+    x[5, 0] = float("nan")
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [None, *LAYOUTS])
+def test_cuda_gumbel_choice_nan_rows(cuda_device, layout):
+    """NaN ranks above every number, the first NaN column wins, and no
+    column >= k is written, in every layout."""
+    x = nan_rows(cuda_device)
+    for seed in (0, 1, 2**32 - 1):
+        got = tk._gumbel_launch(x, seed, plan=LAYOUTS.get(layout))
+        assert got.tolist() == [0, 7, 36, 0, 31, 0]
+        assert torch.equal(got, tk.gumbel_choice_plain(x, seed))
+    wide = torch.full((3, 50001), float("nan"), device=cuda_device)
+    wide[1, 40000] = 1.0
+    wide[2] = float("-inf")
+    wide[2, 49999] = float("nan")
+    got = tk._gumbel_launch(wide, 5, plan=LAYOUTS.get(layout))
+    assert got.tolist() == [0, 0, 49999]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [None, *LAYOUTS])
+@pytest.mark.parametrize("b,k", B5_SHAPES)
+def test_cuda_gumbel_choice_layouts_match_twin(cuda_device, b, k, layout):
+    logits = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (b, k)).astype(np.float32)).to(cuda_device)
+    logits[0, k // 2:] = float("-inf")
+    plan = LAYOUTS.get(layout)
+    before = tk.launches["gumbel_choice"]
+    for seed in (0, 1, 2**32 - 1):
+        got = tk._gumbel_launch(logits, seed, plan=plan)
+        assert torch.equal(got, tk._gumbel_launch(logits, seed, plan=plan))
+        assert_choices_agree(logits, seed, got,
+                             tk.gumbel_choice_plain(logits, seed))
+        assert int(got[0]) < k // 2
+    assert tk.launches["gumbel_choice"] == before + 6
+
+
+def edge_columns(k):
+    """Columns at the edges of what a lane, a warp, a block or a cluster's
+    block reads in any layout: the row's ends, a lane's 4-column runs, the
+    strides of 32-1,024 lanes, and the slices of clusters of 2-8."""
+    cols = {0, 1, 2, 3, 4, 5, 31, 32, 33, k - 5, k - 4, k - 3, k - 2, k - 1}
+    for lanes in (32, 64, 128, 256, 1024):
+        cols |= {4 * lanes - 1, 4 * lanes, 4 * lanes + 1}
+    for c in (2, 4, 8):
+        s = -(-k // (4 * c)) * 4
+        for p in range(1, c):
+            cols |= {p * s - 1, p * s, p * s + 1}
+    return sorted(c for c in cols if 0 <= c < k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [None, *LAYOUTS])
+@pytest.mark.parametrize("k", [37, 100, 4099, 50001, 131072])
+def test_cuda_gumbel_choice_reads_every_edge_column(cuda_device, k, layout):
+    """A row of -inf with one 0 must pick that column, whatever the noise:
+    exact in every layout, with the 0 at each edge of a run, a lane's
+    stride or a cluster's slice."""
+    cols = edge_columns(k)
+    x = torch.full((len(cols), k), float("-inf"), device=cuda_device)
+    x[torch.arange(len(cols)), torch.tensor(cols)] = 0.0
+    for seed in (0, 2**32 - 1):
+        got = tk._gumbel_launch(x, seed, plan=LAYOUTS.get(layout))
+        assert got.tolist() == cols
+
+
+@pytest.mark.cuda
+def test_cuda_gumbel_choice_reads_a_device_seed(cuda_device):
+    logits = torch.randn((64, 32768), device=cuda_device)
+    for seed in (0, 77, 2**32 - 1, 2**32 + 5):
+        want = tk.gumbel_choice(logits, seed)
+        t = torch.tensor([seed], dtype=torch.int64, device=cuda_device)
+        assert torch.equal(tk.gumbel_choice(logits, t), want)
+        assert torch.equal(tk.gumbel_choice(logits, t.cpu()), want)
+
+
+def sampled_choice(idxs, sampled):
+    """The column of each row's sampled id (top-k ids are distinct)."""
+    return (idxs == sampled).float().argmax(dim=-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", [None, *LAYOUTS])
+def test_cuda_fused_sampling_matches_twin(cuda_device, dtype, layout):
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((64, 40000)).astype(
+        np.float32) * 3).to(cuda_device, dtype)
+    x[5] = float("-inf")
+    vals, idxs = tk.top_k(x, 1000, implementation="pallas")
+    before = tk.launches["gumbel_choice"]
+    for temperature in (1.0, 0.25, 0.0):
+        logits = tk._sample_logits(vals, temperature).float()
+        for seed in (0, 1, 2**32 - 1):
+            if layout is None:
+                got = tk.gumbel_sample(vals, idxs, seed, temperature)
+            else:
+                got = tk._gumbel_launch(logits, seed, idxs,
+                                        plan=LAYOUTS[layout])[:, None]
+            want = tk.gumbel_sample_plain(vals, idxs, seed, temperature)
+            assert int(got[5, 0]) == int(idxs[5, 0])
+            assert_choices_agree(logits, seed, sampled_choice(idxs, got),
+                                 sampled_choice(idxs, want))
+    assert tk.launches["gumbel_choice"] == before + 9
+
+
+@pytest.mark.cuda
+def test_cuda_fused_sampling_per_generator_state_and_no_sync(cuda_device):
+    """The sampling call (the tree's top k, as JAX's default, then one B5
+    launch) draws, for a generator state, the twin's choices for the seed
+    that state gives; a CUDA generator costs no host sync; a fully -inf
+    row samples its first top-k id."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (512, 131072)).astype(np.float32)).to(cuda_device)
+    x[7] = float("-inf")
+    gen = torch.Generator(device=cuda_device)
+    for k in (100, 1000):
+        gen.manual_seed(k)
+        before = dict(tk.launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            vals, s = tk.top_k_fused_sampling(x, k, temperature=0.7,
+                                              implementation="pallas",
+                                              generator=gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tk.launches["gumbel_choice"] == before["gumbel_choice"] + 1
+        gen.manual_seed(k)
+        seed = int(torch.randint(0, 2**32, (1,), generator=gen,
+                                 device=cuda_device).item())
+        _, idxs = tk.top_k(x, k)
+        want = tk.gumbel_sample_plain(vals, idxs, seed, 0.7)
+        assert_choices_agree(tk._sample_logits(vals, 0.7), seed,
+                             sampled_choice(idxs, s),
+                             sampled_choice(idxs, want))
+        assert int(s[7, 0]) == 0
+
+
 # -- the dense engine on the card --------------------------------------------------
 
 

@@ -8,7 +8,10 @@ on cases aimed at its digits; and its routing to JAX's chunk rule.  ``top_k`` an
 over axis, largest and integer dtypes.  B5's draws cannot match the TPU
 PRNG, so its twin is held to membership, determinism per seed, the
 sampling distribution (a chi-square test) and greedy choice as the
-temperature goes to 0.
+temperature goes to 0; where the choice does not depend on the noise (rows
+of NaN, NaN among numbers, a fully -inf row through the sampling call) it
+is held to the JAX kernel exactly.  The fused sampling twin is held to the
+steps it replaced, bit for bit, and ``choice_plan`` to its layouts.
 """
 
 import jax
@@ -415,3 +418,138 @@ def test_sampling_rejects_unknown_implementation():
     with pytest.raises(ValueError, match="unknown implementation"):
         port.top_k_fused_sampling(torch.zeros((1, 4)), 2,
                                   implementation="jax")
+
+
+# -- B5 on NaN rows, the fused step's twin, and the kernel's layouts ----------
+
+
+def nan_rows():
+    """Rows whose choice does not depend on the noise: all NaN (column 0),
+    NaN among numbers (the first NaN), all -inf (column 0)."""
+    x = np.random.default_rng(4).standard_normal((6, 37)).astype(np.float32)
+    x[0] = np.nan
+    x[1, [7, 20]] = np.nan
+    x[2, -1] = np.nan
+    x[3] = NINF
+    x[4, :30] = NINF
+    x[4, [31, 33]] = np.nan
+    x[5, 0] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2**31 - 1])
+def test_gumbel_twin_matches_jax_pallas_on_nan_rows(seed):
+    x = nan_rows()
+    want = np.asarray(jax_topk._pallas_gumbel_choice(jnp.asarray(x), seed))
+    got = port.gumbel_choice(torch.from_numpy(x), seed)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy()[:6], [0, 7, 36, 0, 31, 0])
+
+
+def test_sampling_on_an_all_neg_inf_row_matches_jax_pallas():
+    """(v - v0) / t is NaN in every column of a fully -inf row: both sample
+    the row's first top-k id (column 0)."""
+    x = np.random.default_rng(5).random((4, 50)).astype(np.float32)
+    x[1] = NINF
+    x[3, 10:] = NINF
+    _, js = jax_topk.top_k_fused_sampling(jax.random.PRNGKey(0),
+                                          jnp.asarray(x), 5,
+                                          implementation="pallas")
+    _, ps = port.top_k_fused_sampling(
+        torch.from_numpy(x), 5, implementation="pallas",
+        generator=torch.Generator().manual_seed(0))
+    _, ti = top_k(torch.from_numpy(x), 5)
+    assert int(ps[1, 0]) == int(np.asarray(js)[1, 0]) == int(ti[1, 0]) == 0
+
+
+def old_inline_sampling(vals, idxs, seed, temperature):
+    """The CPU steps top_k_fused_sampling ran inline before the fused twin
+    (axis already moved last)."""
+    k = vals.shape[-1]
+    t = torch.clamp_min(torch.as_tensor(temperature, dtype=vals.dtype,
+                                        device=vals.device), 1e-6)
+    logits = (vals - vals[..., :1]) / t
+    flat = logits.float().reshape(-1, k).contiguous()
+    choice = port.gumbel_choice_plain(flat, seed)
+    return logits, torch.gather(idxs, -1,
+                                choice.reshape(logits.shape[:-1] + (1,)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("temperature", [1.0, 0.3, 0.0, 7.5])
+def test_fused_sampling_twin_equals_old_inline_steps(dtype, temperature):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((40, 300)).astype(
+        np.float32) * 4).to(dtype)
+    x[3] = NINF
+    vals, idxs = top_k(x, 64, implementation="pallas")
+    seed = torch.tensor([123456789], dtype=torch.int64)
+    logits, want = old_inline_sampling(vals, idxs, 123456789, temperature)
+    got_logits = port._sample_logits(vals, temperature)
+    assert torch.equal(got_logits.view(torch.int16 if dtype != torch.float32
+                                       else torch.int32),
+                       logits.view(torch.int16 if dtype != torch.float32
+                                   else torch.int32))
+    for s in (seed, 123456789):
+        assert torch.equal(port.gumbel_sample_plain(vals, idxs, s,
+                                                    temperature), want)
+
+
+def test_fused_sampling_draws_equal_the_seeded_twin():
+    """The sampling call draws one seed from the generator, then the fused
+    twin: the same generator state gives the twin's draws."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((3, 20, 200)).astype(np.float32))
+    _, s = port.top_k_fused_sampling(
+        x, 16, temperature=0.6, axis=1, implementation="pallas",
+        generator=torch.Generator().manual_seed(11))
+    seed = torch.randint(0, 2**32, (1,),
+                         generator=torch.Generator().manual_seed(11))
+    v, i = top_k(x, 16, axis=1)
+    want = port.gumbel_sample_plain(torch.movedim(v, 1, -1),
+                                    torch.movedim(i, 1, -1), seed, 0.6)
+    assert torch.equal(s, torch.movedim(want, -1, 1))
+
+
+@pytest.mark.parametrize("b,k,layout,cluster", [
+    (512, 100, "warp", 1), (300, 100, "warp", 1), (1, 5, "warp", 1),
+    (512, 1000, "block", 1), (4096, 1000, "block", 1),
+    (64, 32768, "cluster", 2), (8, 131072, "cluster", 8),
+    (31, 131072, "cluster", 8), (33, 131072, "cluster", 8),
+    (34, 131072, "cluster", 4), (64, 131072, "cluster", 4),
+    (100, 131072, "cluster", 2), (13, 50001, "cluster", 4),
+    (4, 1 << 20, "cluster", 8), (15, 1 << 20, "cluster", 8),
+    (200, 131072, "block", 1)])
+def test_choice_plan_layouts(b, k, layout, cluster):
+    """On 132 SMs: a cluster of at most 8 blocks, every row's cluster on
+    the card at once (two 1,024-thread blocks an SM)."""
+    plan = port.choice_plan(b, k, 132)
+    assert (plan.layout, plan.cluster) == (layout, cluster)
+    assert plan.threads % 32 == 0 and plan.threads <= port.CHOICE_BLOCK
+    assert b * cluster <= 264 or cluster == 1
+
+
+def test_b5_times_needs_a_card(capsys):
+    # the timing script measures only on a CUDA device; elsewhere it exits
+    # 2 and prints no result
+    from bm25_tpu_torch.bench import b5_times
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    assert b5_times.main([]) == 2
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("b,k,ids,want", [
+    (512, 100, False, 6.235701492537314e-05),
+    (512, 100, True, 6.357970149253731e-05),
+    (8, 131072, False, 1.2520501492537313e-03)])
+def test_b5_bound_counts_each_byte_once(b, k, ids, want):
+    """The logits read once, the int64 result written once (and, with
+    ids, one id a row read) over 3.35 TB/s: larger than the operations'
+    lower bound at these shapes."""
+    from bm25_tpu_torch.bench import b5_times
+
+    assert b5_times.bound_ms(b, k, ids) == (pytest.approx(want, rel=1e-12),
+                                            "bytes")
