@@ -1,17 +1,41 @@
-"""The benchmark's synthetic corpus and queries (host-only numpy): the
-port's copy of the head of ``bm25_tpu/bench/query_bench.py``
-(``BenchConfig``, ``make_synthetic_index``, ``make_queries``).  The JAX
-benchmark harness below it is not ported yet (ROADMAP.md: the query
-benchmark harness).
+"""Query benchmark harness: the port's copy of
+``bm25_tpu/bench/query_bench.py``, function for function, with the same
+record keys: batched top-k throughput (sustained qps, pipelined), p50/p99
+batch latency, the device step, recall against ``ReferenceEngine``, the
+memory trade, the long-document row and the synthetic-BEIR eval.
+
+Run: ``python -m bm25_tpu_torch.bench.query_bench [--device cpu]`` (the
+card by default; ``BM25_BENCH_<FIELD>`` environment variables override
+``BenchConfig``).  It prints the full record, then the compact headline
+as the last line.
+
+What differs from the JAX harness:
+
+* the device step is timed by CUDA events around steps enqueued back to
+  back (``measure_device_step_ms``), and its bytes are the ones kernel B1
+  moves (``models.sparse.b1_bytes``, the count ``chip_smoke.py`` bounds
+  B1 with), against the H100 SXM's 3.35 TB/s;
+* the layout is explicit, ``hot_tokens=1024`` and ``max_buckets=2`` (or
+  ``cfg.max_buckets`` where it is not 0): the layout cost model is not
+  ported, and the record says so under ``extra["layout"]``;
+* ``extra["omitted"]`` names the row keys that have no counterpart (the
+  VPU op model: the port's scan is a table lookup, not T compares a slot)
+  and ``extra["not_ported"]`` the rows switched off (the cold start, the
+  sharded rows and the memory trade's "mid" point).
 """
 
 from __future__ import annotations
 
+import argparse
+import gc
+import json
 import os
+import sys
 import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -95,6 +119,64 @@ class BenchConfig:
                 "score_dtype": self.score_dtype}
 
 
+# upload+init budget (seconds) at the headline shape: a run above it gets
+# a "warning" field in the record and the headline line.  About 1.5x the
+# card's own create_engine time at 524,288 docs with the explicit layout,
+# 4.4-5.3 s over three runs (NVIDIA H100 80GB HBM3, 700.00 W; host numpy
+# layout, uploads and B2's hot-tier build; no compile cache is involved)
+UPLOAD_INIT_WARM_BUDGET_S = 8.0
+
+# the H100 SXM's peak memory rate (bytes/s), the utilization denominator
+# (the peak chip_smoke.py's bounds use)
+H100_HBM_BYTES_PER_S = 3.35e12
+# the explicit layout, chip_smoke.py's (the layout cost model is not
+# ported): the hot tier's width and the ELL buckets
+LAYOUT_HOT_TOKENS = 1024
+LAYOUT_MAX_BUCKETS = 2
+LAYOUT_NOTE = ("explicit (the layout cost model is not ported: "
+               "ROADMAP.md: the H100 layout cost model)")
+# row keys of the JAX harness that have no counterpart here, and why
+OMITTED = {
+    "achieved_vpu_tops": "no counterpart: the scan is a table lookup, not "
+                         "T compares a slot (the VPU op model)",
+    "vpu_utilization": "no counterpart: the TPU VPU ceiling",
+}
+# measured only on the card: a rate against the H100's peak
+CARD_ONLY = {
+    "achieved_hbm_gbps": "not measured: the run is on the CPU",
+    "hbm_utilization": "not measured: the run is on the CPU",
+}
+
+
+def compact_headline(result: dict) -> dict:
+    """Compact (<~500 byte) headline view of a full bench result, printed
+    as the last line so a tail capture of the output ends with one whole,
+    parseable record."""
+    extra = result.get("extra") or {}
+    head = extra.get("headline") or {}
+    compact = {
+        "metric": result.get("metric"),
+        "value": result.get("value"),
+        "unit": result.get("unit"),
+        "vs_baseline": result.get("vs_baseline"),
+        "top_k": head.get("top_k"),
+        "device_step_ms": head.get("device_step_ms"),
+        "recall": head.get("recall_vs_reference"),
+        "upload_init_s": extra.get("upload_init_s"),
+        "index_build_docs_per_sec": extra.get("index_build_docs_per_sec"),
+    }
+    sec = extra.get("secondary") or []
+    if sec:
+        compact["secondary"] = [
+            {"top_k": r.get("top_k"), "qps": r.get("qps"),
+             "device_step_ms": r.get("device_step_ms")}
+            for r in sec
+        ]
+    if extra.get("warning"):
+        compact["warning"] = extra["warning"]
+    return compact
+
+
 def _zipf_probs(vocab: int) -> np.ndarray:
     ranks = np.arange(1, vocab + 1, dtype=np.float64)
     p = 1.0 / ranks
@@ -133,3 +215,518 @@ def make_queries(cfg: BenchConfig) -> np.ndarray:
     cum = np.cumsum(_zipf_probs(cfg.vocab))
     q = np.searchsorted(cum, rng.random((cfg.num_queries, cfg.query_len)))
     return np.clip(q, 0, cfg.vocab - 1).astype(np.int32)
+
+
+def make_longdoc_index(cfg: BenchConfig):
+    """Mixed-length corpus: ``longdoc_long_pct`` article-length docs.
+
+    Same Zipf vocabulary as the headline corpus; the long mode's unique
+    term count per doc is what widens ELL buckets past SLOT_TILE and
+    engages the slot-tiled path (ops/ell_score.py::_slot_tiling)."""
+    from bm25_tpu_torch.scoring import build_scored_index_flat
+
+    rng = np.random.default_rng(cfg.seed + 7)
+    cum = np.cumsum(_zipf_probs(cfg.vocab))
+    n = cfg.longdoc_docs
+    is_long = rng.random(n) < cfg.longdoc_long_pct / 100.0
+    lengths = np.where(
+        is_long,
+        np.maximum(cfg.longdoc_long_len // 2,
+                   rng.poisson(cfg.longdoc_long_len, n)),
+        np.maximum(8, rng.poisson(cfg.longdoc_short_len, n)),
+    ).astype(np.int32)
+    flat = np.searchsorted(
+        cum, rng.random(int(lengths.sum()))
+    ).astype(np.int32)
+    np.clip(flat, 0, cfg.vocab - 1, out=flat)
+    return build_scored_index_flat(flat, lengths, vocab_size=cfg.vocab)
+
+
+def layout_kwargs(index, max_buckets: int = 0) -> dict:
+    """The explicit sparse layout: LAYOUT_HOT_TOKENS hot tokens (a memory
+    budget that admits them all) and ``max_buckets`` buckets, or
+    LAYOUT_MAX_BUCKETS where it is 0."""
+    return {"hot_tokens": LAYOUT_HOT_TOKENS,
+            "hot_budget_bytes": LAYOUT_HOT_TOKENS * index.num_docs * 4,
+            "max_buckets": max_buckets or LAYOUT_MAX_BUCKETS}
+
+
+def _free(session) -> None:
+    """Return a dropped engine's device memory before the next is built."""
+    gc.collect()
+    if session.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _sync(session) -> None:
+    if session.device.type == "cuda":
+        torch.cuda.synchronize(session.device)
+
+
+def _measure_longdoc(cfg: BenchConfig, queries: np.ndarray, log,
+                     session=None) -> dict:
+    from bm25_tpu_torch.eval import index_memory_stats
+    from bm25_tpu_torch.models.sparse import SparseEngine
+    from bm25_tpu_torch.ops.ell_score import SLOT_TILE
+    from bm25_tpu_torch.reference import ReferenceEngine
+    from bm25_tpu_torch.runtime.session import get_session
+
+    session = session or get_session()
+    t0 = time.perf_counter()
+    index = make_longdoc_index(cfg)
+    build_s = time.perf_counter() - t0
+    k = min(cfg.top_k, cfg.longdoc_docs)
+    t0 = time.perf_counter()
+    engine = SparseEngine.from_scored_index(
+        index, session=session, **layout_kwargs(index, cfg.max_buckets))
+    _sync(session)
+    upload_s = time.perf_counter() - t0
+    widths = [b["tokT"].shape[0] for b in engine.buckets if "tokT" in b]
+    log(f"[bench] longdoc: {cfg.longdoc_docs} docs nnz={index.nnz} "
+        f"widths={widths} hot_h={engine.hot_h} "
+        f"(build {build_s:.1f}s, up {upload_s:.1f}s)")
+
+    plan = engine.plan_chunks(queries.astype(np.int32))
+    step_ms = measure_device_step_ms(engine, queries, k, plan=plan,
+                                     batch=cfg.batch)
+    nb = min(cfg.baseline_queries, len(queries))
+    docs, _ = engine.search(queries[:nb], top_k=k)
+    ref_docs, _ = ReferenceEngine.from_scored_index(index).search(
+        queries[:nb], top_k=k
+    )
+    recall = recall_at_k(np.asarray(docs), ref_docs)
+    mem = index_memory_stats(index, engine)
+    row = {
+        "top_k": k,
+        "num_docs": cfg.longdoc_docs,
+        "nnz": int(index.nnz),
+        "bucket_widths": widths,
+        "slot_tiled": bool(widths and max(widths) > SLOT_TILE),
+        "device_step_ms": None if step_ms is None else round(step_ms, 2),
+        "recall_vs_reference": round(recall, 4),
+        "overhead_ratio": mem.as_dict().get("overhead_ratio"),
+        "upload_init_s": round(upload_s, 1),
+        "layout": LAYOUT_NOTE,
+    }
+    log(f"[bench] longdoc: k={k} device_step={row['device_step_ms']}ms "
+        f"recall@{k}={recall:.4f} slot_tiled={row['slot_tiled']}")
+    del engine
+    _free(session)
+    return row
+
+
+def recall_at_k(got_docs: np.ndarray, want_docs: np.ndarray) -> float:
+    # one canonical implementation (eval.py): compared-rows denominator,
+    # -1 pad slots excluded
+    from bm25_tpu_torch.eval import recall_at_k as _recall
+
+    return _recall(got_docs, want_docs)
+
+
+def _time_step_chunk(engine, step, ids, iters: int) -> float:
+    """Device ms of one step on one chunk of ids: t(n) is n steps enqueued
+    back to back on the same device inputs, each step's output consumed
+    on the device (a max folded into one accumulator), timed by CUDA
+    events with one sync at the end (the host clock on the CPU), best of
+    three; the step is (t(iters) - t(1)) / (iters - 1)."""
+    cuda = ids.is_cuda
+
+    def enqueue(n):
+        acc = torch.zeros((), dtype=torch.float32, device=ids.device)
+        for _ in range(n):
+            out = step(ids, engine.buckets, engine.offsets, engine.hot_table)
+            leaf = out[0] if isinstance(out, tuple) else out
+            acc = acc + leaf.float().amax()
+        return acc
+
+    def timed(n):
+        best = float("inf")
+        for _ in range(3):
+            if cuda:
+                torch.cuda.synchronize(ids.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                enqueue(n)
+                end.record()
+                end.synchronize()
+                dt = start.elapsed_time(end) / 1e3
+            else:
+                t0 = time.perf_counter()
+                float(enqueue(n))
+                dt = time.perf_counter() - t0
+            best = min(best, dt)
+        return best
+
+    float(enqueue(1))  # warm: the scan tables' first launch, allocations
+    float(enqueue(iters))
+    t1, tn = timed(1), timed(iters)
+    return max((tn - t1) / (iters - 1), 0.0) * 1e3
+
+
+def measure_device_step_ms(engine, queries: np.ndarray, k: int,
+                           iters: int = 5, plan=None,
+                           batch: int = 512) -> float | None:
+    """On-device step time of the production step over the batch's chunk
+    plan: each distinct chunk shape is timed once (``_time_step_chunk``),
+    and the plan's total is normalized per ``batch`` queries.
+    SparseEngine only (the bench engine)."""
+    from bm25_tpu_torch.models.sparse import (SparseEngine, _score_sdt,
+                                              make_sparse_query_step)
+
+    if not isinstance(engine, SparseEngine):
+        return None
+    if plan is None:
+        plan = engine.plan_chunks(queries.astype(np.int32))
+    # the production step's configuration: the engine's score dtype
+    step = make_sparse_query_step(min(k, engine.num_docs), engine.hot_h,
+                                  score_dtype=_score_sdt(engine.score_dtype))
+    per_config: dict[tuple, float] = {}
+    times = []
+    for _cq, padded, _w in plan:
+        if padded.shape not in per_config:
+            per_config[padded.shape] = _time_step_chunk(
+                engine, step, engine.session.put(padded), iters)
+        times.append(per_config[padded.shape])
+    if not times:
+        return None
+    total_q = sum(c[0] for c in plan)
+    return float(sum(times) * batch / max(total_q, 1))
+
+
+def estimate_step_hbm_bytes(engine, q: int,
+                            queries: np.ndarray) -> int | None:
+    """The least bytes one SparseEngine step moves for a batch of ``q``
+    of these queries (taken in order, repeated where fewer): kernel B1's
+    on every bucket and chunk, counted from the batch's ids
+    (``models.sparse.b1_bytes``, the count chip_smoke.py bounds B1 with):
+    the slots' tokens, a value a matching slot, the used hot rows, each
+    (Q, rows) base written once, the group maxima."""
+    from bm25_tpu_torch.models.sparse import SparseEngine, b1_bytes
+
+    if not isinstance(engine, SparseEngine):
+        return None
+    queries = np.asarray(queries, np.int32)
+    batch = np.resize(queries, (q, queries.shape[1]))
+    total = 0
+    for _cq, padded, _w in engine.plan_chunks(batch):
+        total += sum(b.scan + b.epilogue
+                     for b in b1_bytes(engine, engine.session.put(padded)))
+    return total
+
+
+def _measure_k(cfg, index, engine, queries, k: int, log, ref=None) -> dict:
+    """One k-point: baseline, latency percentiles, sustained qps, recall."""
+    if ref is None:
+        from bm25_tpu_torch.reference import ReferenceEngine
+
+        ref = ReferenceEngine.from_scored_index(index)
+    nb = min(cfg.baseline_queries, len(queries))
+    t0 = time.perf_counter()
+    ref_docs, ref_scores = ref.search(queries[:nb], top_k=k)
+    baseline_qps = nb / (time.perf_counter() - t0)
+
+    batches = [
+        queries[i : i + cfg.batch] for i in range(0, len(queries), cfg.batch)
+    ]
+    # warm-up: one full pass, collecting enough rows to cover every
+    # baseline query (with batch < baseline_queries the first batch alone
+    # would truncate the recall comparison)
+    docs0_parts, docs0_rows = [], 0
+    for b in batches:
+        d, _ = engine.search(b, top_k=k)
+        if docs0_rows < nb:
+            docs0_parts.append(d)
+            docs0_rows += len(d)
+    docs0 = np.concatenate(docs0_parts)[:nb]
+    lat = []
+    for b in batches:
+        t0 = time.perf_counter()
+        engine.search(b, top_k=k)
+        lat.append(time.perf_counter() - t0)
+    p50 = float(np.percentile(lat, 50))
+    p99 = float(np.percentile(lat, 99))
+    # sustained throughput: the pipelined search (batch i+1 dispatched
+    # before batch i is collected); best of two passes
+    search_all = getattr(engine, "search_pipelined", None)
+
+    def sustained():
+        best = 0.0
+        for _ in range(2):
+            t_all = time.perf_counter()
+            if search_all is not None:
+                search_all(queries, top_k=k, batch=cfg.batch)
+            else:
+                engine.search(queries, top_k=k)
+            best = max(best, len(queries) / (time.perf_counter() - t_all))
+        return best
+
+    qps = sustained()
+    # the score payload dtype halves/doubles result bytes; measure BOTH
+    # so the trade is a recorded pair (doc ids stay exact int32 either way)
+    qps_other = None
+    other_dtype = None
+    if hasattr(engine, "score_dtype"):
+        configured = engine.score_dtype
+        other_dtype = ("bfloat16" if configured == "float32" else "float32")
+        engine.score_dtype = other_dtype
+        try:
+            engine.search(queries[: cfg.batch], top_k=k)  # warm
+            qps_other = sustained()
+        finally:
+            engine.score_dtype = configured
+    # rankings-only mode (no score transfer)
+    qps_ids = None
+    search_ids = getattr(engine, "search_ids", None)
+    if search_ids is not None:
+        if search_all is not None:
+            ids_fn = lambda: search_all(queries, top_k=k, batch=cfg.batch,  # noqa: E731
+                                        ids_only=True)
+        else:
+            ids_fn = lambda: search_ids(queries, top_k=k)  # noqa: E731
+        ids_fn()  # warm
+        qps_ids = 0.0
+        for _ in range(2):
+            t_all = time.perf_counter()
+            ids_fn()
+            qps_ids = max(qps_ids, len(queries) / (time.perf_counter() - t_all))
+    recall = recall_at_k(docs0, ref_docs)
+
+    row = {
+        "top_k": k,
+        "qps": round(qps, 1),
+        "vs_baseline": round(qps / baseline_qps, 2),
+        "baseline_qps": round(baseline_qps, 1),
+        "p50_batch_ms": round(p50 * 1e3, 2),
+        "p99_batch_ms": round(p99 * 1e3, 2),
+        "recall_vs_reference": round(recall, 4),
+    }
+    if hasattr(engine, "score_dtype"):
+        row["score_dtype"] = engine.score_dtype
+    if qps_other is not None:
+        row[f"qps_{other_dtype}_scores"] = round(qps_other, 1)
+    if qps_ids is not None:
+        row["qps_rankings_only"] = round(qps_ids, 1)
+    plan = None
+    if hasattr(engine, "plan_chunks"):
+        plan = engine.plan_chunks(queries.astype(np.int32))
+    step_ms = measure_device_step_ms(engine, queries, k, plan=plan,
+                                     batch=cfg.batch)
+    if step_ms is not None:
+        row["device_step_ms"] = round(step_ms, 2)
+        # step_ms is normalized to cfg.batch queries: the byte count is
+        # for a batch of as many
+        model_bytes = estimate_step_hbm_bytes(engine, cfg.batch, queries)
+        if model_bytes and step_ms > 0 and \
+                engine.session.device.type == "cuda":
+            rate = model_bytes / (step_ms / 1e3)
+            row["achieved_hbm_gbps"] = round(rate / 1e9, 1)
+            row["hbm_utilization"] = round(rate / H100_HBM_BYTES_PER_S, 3)
+    log(
+        f"[bench] k={k}: qps={qps:.0f} p50={p50*1e3:.1f}ms "
+        f"recall@{k}={recall:.4f} vs_baseline={qps/baseline_qps:.1f}x "
+        f"device_step={row.get('device_step_ms', '?')}ms"
+    )
+    return row
+
+
+def run(cfg: BenchConfig | None = None, log=print, session=None,
+        index=None, timings: dict | None = None) -> dict:
+    """The benchmark record on ``session``'s device (the default CUDA
+    session when None).  ``index`` (with its ``make_synthetic_index``
+    ``timings``) reuses a headline corpus the caller already built for
+    this ``cfg``."""
+    from bm25_tpu_torch.datasets import evaluate_dataset, synthetic_beir_hard
+    from bm25_tpu_torch.eval import index_memory_stats
+    from bm25_tpu_torch.models.auto import create_engine
+    from bm25_tpu_torch.models.sparse import SparseEngine
+    from bm25_tpu_torch.reference import ReferenceEngine
+    from bm25_tpu_torch.runtime.session import get_session
+    from bm25_tpu_torch.text.tokenizer import Tokenizer
+
+    cfg = cfg or BenchConfig.from_env()
+    session = session or get_session()
+    if index is None:
+        log(f"[bench] building synthetic index: {cfg.num_docs} docs, "
+            f"vocab {cfg.vocab}")
+        timings = {}
+        index = make_synthetic_index(cfg, timings=timings)
+    build_s = max(timings["index_build_s"], 1e-9)
+    log(f"[bench] built in {build_s:.1f}s (nnz={index.nnz}; corpus "
+        f"synthesis {timings['synthesis_s']:.1f}s, not billed to build)")
+    queries = make_queries(cfg)
+
+    kwargs = cfg.engine_kwargs()
+    layout = None
+    if "max_buckets" in kwargs:
+        kwargs.update(layout_kwargs(index, kwargs["max_buckets"]))
+        layout = {"layout": LAYOUT_NOTE, "hot_tokens": kwargs["hot_tokens"],
+                  "max_buckets": kwargs["max_buckets"]}
+        log(f"[bench] layout: {layout}")
+    t0 = time.perf_counter()
+    engine = create_engine(index, mode=cfg.engine, session=session, **kwargs)
+    _sync(session)
+    upload_s = time.perf_counter() - t0
+    log(f"[bench] engine={type(engine).__name__} upload+init {upload_s:.1f}s")
+    budget = float(os.environ.get("BM25_BENCH_UPLOAD_BUDGET_S",
+                                  UPLOAD_INIT_WARM_BUDGET_S))
+    warning = None
+    # only meaningful at the headline shape: tiny configs finish in
+    # milliseconds and real regressions only show at scale
+    if upload_s > budget and cfg.num_docs >= 100_000:
+        warning = (f"upload_init_s {upload_s:.1f} exceeds warm budget "
+                   f"{budget:.0f}s")
+        log(f"[bench] WARNING: {warning}")
+
+    # headline = cfg.top_k; cfg.top_k2 secondary
+    ref = ReferenceEngine.from_scored_index(index)
+    ks = []
+    for k in (cfg.top_k, cfg.top_k2):
+        k = min(k, cfg.num_docs)
+        if k not in ks:
+            ks.append(k)
+    rows = {
+        k: _measure_k(cfg, index, engine, queries, k, log, ref=ref) for k in ks
+    }
+    head = rows[ks[0]]
+    mem = index_memory_stats(index, engine)
+
+    # retrieval quality on the adversarial self-labelled dataset, one row
+    # per engine family.  Its words ("w000123", "xxtypo7") have no suffix
+    # to stem, so the tokenizer without a stemmer (which needs no nltk)
+    # gives the stemmed tokenizer's tokens
+    hard_ds = synthetic_beir_hard(num_docs=cfg.eval_docs,
+                                  num_queries=cfg.eval_queries,
+                                  seed=cfg.seed)
+    beir = {
+        mode: evaluate_dataset(hard_ds, top_k=10, engine_mode=mode, log=log,
+                               session=session,
+                               tokenizer=Tokenizer(stemmer=None))
+        for mode in ("dense", "sparse")
+    }
+
+    # rows of the JAX harness that need modules not ported yet: switched
+    # off whatever the config asks
+    not_ported = {
+        "cold_start": "rests on the build cache's export and import "
+                      "(ROADMAP.md: device checkpoints)",
+        "sharded": "ROADMAP.md: the sharded engines",
+        "shard_scaling": "ROADMAP.md: the sharded engines",
+        "memory_trade.mid": "overhead_target needs the layout cost model "
+                            "(ROADMAP.md: the H100 layout cost model)",
+    }
+
+    # the memory rows: the same corpus at two points of the memory/speed
+    # dial, "parity" (hot_tokens=0, the ELL-only floor) and "speed" (the
+    # headline engine)
+    parity = None
+    trade = None
+    engine_name = type(engine).__name__
+    engine_hot_h = getattr(engine, "hot_h", 0)
+    if cfg.memory_parity and isinstance(engine, SparseEngine):
+        head_step = rows[ks[0]].get("device_step_ms")
+        head_recall = rows[ks[0]]["recall_vs_reference"]
+        del engine  # free the hot tier before the second resident index
+        _free(session)
+        k0 = ks[0]
+        nb = min(cfg.baseline_queries, len(queries))
+        pref_docs, _ = ref.search(queries[:nb], top_k=k0)
+        trade = []
+        peng = SparseEngine.from_scored_index(
+            index, session=session,
+            max_buckets=kwargs.get("max_buckets", 4), hot_tokens=0)
+        pstep = measure_device_step_ms(peng, queries, k0, batch=cfg.batch)
+        pdocs, _ = peng.search(queries[:nb], top_k=k0)
+        pmem = index_memory_stats(index, peng)
+        parity = {
+            "top_k": k0,
+            "device_step_ms": None if pstep is None else round(pstep, 2),
+            "recall_vs_reference": round(
+                recall_at_k(np.asarray(pdocs), pref_docs), 4),
+            "index_memory": pmem.as_dict(),
+        }
+        trade.append({"point": "parity", "hot_tokens": 0,
+                      "hot_h": peng.hot_h, **parity})
+        log(f"[bench] memory-trade parity: "
+            f"overhead_ratio={pmem.as_dict().get('overhead_ratio')} "
+            f"hot_h={peng.hot_h} device_step={parity['device_step_ms']}ms "
+            f"recall@{k0}={parity['recall_vs_reference']}")
+        del peng
+        _free(session)
+        trade.append({
+            "point": "speed",
+            "hot_h": engine_hot_h,
+            "top_k": k0,
+            "device_step_ms": head_step,
+            "recall_vs_reference": head_recall,
+            "index_memory": mem.as_dict(),
+        })
+    else:
+        # free the headline engine before any later row uploads a second
+        # resident index
+        del engine
+        _free(session)
+
+    longdoc = None
+    if cfg.longdoc_docs:
+        longdoc = _measure_longdoc(cfg, queries, log, session)
+    omitted = dict(OMITTED)
+    if session.device.type != "cuda":
+        omitted.update(CARD_ONLY)
+    device = {"type": session.device.type}
+    if session.device.type == "cuda":
+        device["name"] = torch.cuda.get_device_name(session.device)
+
+    return {
+        "metric": "bm25_query_throughput",
+        "value": head["qps"],
+        "unit": "queries/sec",
+        "vs_baseline": head["vs_baseline"],
+        "extra": {
+            "num_docs": cfg.num_docs,
+            "vocab": cfg.vocab,
+            "batch": cfg.batch,
+            "device": device,
+            "headline": head,
+            "secondary": [rows[k] for k in ks[1:]],
+            # the indexing pipeline only (build_scored_index_flat); corpus
+            # synthesis is reported separately
+            "index_build_docs_per_sec": round(cfg.num_docs / build_s, 1),
+            "index_build_s": timings["index_build_s"],
+            "corpus_synthesis_s": timings["synthesis_s"],
+            "upload_init_s": round(upload_s, 1),
+            "engine": engine_name,
+            "hot_tokens": engine_hot_h,
+            **({"layout": layout} if layout is not None else {}),
+            "index_memory": mem.as_dict(),
+            "beir_synthetic_eval": beir,
+            **({"memory_parity": parity} if parity is not None else {}),
+            **({"memory_trade": trade} if trade is not None else {}),
+            **({"longdoc": longdoc} if longdoc is not None else {}),
+            "omitted": omitted,
+            "not_ported": not_ported,
+            **({"warning": warning} if warning is not None else {}),
+        },
+    }
+
+
+def main(argv=None) -> int:
+    from bm25_tpu_torch.runtime.session import Session
+
+    ap = argparse.ArgumentParser(
+        description="the query benchmark: the full record, then the "
+                    "compact headline as the last line (BM25_BENCH_<FIELD> "
+                    "overrides BenchConfig)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    result = run(BenchConfig.from_env(),
+                 log=lambda *a: print(*a, file=sys.stderr),
+                 session=Session(args.device))
+    print(json.dumps(result))
+    print(json.dumps(compact_headline(result)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,9 +17,10 @@ benchmarks``.  What differs:
   library (``build_index(..., tokenizer=Tokenizer(stemmer=None),
   save_to=...)``), and ``query`` reads the saved tokenizer config;
 * ``bench --suite matmul`` runs the port's ``bench_matmul`` on the device;
-  ``bench --suite query`` raises ``NotImplementedError``: the query
-  benchmark harness is not ported (ROADMAP.md: the query benchmark
-  harness);
+  ``bench --suite query`` runs the port's query benchmark harness
+  (``bench/query_bench.py::run``, ``BM25_BENCH_*`` overrides) on the
+  device and prints the full record, then the compact headline as the
+  last line, as ``bench.py`` does;
 * ``checkpoint``, ``warm``, ``cache`` and ``serve`` are not registered until
   device checkpoints and serving are ported (ROADMAP.md: device
   checkpoints, serving).
@@ -166,9 +167,13 @@ def cmd_bench(args) -> int:
         print(json.dumps(bench_matmul(log=log,
                                       device=_session(args).device)))
         return 0
-    raise NotImplementedError(
-        "bench --suite query: the query benchmark harness is not ported "
-        "yet (ROADMAP.md: the query benchmark harness)")
+    from bm25_tpu_torch.bench.query_bench import (BenchConfig,
+                                                  compact_headline, run)
+
+    result = run(BenchConfig.from_env(), log=log, session=_session(args))
+    print(json.dumps(result))
+    print(json.dumps(compact_headline(result)))
+    return 0
 
 
 def cmd_demo(args) -> int:

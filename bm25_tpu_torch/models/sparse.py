@@ -19,13 +19,15 @@ rows are in doc-id order and every merge is stable.
 The host layout (``build_ell_buckets_from_csr``, ``split_hot_cold_csr``,
 ``hot_ell_for_rows``, ``_filter_csr``) is copied function for function from
 the JAX package, which cannot be imported without JAX, so that both
-engines build bit-equal arrays.  This engine serves unmasked queries,
-weighted or not and of any width, through the ELL and hot tiers, with f32
-or bf16-rounded returned scores (``score_dtype``); doc masks,
-dedup, the tail tier, cold-width routing and the layout cost model are
-ROADMAP items.
+engines build bit-equal arrays.  This engine serves queries, weighted or
+not and of any width, through the ELL and hot tiers, with f32 or
+bf16-rounded returned scores (``score_dtype``), a doc mask folded into
+B1's pad-row mask, long-query dedup (``maybe_dedup``), rankings-only
+search (``search_ids``) and a pipelined large-batch search
+(``search_pipelined``); the tail tier, cold-width routing and the layout
+cost model are ROADMAP items.
 ``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
-other copied helpers; only ``DenseEngine`` uses it so far.
+other copied helpers; ``DenseEngine`` uses it too.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,9 +43,9 @@ import torch
 from bm25_tpu_torch.scoring import ScoredIndex
 from bm25_tpu_torch.utils.padding import next_multiple, next_pow2_at_least
 from bm25_tpu_torch.utils.validate import empty_results, validate_query_batch
-from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, ell_score,
-                                          ell_score_fused, hot_plan,
-                                          scan_table)
+from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, NEG_INF,
+                                          ell_score, ell_score_fused,
+                                          hot_plan, scan_table)
 from bm25_tpu_torch.ops.topk import select_top_k, top_k_tree_with_maxes
 from bm25_tpu_torch.runtime.session import Session, get_session
 from bm25_tpu_torch.utils.counts import split_bf16, weighted_counts
@@ -256,17 +259,23 @@ def hot_counts_for(ids: torch.Tensor, hot_table: torch.Tensor, hot_h: int,
     return split_bf16(cf)
 
 
-def make_sparse_query_step(k: int, hot_h: int = 0):
-    """The unmasked query step over the ELL and hot tiers.
+def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
+                           score_dtype=None):
+    """The query step over the ELL and hot tiers.
 
-    ``step(ids, buckets, offsets, hot_table, w=None) -> (scores (Q, k) f32,
-    docs (Q, k) int32)``; ``buckets`` are dicts of ``doc_ids (rows,)`` and,
-    where present, ``tokT``/``valT`` (L, rows) and ``hotT``/``hotLo``
-    (H, rows).  ``w`` (Q, T) f32 weights each query token: its offset, its
-    hot count and its ELL matches.
+    ``step(ids, buckets, offsets, hot_table, w=None, mask=None) -> (scores
+    (Q, k), docs (Q, k) int32)``, or the docs alone with ``ids_only`` (the
+    scores never leave the device); ``buckets`` are dicts of ``doc_ids
+    (rows,)`` and, where present, ``tokT``/``valT`` (L, rows) and
+    ``hotT``/``hotLo`` (H, rows).  ``w`` (Q, T) f32 weights each query
+    token: its offset, its hot count and its ELL matches.  ``mask``
+    ((num_docs,) bool on the device, True = eligible) restricts the result
+    to a doc subset: slots left when fewer than k docs are eligible come
+    back as doc -1 / score 0.  ``score_dtype`` (a torch dtype or None for
+    f32) is the type the returned scores are rounded to.
     """
 
-    def step(ids, buckets, offsets, hot_table, w=None):
+    def step(ids, buckets, offsets, hot_table, w=None, mask=None):
         valid = ids >= 0
         safe = torch.where(valid, ids, 0).long()
         zero = torch.zeros((), dtype=offsets.dtype, device=offsets.device)
@@ -286,9 +295,18 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
         cand_s, cand_i = [], []
         for b in buckets:
             did = b["doc_ids"]
+            score_did = did
+            if mask is not None:
+                # ineligible rows fold into B1's pad-row mask through a
+                # scoring-only copy of the bucket's doc ids (as JAX's
+                # bucket_base_scores): base and group maxima come out
+                # masked, eligible rows keep the unmasked bits, and the
+                # candidates still take their ids from the real doc_ids
+                elig = mask[did.clamp(min=0).long()] & (did >= 0)
+                score_did = torch.where(elig, did, -1)
             rows_b = did.shape[0]
             base, gmax = ell_score_fused(
-                ids, b.get("tokT"), b.get("valT"), did, hot_counts,
+                ids, b.get("tokT"), b.get("valT"), score_did, hot_counts,
                 b.get("hotT"), b.get("hotLo"), weights=w,
                 hot_counts_lo=hot_lo, plan=plan, table=table,
             )
@@ -310,9 +328,77 @@ def make_sparse_query_step(k: int, hot_h: int = 0):
         cs = torch.gather(cs, 1, order)
         neg, order = torch.sort(-cs, dim=1, stable=True)
         docs = torch.gather(ci, 1, order[:, :kk])
-        return -neg[:, :kk] + qoff[:, None], docs.to(torch.int32)
+        ms = -neg[:, :kk]
+        if mask is not None:
+            # slots beyond the eligible count become doc -1 / score 0 on
+            # the device, so every fetch (ids only, bf16) stays uniform;
+            # unmasked, k <= num_docs leaves >= k finite candidates
+            docs = torch.where(ms > NEG_INF, docs, -1)
+        docs = docs.to(torch.int32)
+        if ids_only:
+            return docs
+        scores = ms + qoff[:, None]
+        if mask is not None:
+            scores = torch.where(ms > NEG_INF, scores, 0.0)
+        if score_dtype is not None:
+            # halves the result-transfer bytes; the ids stay exact
+            scores = scores.to(score_dtype)
+        return scores, docs
 
     return step
+
+
+class B1Bytes(NamedTuple):
+    """The bytes kernel B1 must move on one bucket for one chunk."""
+
+    scan: int  # ids (and weights), slot tokens, a value a matching slot,
+    # the (Q, rows) base written once
+    epilogue: int  # beyond the scan: the used hot rows (hi and lo), the
+    # plan's counts, doc_ids, the group maxima (and the base where the
+    # bucket has no slots)
+    matched: int  # slots whose token is some query's cold id
+
+
+def b1_bytes(engine: "SparseEngine", ids: torch.Tensor,
+             w: torch.Tensor | None = None) -> list[B1Bytes]:
+    """The least bytes B1 moves for one chunk of (Q, T) int32 ids (and
+    optional weights) on the engine's device, one entry a bucket: each
+    input read once and each output written once, counted from these ids
+    (a slot's value is read only where its token is some query's cold id,
+    a hot row only where some query counts its token).  The base never
+    makes a trip between the scan and the hot epilogue.  Reads the used
+    hot-token count back to the host."""
+    q = ids.shape[0]
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    cold_any = torch.unique(ids[valid & (engine.hot_table[safe] < 0)])
+    used = counts = 0
+    if engine.hot_h:
+        hc, hlo = hot_counts_for(ids, engine.hot_table, engine.hot_h, w)
+        plan = hot_plan(hc, hlo)
+        used = int(plan.n_used.item())
+        counts = sum(_nbytes(c) for c in (plan.counts, plan.counts_lo)
+                     if c is not None)
+    query_bytes = _nbytes(ids) + (0 if w is None else _nbytes(w))
+    out = []
+    for b in engine.buckets:
+        did = b["doc_ids"]
+        rows = did.shape[0]
+        base = q * rows * 4
+        epilogue = (2 * used * rows * 2 * ("hotT" in b)
+                    + q * (rows // GROUP) * 4 + counts + _nbytes(did))
+        if "tokT" in b:
+            matched = int(torch.isin(b["tokT"], cold_any).sum())
+            scan = query_bytes + _nbytes(b["tokT"]) + 4 * matched + base
+        else:
+            matched = scan = 0
+            epilogue += base
+        out.append(B1Bytes(scan, epilogue, matched))
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def prepare_doc_mask(doc_mask, num_docs: int, session: Session):
@@ -330,7 +416,7 @@ def prepare_doc_mask(doc_mask, num_docs: int, session: Session):
     m = np.asarray(doc_mask)
     if m.shape != (num_docs,):
         raise ValueError(f"doc_mask shape {m.shape} != ({num_docs},)")
-    return session.put(np.ascontiguousarray(m.astype(bool)))
+    return session.put_async(m.astype(bool))
 
 
 def _score_sdt(score_dtype: str):
@@ -342,6 +428,56 @@ def _score_sdt(score_dtype: str):
     raise ValueError(
         f"score_dtype must be 'float32' or 'bfloat16', got {score_dtype!r}"
     )
+
+
+def maybe_dedup(
+    queries: np.ndarray, weights: np.ndarray | None,
+    dedup: bool | str, min_width: int,
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Apply long-query dedup when it actually cheapens the scan.
+
+    The rule is JAX's, kept as it is so that the port dedups exactly
+    where JAX does: on a TPU the unweighted scan costs ``2T+2`` VPU ops
+    per slot and the weighted one (which dedup switches to) ``3T_u+2``, so
+    under ``"auto"`` the swap engages only when ``3*T_u + 2 < 2*T + 2``
+    (and the width is at least ``min_width``).  ``dedup=True`` forces it
+    on any shrink.  Only unweighted batches are deduplicated.
+    """
+    if weights is not None or not (
+        dedup is True
+        or (dedup == "auto" and queries.shape[1] >= min_width)
+    ):
+        return queries, weights
+    ids_u, counts = dedup_query_rows(queries)
+    t, t_u = queries.shape[1], ids_u.shape[1]
+    if t_u < t and (dedup is True or 3 * t_u + 2 < 2 * t + 2):
+        return ids_u, counts
+    return queries, weights
+
+
+def dedup_query_rows(queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Collapse each query row to unique token ids + occurrence counts.
+
+    Returns ``(ids_u (Q, T_u) int32, counts (Q, T_u) float32)`` with -1
+    pads.  Scoring the deduplicated row with count weights does the same
+    math as the full row with T_u <= T columns.
+    """
+    q = np.asarray(queries, dtype=np.int32)
+    if q.size == 0:
+        return q, np.zeros_like(q, dtype=np.float32)
+    s = np.sort(q, axis=1)[:, ::-1]  # desc: valid ids first, pads (-1) last
+    first = np.ones_like(s, dtype=bool)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    valid = s >= 0
+    first &= valid
+    t_u = max(int(first.sum(axis=1).max(initial=0)), 1)
+    pos = np.cumsum(first, axis=1) - 1  # run index per element
+    rows = np.broadcast_to(np.arange(len(q))[:, None], s.shape)
+    ids_u = np.full((len(q), t_u), -1, dtype=np.int32)
+    counts = np.zeros((len(q), t_u), dtype=np.float32)
+    ids_u[rows[first], pos[first]] = s[first]
+    np.add.at(counts, (rows[valid], np.maximum(pos[valid], 0)), 1.0)
+    return ids_u, counts
 
 
 def plan_query_dispatch(queries: np.ndarray, max_q: int,
@@ -393,6 +529,13 @@ class SparseEngine:
     # "bfloat16": the returned scores are rounded to bf16 on the device
     # (selection stays f32-exact; doc ids are exact) and come back as f32
     score_dtype: str = "float32"
+    # long-query dedup: score unique tokens with occurrence-count weights.
+    # "auto" engages at widths of at least dedup_min_width where JAX's rule
+    # (maybe_dedup) says so; True forces it, False disables.
+    dedup_queries: bool | str = "auto"
+    dedup_min_width: int = 16
+    # the index's token -> id map (None for an engine made from arrays)
+    vocab: dict[str, int] | None = None
 
     @classmethod
     def from_scored_index(
@@ -493,6 +636,7 @@ class SparseEngine:
             vocab_size=v,
             session=session,
             score_dtype=score_dtype,
+            vocab=index.vocab,
         )
         fit_score_buffer_budget(engine)
         return engine
@@ -561,45 +705,127 @@ class SparseEngine:
         return plan_query_dispatch(queries, min(max_q, CHUNK_QUERIES),
                                    weights)
 
-    def _query_chunk(self, padded: np.ndarray, wpadded, k: int):
-        step = make_sparse_query_step(k, self.hot_h)
-        w = None if wpadded is None else self.session.put(wpadded)
-        return step(self.session.put(padded), self.buckets, self.offsets,
-                    self.hot_table, w)
+    def _query_chunk(self, padded: np.ndarray, wpadded, k: int,
+                     ids_only: bool = False, dmask=None):
+        step = make_sparse_query_step(k, self.hot_h, ids_only=ids_only,
+                                      score_dtype=_score_sdt(self.score_dtype))
+        w = None if wpadded is None else self.session.put_async(wpadded)
+        return step(self.session.put_async(padded), self.buckets,
+                    self.offsets, self.hot_table, w, dmask)
 
     def search(self, queries: np.ndarray, top_k: int = 100,
                weights: np.ndarray | None = None,
-               doc_mask: np.ndarray | None = None,
+               doc_mask: np.ndarray | torch.Tensor | None = None,
                ) -> tuple[np.ndarray, np.ndarray]:
-        """Batched top-k search -> (docs (Q, k) int32, scores (Q, k) f32)."""
-        return self._search_impl(queries, top_k, weights, doc_mask)
+        """Batched top-k search -> (docs (Q, k) int32, scores (Q, k) f32).
+
+        ``weights`` (same shape as ``queries``, float) scales each token's
+        contribution.  Long queries deduplicate to unique tokens x counts
+        automatically (``dedup_queries``).  ``doc_mask`` ((num_docs,) bool,
+        True = eligible) restricts results to a doc subset: ineligible docs
+        drop to -inf before selection on the device, so the top k over the
+        eligible set is exact; slots left when fewer than k docs are
+        eligible come back as doc -1 / score 0.  Pass a tensor on the
+        session's device to reuse an uploaded mask across calls.
+        """
+        return self._search_impl(queries, top_k, weights, False, doc_mask)
 
     def search_ids(self, queries: np.ndarray, top_k: int = 100,
                    weights: np.ndarray | None = None,
-                   doc_mask: np.ndarray | None = None) -> np.ndarray:
-        """Rankings only: (Q, k) int32 doc ids."""
-        return self._search_impl(queries, top_k, weights, doc_mask)[0]
+                   doc_mask: np.ndarray | torch.Tensor | None = None,
+                   ) -> np.ndarray:
+        """Rankings only: (Q, k) int32 doc ids.  Selection still runs in
+        f32 on the device; the scores never leave it, which halves the
+        result bytes.  (JAX's ``pack`` option, scores and ids fetched as
+        one f32 array, works around a host round trip per fetch on its TPU
+        link; it has no counterpart here, where each result starts its own
+        non-blocking copy and one event covers a batch.)"""
+        return self._search_impl(queries, top_k, weights, True, doc_mask)[0]
 
-    def _search_impl(self, queries, top_k: int, weights, doc_mask):
-        if doc_mask is not None:
-            raise NotImplementedError(
-                "doc_mask filtering is not ported yet (ROADMAP.md: the "
-                "sparse doc mask)")
+    def _prepare(self, queries, top_k: int, weights, doc_mask):
+        """Validated ``(queries, weights, k, dmask)``; dmask is None when
+        there is no mask or nothing to search."""
         queries, weights = validate_query_batch(queries, self.vocab_size,
                                                 weights)
         k = min(top_k, self.num_docs)
-        if len(queries) == 0 or k <= 0:
-            return empty_results(len(queries), k)
-        sdt = _score_sdt(self.score_dtype)
-        out_docs, out_scores = [], []
+        dmask = None
+        if doc_mask is not None and len(queries) and k > 0:
+            dmask = prepare_doc_mask(doc_mask, self.num_docs, self.session)
+        return queries, weights, k, dmask
+
+    def _dispatch_batch(self, queries: np.ndarray, k: int, weights,
+                        ids_only: bool, dmask):
+        """Plan and enqueue one batch with no host sync: each chunk's
+        results start their copy into pinned host memory, and one event
+        recorded after the last marks them all fetched.  Returns
+        ``(futures, event)`` for ``_collect_batch``."""
+        queries, weights = maybe_dedup(queries, weights, self.dedup_queries,
+                                       self.dedup_min_width)
+        futures = []
         for cq, padded, wpadded in self.plan_chunks(queries, weights):
-            scores, docs = self._query_chunk(padded, wpadded, k)
-            if sdt is not None:
-                # halves the result-transfer bytes; get() hands back f32
-                scores = scores.to(sdt)
-            out_scores.append(self.session.get(scores)[:cq])
-            out_docs.append(self.session.get(docs)[:cq])
-        return np.concatenate(out_docs), np.concatenate(out_scores)
+            res = self._query_chunk(padded, wpadded, k, ids_only, dmask)
+            res = (res,) if ids_only else res
+            futures.append((cq, [self.session.fetch_async(x) for x in res]))
+        return futures, self.session.record_event()
+
+    @staticmethod
+    def _collect_batch(futures, event, ids_only: bool):
+        """Wait for one dispatched batch's event and assemble its results:
+        ``(docs, scores)``, scores None with ``ids_only``."""
+        if event is not None:
+            event.synchronize()
+        docs = np.concatenate([Session.get(res[-1])[:cq]
+                               for cq, res in futures])
+        if ids_only:
+            return docs, None
+        return docs, np.concatenate([Session.get(res[0])[:cq]
+                                     for cq, res in futures])
+
+    def _search_impl(self, queries, top_k: int, weights, ids_only: bool,
+                     doc_mask):
+        queries, weights, k, dmask = self._prepare(queries, top_k, weights,
+                                                   doc_mask)
+        if len(queries) == 0 or k <= 0:
+            if ids_only:  # the (docs, None) convention of the hot path
+                return empty_results(len(queries), k, ids_only=True), None
+            return empty_results(len(queries), k)
+        return self._collect_batch(
+            *self._dispatch_batch(queries, k, weights, ids_only, dmask),
+            ids_only)
+
+    def search_pipelined(
+        self, queries: np.ndarray, top_k: int = 100, batch: int = 512,
+        weights: np.ndarray | None = None,
+        doc_mask: np.ndarray | torch.Tensor | None = None,
+        ids_only: bool = False,
+    ):
+        """Large-batch search in batches of ``batch`` queries, double
+        buffered: batch i+1 is dispatched before batch i is collected, so
+        the host plans, launches and copies out one batch while the card
+        computes the next.  The same contract as :meth:`search`; with
+        ``ids_only`` it returns the ids alone, as :meth:`search_ids`."""
+        queries, weights, k, dmask = self._prepare(queries, top_k, weights,
+                                                   doc_mask)
+        if len(queries) == 0 or k <= 0:
+            return empty_results(len(queries), k, ids_only=ids_only)
+        out_docs, out_scores = [], []
+        pending = None
+        for i in range(0, len(queries), batch):
+            wb = None if weights is None else weights[i : i + batch]
+            dispatched = self._dispatch_batch(queries[i : i + batch], k, wb,
+                                              ids_only, dmask)
+            if pending is not None:
+                d, s = self._collect_batch(*pending, ids_only)
+                out_docs.append(d)
+                out_scores.append(s)
+            pending = dispatched
+        d, s = self._collect_batch(*pending, ids_only)
+        out_docs.append(d)
+        out_scores.append(s)
+        docs = np.concatenate(out_docs)
+        if ids_only:
+            return docs
+        return docs, np.concatenate(out_scores)
 
     def get_scores(self, query_ids) -> np.ndarray:
         """(num_docs,) f32 scores of one query (every doc ranked)."""

@@ -1,7 +1,8 @@
 """Device session — PyTorch counterpart of ``bm25_tpu/runtime/session.py``.
 
 A ``Session`` pins one explicit ``torch.device`` and owns the host<->device
-boundary (``put``/``get``).  Unlike the JAX session it never picks a device
+boundary (``put``/``get``, and ``put_async``/``fetch_async``/
+``record_event`` for transfers that do not wait on the device).  Unlike the JAX session it never picks a device
 by itself: the default is ``"cuda"`` and it raises when CUDA is absent, so a
 run that was meant for the GPU cannot quietly measure the CPU.  CPU tests
 pass ``Session("cpu")`` explicitly.  PyTorch runs eagerly, so there is no
@@ -53,6 +54,40 @@ class Session:
             x = x.view(np.int16)
             return torch.from_numpy(x).view(torch.bfloat16).to(self.device)
         return torch.from_numpy(x).to(self.device)
+
+    def put_async(self, x: np.ndarray) -> torch.Tensor:
+        """Host -> device transfer of a small numpy array that does not
+        wait for the device: on CUDA the array is copied into pinned
+        memory and uploaded with ``non_blocking=True`` (the caller may
+        reuse ``x`` at once)."""
+        x = np.ascontiguousarray(x)
+        if not x.flags.writeable:  # a CPU tensor would alias it
+            x = x.copy()
+        t = torch.from_numpy(x)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def fetch_async(x: torch.Tensor) -> torch.Tensor:
+        """Start a device -> host copy of ``x`` into a pinned buffer and
+        return the buffer without waiting.  It holds ``x`` once an event
+        recorded after this call (``record_event``) has completed.  A CPU
+        tensor comes back as it is."""
+        if x.device.type != "cuda":
+            return x
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        out.copy_(x, non_blocking=True)
+        return out
+
+    def record_event(self):
+        """A CUDA event recorded on the device's current stream (None on
+        the CPU, where every operation has finished when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
 
     @staticmethod
     def get(x: torch.Tensor) -> np.ndarray:

@@ -48,7 +48,14 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    cold posting) pairs counted; the scan
    again on a fan-out batch whose queries share their cold ids, and B1 on
    a chunk of 8 queries, the small-batch path; the chunk's scan tables
-   against the twin's);
+   against the twin's); last, masked batches at k=1000 and k=100 (a random
+   mask, and one leaving 500 docs eligible, a whole group of 8 eligible
+   beside a dropped one) against the oracle, the shortfall doc -1 / score
+   0 exactly, and 512 queries of 64 Zipf tokens at k=1000 with dedup off,
+   on and "auto", each against the oracle, timed in turns; then the
+   benchmark's 2,048 queries at k=1000 and k=100, serial and through
+   ``search_pipelined``: wall ms a batch, the card's busy ms
+   (``torch.profiler``) and the idle share;
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -125,7 +132,17 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    oracle; ``compat.BM25v`` over phase 4's 524,288-doc CSC, which must route
    to ``SparseEngine``: 512 x 8 queries at k=1000, a weighted batch (also
    on phase 4's hot-tier layout) and ``get_scores`` against
-   ``ReferenceEngine``.
+   ``ReferenceEngine``;
+12. query benchmark harness: ``bench/query_bench.py::run`` at the default
+   ``BenchConfig`` on phase 4's corpus with the explicit layout
+   (hot_tokens=1024, 2 buckets): latency, pipelined and ids-only qps at
+   k=1000 and k=100, the device step and its bytes (B1's count,
+   ``models.sparse.b1_bytes``, which phase 4 bounds B1 with), the
+   ELL-only parity engine, the 65,536-doc long-document corpus (buckets
+   wider than 512 slots) and the synthetic-BEIR eval (dense and sparse);
+   every row's recall against ``ReferenceEngine`` must read 1.0, and B1,
+   B2, the tables and B3 must have launched, no plain twin run.  The
+   compact headline is logged on its own line.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -142,6 +159,7 @@ last line is ``{"ok": true, "device": ...}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -482,27 +500,60 @@ def side_max(tk, entries: int):
         tk.SIDE_MAX = saved
 
 
-def kernel_us(torch, fn, prefixes, calls: int) -> dict:
-    """{kernel name: (device microseconds, launches recorded)} over
-    ``calls`` calls of ``fn()``, for each kernel whose name starts with one
-    of ``prefixes`` (``torch.profiler``)."""
-    from torch.profiler import ProfilerActivity, profile
+PRIMER = "spin_kernel"  # the kernel of torch.cuda._sleep
+
+
+def profiled(torch, fn, calls: int):
+    """``torch.profiler`` over ``calls`` calls of ``fn()``, after one call
+    in the profiler's warm-up step and one short ``PRIMER`` launch in the
+    recorded step: the profiler can miss the first launches of a window
+    it has only just switched on (one, or on a bad window all of a small
+    kernel's ten), so the tracer is prepared a call early and the first
+    launch it records is one that no reading counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        name = e.key.replace("(anonymous namespace)::", "")
-        name = name.removeprefix("void ").split("(")[0]
-        if e.device_time_total > 0 and name.startswith(prefixes):
-            us, n = out.get(name, (0.0, 0))
-            out[name] = (us + e.device_time_total, n + e.count)
-    return out
+        prof.step()
+    return prof
+
+
+def kernel_us(torch, fn, prefixes, calls: int, tries: int = 4) -> dict:
+    """{kernel name: (device microseconds, launches recorded)} over
+    ``calls`` calls of ``fn()``, for each kernel whose name starts with one
+    of ``prefixes`` (``torch.profiler``). A window in which some prefix
+    has fewer than ``calls`` launches recorded is profiled again, up to
+    ``tries`` windows; the fullest window is kept."""
+    best = {}
+    for attempt in range(tries):
+        out = {}
+        for e in profiled(torch, fn, calls).key_averages():
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            if e.device_time_total > 0 and name.startswith(prefixes):
+                us, n = out.get(name, (0.0, 0))
+                out[name] = (us + e.device_time_total, n + e.count)
+        if (sum(n for _, n in out.values())
+                > sum(n for _, n in best.values())):
+            best = out
+        if all(sum(n for name, (_, n) in out.items()
+                   if name.startswith(p)) >= calls for p in prefixes):
+            break
+        got = {name: n for name, (_, n) in out.items()}
+        log(f"[kernels] torch.profiler window {attempt + 1} of {tries} "
+            f"missed launches of {prefixes}: recorded {got}")
+    return best
 
 
 def device_us(torch, fn, prefixes, calls: int = 5) -> dict:
@@ -770,17 +821,18 @@ def phase_gumbel_cases(torch, tk, dev) -> None:
 
 def sparse_main(torch, dev, cfg, ops, session, record):
     """Phase 4: the sparse engine at the benchmark shape; returns its
-    index."""
+    index and the index's build timings."""
     from bm25_tpu_torch import ReferenceEngine, SparseEngine, create_engine
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
-    from bm25_tpu_torch.models.sparse import (hot_counts_for,
+    from bm25_tpu_torch.models.sparse import (b1_bytes, hot_counts_for,
                                               hot_ell_for_rows,
                                               split_hot_cold_csr)
     hot_plan = ops.hot_plan
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     t0 = time.perf_counter()
-    index = make_synthetic_index(cfg)
+    timings = {}
+    index = make_synthetic_index(cfg, timings)
     queries = make_queries(cfg)[: cfg.batch]
     log(f"[sparse] corpus {index.num_docs} docs, vocab {index.vocab_size}, "
         f"{index.nnz} postings ({time.perf_counter() - t0:.1f} s); "
@@ -873,7 +925,6 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     # is one FMA of the scan
     cold_ids = [np.unique(r[(r >= 0)][hot_of[r[r >= 0]] < 0])
                 for r in chunk]
-    cold_any = torch.from_numpy(np.unique(np.concatenate(cold_ids))).to(dev)
     # the fan-out case: every query's cold ids replaced by one shared run
     # of the batch's cold ids (the first T in order of appearance)
     seen = list(dict.fromkeys(
@@ -887,6 +938,9 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     fan_table = ops.scan_table(fan_ids)
     fan_cold = [np.unique(r[cold[i]]) for i, r in enumerate(fan)]
     b1_err = scan_err = 0.0
+    # the bytes B1 must move on each bucket: the package's count, which the
+    # query benchmark's hbm_utilization uses too
+    per_bucket = b1_bytes(engine, ids)
     tot = dict.fromkeys(("ms", "plain", "scan", "scan_plain", "hot",
                          "hot_plain", "masked", "fan", "fan_masked", "pairs",
                          "fan_pairs", "scan_bytes", "hot_bytes", "hot_ops"),
@@ -895,23 +949,21 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     b1_kernels = ("ell_scan_kernel", "ell_hot_kernel")
     for i, b in enumerate(engine.buckets):
         rows = b["doc_ids"].shape[0]
-        q = chunk.shape[0]
         postings = torch.bincount(b["tokT"][b["tokT"] >= 0].long(),
                                   minlength=index.vocab_size).cpu().numpy()
         pairs = int(sum(postings[c].sum() for c in cold_ids))
         fan_pairs = int(sum(postings[c].sum() for c in fan_cold))
-        # B1's bound, as its scan's and its hot epilogue's.  The scan: ids
-        # and the slots' tokens read once, a value only where the slot's
-        # token is some query's cold id, the (Q, rows) base written once;
-        # one FMA a matching pair.  The hot epilogue: what B1 moves beyond
-        # that (the used hot rows, hi and lo; the plan's counts; doc_ids;
-        # the maxima), no trip of the base; two bf16 products a used
-        # (query, hot token, row).  The two add up to B1's.
-        matched = int(torch.isin(b["tokT"], cold_any).sum())
-        tot["scan_bytes"] += (nbytes(ids, b["tokT"]) + 4 * matched
-                              + q * rows * 4)
-        tot["hot_bytes"] += (2 * used * rows * 2 + q * (rows // ops.GROUP)
-                             * 4 + nbytes(plan.counts, b["doc_ids"]))
+        # B1's bound, as its scan's and its hot epilogue's.  The scan's
+        # bytes (b1_bytes): ids and the slots' tokens read once, a value
+        # only where the slot's token is some query's cold id, the (Q,
+        # rows) base written once; one FMA a matching pair.  The hot
+        # epilogue's: what B1 moves beyond that (the used hot rows, hi and
+        # lo; the plan's counts; doc_ids; the maxima), no trip of the
+        # base; two bf16 products a used (query, hot token, row).  The two
+        # add up to B1's.
+        matched = per_bucket[i].matched
+        tot["scan_bytes"] += per_bucket[i].scan
+        tot["hot_bytes"] += per_bucket[i].epilogue
         tot["hot_ops"] += 2 * 2 * hot_pairs * rows
         tot["pairs"] += pairs
         tot["fan_pairs"] += fan_pairs
@@ -1032,7 +1084,135 @@ def sparse_main(torch, dev, cfg, ops, session, record):
                                         b2_ms, b2_plain_ms, b2_bound)
     record["ell_table"] = kernel_record(launches["ell_table"], 0.0, table_ms,
                                         table_plain_ms, bound(table_bytes))
-    return index
+    masked_and_dedup(torch, engine, ref, cfg)
+    pipeline_busy(torch, engine, cfg)
+    return index, timings
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn()`` over ``reps`` calls, after one."""
+    fn()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def device_busy_ms(torch, fn) -> float:
+    """Milliseconds in which the card ran some kernel or copy during one
+    call of ``fn()`` (the union of the device spans ``torch.profiler``
+    records), after a warm-up call."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in profiled(torch, fn, 1).events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and PRIMER not in e.name)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def pipeline_busy(torch, engine, cfg) -> None:
+    """Phase 4, last: the benchmark's 2,048 queries in 512-query batches at
+    k=1000 and k=100, serial (``search`` a batch) and pipelined
+    (``search_pipelined``): host wall ms a batch (median of 5 passes, no
+    profiler), the card's busy ms a batch (``torch.profiler``) and the
+    idle share 1 - busy / wall."""
+    from bm25_tpu_torch.bench import make_queries
+
+    queries = make_queries(cfg)
+    batches = range(0, len(queries), cfg.batch)
+    for k in (cfg.top_k, cfg.top_k2):
+        for name, fn in (
+                ("serial", lambda k=k: [engine.search(
+                    queries[i : i + cfg.batch], top_k=k) for i in batches]),
+                ("pipelined", lambda k=k: engine.search_pipelined(
+                    queries, top_k=k, batch=cfg.batch))):
+            wall = wall_ms(fn) / len(batches)
+            busy = device_busy_ms(torch, fn) / len(batches)
+            if busy <= 0:
+                raise AssertionError("torch.profiler recorded no device time")
+            log(f"[sparse] {name} search of {len(queries)} queries in "
+                f"{cfg.batch}-query batches, k={k}: {wall:.3f} ms a batch "
+                f"wall (median of 5; {len(queries) / (wall * len(batches)) * 1e3:.0f}"
+                f" qps), {busy:.3f} ms busy (torch.profiler), idle share "
+                f"{1 - busy / wall:.3f}")
+
+
+def masked_and_dedup(torch, engine, ref, cfg) -> None:
+    """Phase 4, last: masked batches (a random mask, and one that leaves
+    fewer than k docs eligible, with a whole group of 8 eligible beside a
+    dropped one) against the oracle, the shortfall doc -1 / score 0
+    exactly, timed beside the unmasked batch (host wall, median of 5, and
+    the card's busy ms), the random mask also uploaded once as a tensor on
+    the card; then 512 queries of 64 Zipf tokens (duplicates) at k=1000
+    with dedup off, on and "auto", each against the oracle, timed in
+    turns."""
+    from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.models.sparse import maybe_dedup
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    queries = make_queries(cfg)[: cfg.batch]
+    sub = slice(0, CHECKED_QUERIES)
+    rng = np.random.default_rng(5)
+    few = np.zeros(engine.num_docs, bool)
+    few[rng.choice(engine.num_docs, cfg.top_k // 2, replace=False)] = True
+    few[:8], few[8:16] = True, False
+    part = rng.random(engine.num_docs) < 0.3
+    for name, mask in (("random 30%", part),
+                       (f"{int(few.sum())} eligible", few)):
+        for k in (cfg.top_k, cfg.top_k2):
+            docs, scores = engine.search(queries, top_k=k, doc_mask=mask)
+            od, os_ = ref.search(queries[sub], top_k=k, doc_mask=mask)
+            assert_matches_oracle(docs[sub], scores[sub], od, os_)
+            short = docs < 0
+            if not np.array_equal(short[sub], od < 0) or \
+                    (scores[short] != 0).any():
+                raise AssertionError(f"mask {name}: shortfall slots differ")
+            log(f"[sparse] doc mask {name}, k={k}: {int(short.sum())} "
+                f"shortfall slots (doc -1, score 0); first "
+                f"{CHECKED_QUERIES} queries match ReferenceEngine")
+    on_card = torch.from_numpy(part).to(engine.session.device)
+    for k in (cfg.top_k, cfg.top_k2):
+        cells = []
+        for name, kw in (("unmasked", {}), ("random 30% mask", {
+                "doc_mask": part}), ("the same mask on the card", {
+                "doc_mask": on_card}), (f"{int(few.sum())} eligible", {
+                "doc_mask": few})):
+            def call(kw=kw, k=k):
+                return engine.search(queries, top_k=k, **kw)
+            cells.append(f"{name} {wall_ms(call):.3f} ms wall / "
+                         f"{device_busy_ms(torch, call):.3f} ms busy")
+        log(f"[sparse] {len(queries)}-query batch, k={k} (median of 5; "
+            f"torch.profiler): " + "; ".join(cells))
+    long_q = make_queries(dataclasses.replace(cfg, query_len=64,
+                                              num_queries=cfg.batch))
+    k = cfg.top_k
+    want = ref.search(long_q[sub], top_k=k)
+    times, busy = {}, {}
+    for mode in (False, True, "auto", "auto", True, False):
+        engine.dedup_queries = mode
+        docs, scores = engine.search(long_q, top_k=k)
+        assert_matches_oracle(docs[sub], scores[sub], *want)
+
+        def call():
+            return engine.search(long_q, top_k=k)
+        times.setdefault(str(mode), []).append(wall_ms(call))
+        if str(mode) not in busy:
+            busy[str(mode)] = device_busy_ms(torch, call)
+    engine.dedup_queries = "auto"
+    unique = max(len(set(r.tolist())) for r in long_q)
+    rule_ms = wall_ms(lambda: maybe_dedup(long_q, None, "auto", 16))
+    log(f"[sparse] dedup, {len(long_q)} x 64-token Zipf queries (at most "
+        f"{unique} distinct ids a row) at k={k}: median ms of 5 a batch, "
+        f"in turns: {json.dumps(times)}; the card's busy ms "
+        f"{json.dumps(busy)}; maybe_dedup alone on the host {rule_ms:.3f} "
+        f"ms; each mode's first {CHECKED_QUERIES} queries match "
+        "ReferenceEngine")
 
 
 def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
@@ -2229,8 +2409,43 @@ def entry_points(torch, session, index) -> None:
         raise AssertionError("the entry points did not run B1 and B3")
 
 
+def harness(torch, session, index, timings) -> None:
+    """Phase 12: the query benchmark harness (``bench/query_bench.py::
+    run``) at the default ``BenchConfig`` on phase 4's corpus, with the
+    explicit layout; every row's recall must read 1.0, and the path must
+    launch B1, B2, the scan's tables and (the dense BEIR-eval row) B3 and
+    run no plain twin."""
+    from bm25_tpu_torch.bench import BenchConfig
+    from bm25_tpu_torch.bench.query_bench import compact_headline, run
+    from bm25_tpu_torch.ops import gather_rows as gr
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    reset(ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
+    result = run(BenchConfig(), log=lambda *a: log(" ".join(map(str, a))),
+                 session=session, index=index, timings=timings)
+    launches = {**ops.launches, **gr.launches}
+    plain = {**ops.plain_calls, **gr.plain_calls}
+    log(f"[harness] record {json.dumps(result)}")
+    log(f"[harness] headline {json.dumps(compact_headline(result))}")
+    log(f"[harness] kernel launches {launches}, plain twin runs {plain}")
+    extra = result["extra"]
+    rows = {"headline": extra["headline"], "memory_parity":
+            extra["memory_parity"], "longdoc": extra["longdoc"]}
+    rows.update({f"secondary k={r['top_k']}": r for r in extra["secondary"]})
+    recall = {name: r["recall_vs_reference"] for name, r in rows.items()}
+    if set(recall.values()) != {1.0}:
+        raise AssertionError(f"harness recall_vs_reference {recall}")
+    needed = ("ell_score_fused", "ell_score", "ell_table", "gather_add_rows")
+    if not all(launches[n] for n in needed) or any(plain.values()):
+        raise AssertionError("the harness did not launch B1, B2, the "
+                             "tables and B3, or ran a plain twin")
+    log(f"[harness] recall_vs_reference 1.0 in every row {sorted(recall)}; "
+        f"longdoc bucket widths {extra['longdoc']['bucket_widths']} "
+        f"(slot-tiled: {extra['longdoc']['slot_tiled']})")
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-11 on device ``dev``; returns the kernels' record."""
+    """Phases 2-12 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -2267,7 +2482,8 @@ def drive(torch, dev) -> dict:
     session = Session(dev)
     record = {}
     with Phase("4. sparse main path"):
-        index = sparse_main(torch, dev, BenchConfig(), ops, session, record)
+        index, timings = sparse_main(torch, dev, BenchConfig(), ops,
+                                     session, record)
         torch.cuda.empty_cache()
     dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
                record)
@@ -2288,6 +2504,9 @@ def drive(torch, dev) -> dict:
     torch.cuda.empty_cache()
     with Phase("11. entry points: CLI, compat, BM25v at full width"):
         entry_points(torch, session, index)
+    torch.cuda.empty_cache()
+    with Phase("12. query benchmark harness"):
+        harness(torch, session, index, timings)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

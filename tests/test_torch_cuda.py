@@ -331,6 +331,128 @@ def test_cuda_engine_matches_oracle(cuda_device):
     assert port.plain_calls == plain  # the GPU path ran no plain twin
 
 
+# (l_pad, h, weighted): B1 with doc ids -1 where a doc mask folds in
+MASKED_B1 = {
+    "ell_only": (24, 0, False),
+    "hot": (24, 40, False),
+    "hot_weighted": (24, 40, True),
+    "slot_tiled_hot": (1208, 8, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MASKED_B1))
+def test_cuda_masked_b1_matches_twin(cuda_device, name):
+    """Rows a doc mask drops (doc id -1: a whole group of 8, and scattered
+    rows) come out -inf after the scan and the hot epilogue, not -inf + x;
+    a group whose 8 rows are all dropped has a -inf maximum."""
+    l_pad, h, weighted = MASKED_B1[name]
+    args, kw = make_case(6, 37, 6, 1024, l_pad, 4000 if l_pad > 512 else
+                         300, h, 0, weighted, cuda_device)
+    did = args[3].clone()
+    did[8:16] = -1
+    did[torch.arange(1024, device=cuda_device) % 7 == 3] = -1
+    args[3] = did
+    base, gmax = port.ell_score_fused(*args, **kw)
+    want_b, want_g = port.ell_score_fused_plain(*args, **kw)
+    dropped = did < 0
+    assert bool(torch.isneginf(base[:, dropped]).all())
+    assert bool(torch.isneginf(gmax[:, 1]).all())
+    assert bool(torch.isfinite(base[:, ~dropped]).all())
+    if h:
+        within_row_scale(base, want_b)
+        within_row_scale(gmax, want_g)
+    else:
+        assert torch.equal(base, want_b) and torch.equal(gmax, want_g)
+
+
+def sparse_engine_on_card():
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    engine = create_engine(index, mode="sparse", session=Session("cuda"),
+                           hot_tokens=64, hot_budget_bytes=1 << 24,
+                           max_buckets=2)
+    return index, engine
+
+
+@pytest.mark.cuda
+def test_cuda_masked_search_matches_oracle(cuda_device):
+    """A random mask, one that leaves fewer than k docs eligible (doc -1 /
+    score 0 exactly in the shortfall), and a mask tensor on the card."""
+    index, engine = sparse_engine_on_card()
+    ref = ReferenceEngine.from_scored_index(index)
+    rng = np.random.default_rng(1)
+    q = rng.integers(-1, 2000, (40, 8))
+    few = np.zeros(index.num_docs, bool)
+    few[rng.choice(index.num_docs, 300, replace=False)] = True
+    few[:8] = True  # a whole group of 8 eligible, the next dropped
+    for mask in (rng.random(index.num_docs) < 0.3, few):
+        for k in (10, 1000):
+            got = engine.search(q, top_k=k, doc_mask=mask)
+            want = ref.search(q, top_k=k, doc_mask=mask)
+            assert_matches_oracle(*got, *want)
+            short = want[0] < 0
+            assert np.array_equal(got[0][short], want[0][short])
+            assert (got[1][short] == 0).all()
+            dev_mask = torch.from_numpy(mask).to(cuda_device)
+            again = engine.search(q, top_k=k, doc_mask=dev_mask)
+            assert np.array_equal(again[0], got[0])
+            assert np.array_equal(again[1], got[1])
+    assert (engine.search(q, top_k=1000, doc_mask=few)[0] < 0).any()
+
+
+@pytest.mark.cuda
+def test_cuda_search_pipelined_syncs_only_on_its_events(cuda_device):
+    """One pipelined call (weights, a mask on the card, ids only too) runs
+    under set_sync_debug_mode("error"): nothing on the step's path syncs
+    the host; it equals the serial search of each batch, ids and scores
+    (a chunk's hot plan lists the hot tokens its own queries use, so the
+    hot products' order, and the last bits, follow the chunking)."""
+    index, engine = sparse_engine_on_card()
+    rng = np.random.default_rng(2)
+    q = rng.integers(-1, 2000, (300, 8))
+    w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
+    mask = torch.from_numpy(rng.random(index.num_docs) < 0.5).to(
+        cuda_device)
+
+    def serial(**kw):
+        parts = [engine.search(q[i : i + 128], top_k=100,
+                               **{n: (v[i : i + 128] if n == "weights"
+                                      else v) for n, v in kw.items()})
+                 for i in range(0, len(q), 128)]
+        return tuple(np.concatenate(x) for x in zip(*parts))
+
+    want = serial()
+    want_m = serial(weights=w, doc_mask=mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine.search_pipelined(q, top_k=100, batch=128)
+        got_m = engine.search_pipelined(q, top_k=100, batch=128, weights=w,
+                                        doc_mask=mask)
+        ids = engine.search_pipelined(q, top_k=100, batch=128, ids_only=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g, x in ((got, want), (got_m, want_m)):
+        assert np.array_equal(g[0], x[0]) and np.array_equal(g[1], x[1])
+    assert np.array_equal(ids, want[0])
+    assert np.array_equal(engine.search_ids(q[:128], top_k=100),
+                          want[0][:128])
+
+
+@pytest.mark.cuda
+def test_cuda_dedup_search_matches_oracle(cuda_device):
+    """64-token queries with duplicates, dedup on, off and "auto"."""
+    index, engine = sparse_engine_on_card()
+    ref = ReferenceEngine.from_scored_index(index)
+    rng = np.random.default_rng(3)
+    pool = rng.integers(0, 2000, (24, 10))
+    q = np.take_along_axis(pool, rng.integers(0, 10, (24, 64)), axis=1)
+    want = ref.search(q, top_k=100)
+    for mode in (True, False, "auto"):
+        engine.dedup_queries = mode
+        assert_matches_oracle(*engine.search(q, top_k=100), *want)
+
+
 # -- B3 gather-accumulate -----------------------------------------------------
 
 # v, d, q, t, dtype, weighted

@@ -137,6 +137,17 @@ def test_index_takes_the_jax_cli_options_only(tmp_path, animal_corpus,
     assert "doc=" in got
 
 
+# tests/test_bench_run.py's tiny config, without the rows that are not
+# ported
+TINY_BENCH = dict(
+    num_docs=256, vocab=512, avg_len=16, num_queries=64, batch=32,
+    top_k=20, top_k2=5, baseline_queries=8, engine="sparse",
+    max_buckets=2, eval_docs=200, eval_queries=8,
+    longdoc_docs=96, longdoc_long_len=320, longdoc_short_len=16,
+    sharded_docs=0, cold_start=0, shard_scaling=0,
+)
+
+
 def test_bench_suites(capsys, monkeypatch):
     small = matmul_bench.bench_matmul
     monkeypatch.setattr(matmul_bench, "bench_matmul",
@@ -146,9 +157,16 @@ def test_bench_suites(capsys, monkeypatch):
     assert len(out.splitlines()) == 1
     assert [r["algorithm"] for r in json.loads(out)] == ["xla", "naive",
                                                          "optimized"]
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: the query benchmark harness"):
-        main(["--device", "cpu", "bench"])
+    # the query suite (the default) runs the harness: the full record,
+    # then the compact headline last
+    for field, value in TINY_BENCH.items():
+        monkeypatch.setenv(f"BM25_BENCH_{field.upper()}", str(value))
+    out = run(main, ["--device", "cpu", "bench"], capsys).strip()
+    full, last = [json.loads(x) for x in out.splitlines()]
+    assert full["metric"] == last["metric"] == "bm25_query_throughput"
+    assert last["recall"] == full["extra"]["headline"][
+        "recall_vs_reference"] == 1.0
+    assert full["extra"]["device"] == {"type": "cpu"}
 
 
 def test_unported_commands_are_not_registered(capsys):

@@ -1,0 +1,123 @@
+"""The port's query benchmark harness (bench/query_bench.py) against the
+JAX harness, on the CPU, at tests/test_bench_run.py's tiny config: the
+same record keys apart from the ones the port names as omitted or not
+ported, recall 1.0 in every row, a compact headline under 500 bytes, and
+the entry point's last line.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from bm25_tpu.bench import query_bench as jax_bench
+from bm25_tpu_torch import Session
+from bm25_tpu_torch.bench import query_bench as port_bench
+
+TINY = dict(
+    num_docs=256, vocab=512, avg_len=16, num_queries=64, batch=32,
+    top_k=20, top_k2=5, baseline_queries=8, engine="sparse",
+    max_buckets=2, eval_docs=200, eval_queries=8,
+    longdoc_docs=96, longdoc_long_len=320, longdoc_short_len=16,
+    sharded_docs=128, cold_start=0, shard_scaling=0,
+)
+
+
+def quiet(*_args):
+    pass
+
+
+@pytest.fixture(scope="module")
+def records():
+    port = port_bench.run(port_bench.BenchConfig(**TINY), log=quiet,
+                          session=Session("cpu"))
+    jax = jax_bench.run(jax_bench.BenchConfig(**TINY), log=quiet)
+    return port, jax
+
+
+def test_record_keys_match_jax(records):
+    port, jax = records
+    assert port.keys() == jax.keys()
+    assert port["metric"] == jax["metric"] == "bm25_query_throughput"
+    pe, je = port["extra"], jax["extra"]
+    omitted = set(pe["omitted"])
+    assert omitted == set(port_bench.OMITTED) | set(port_bench.CARD_ONLY)
+    assert pe["device"] == {"type": "cpu"}
+    for got, want in [(pe["headline"], je["headline"])] + list(
+            zip(pe["secondary"], je["secondary"])):
+        assert set(got) == set(want) - omitted
+    assert set(pe["longdoc"]) == set(je["longdoc"]) | {"layout"}
+    assert pe["memory_parity"].keys() == je["memory_parity"].keys()
+    assert [r["point"] for r in pe["memory_trade"]] == ["parity", "speed"]
+    assert [r["point"] for r in je["memory_trade"]] == ["parity", "mid",
+                                                        "speed"]
+    # every row the JAX record has and the port's lacks is named
+    not_ported = set(pe["not_ported"])
+    assert not_ported == {"cold_start", "sharded", "shard_scaling",
+                          "memory_trade.mid"}
+    assert set(je) - set(pe) <= not_ported
+    assert pe["layout"] == {"layout": port_bench.LAYOUT_NOTE,
+                            "hot_tokens": 1024, "max_buckets": 2}
+    assert pe["beir_synthetic_eval"].keys() == je["beir_synthetic_eval"].keys()
+
+
+def test_recall_is_exact_in_every_row(records):
+    for rec in records:
+        extra = rec["extra"]
+        rows = [extra["headline"], *extra["secondary"],
+                extra["memory_parity"], extra["longdoc"]]
+        assert [r["recall_vs_reference"] for r in rows] == [1.0] * len(rows)
+        assert all(r["device_step_ms"] >= 0 for r in rows)
+    # the synthetic-BEIR eval reads the same on both (same corpus, same
+    # tokens: its words have nothing to stem)
+    port, jax = records
+    for mode in ("dense", "sparse"):
+        got = dict(port["extra"]["beir_synthetic_eval"][mode])
+        want = dict(jax["extra"]["beir_synthetic_eval"][mode])
+        assert got.pop("engine") == want.pop("engine")
+        assert got == want
+
+
+def test_compact_headline_is_small(records):
+    port, _ = records
+    line = json.dumps(port_bench.compact_headline(port))
+    assert len(line.encode()) < 500
+    head = json.loads(line)
+    assert head["recall"] == 1.0 and head["top_k"] == 20
+    assert [r["top_k"] for r in head["secondary"]] == [5]
+
+
+def test_step_bytes_and_timing_helpers():
+    """estimate_step_hbm_bytes sums b1_bytes over the batch's chunks;
+    measure_device_step_ms returns a time for the sparse engine only."""
+    from bm25_tpu_torch import create_engine
+    from bm25_tpu_torch.models.sparse import b1_bytes
+
+    cfg = port_bench.BenchConfig(**TINY)
+    index = port_bench.make_synthetic_index(cfg)
+    queries = port_bench.make_queries(cfg)
+    cpu = Session("cpu")
+    eng = create_engine(index, mode="sparse", session=cpu, hot_tokens=32,
+                        hot_budget_bytes=1 << 20, max_buckets=2)
+    ids = np.resize(queries, (40, queries.shape[1]))
+    want = 0
+    for _cq, padded, _w in eng.plan_chunks(ids):
+        want += sum(b.scan + b.epilogue
+                    for b in b1_bytes(eng, cpu.put(padded)))
+    assert port_bench.estimate_step_hbm_bytes(eng, 40, queries) == want > 0
+    assert port_bench.measure_device_step_ms(eng, queries, 10,
+                                             iters=2) >= 0
+    dense = create_engine(index, mode="dense", session=cpu)
+    assert port_bench.measure_device_step_ms(dense, queries, 10) is None
+    assert port_bench.estimate_step_hbm_bytes(dense, 40, queries) is None
+
+
+def test_entry_point_prints_headline_last(capsys, monkeypatch):
+    for field, value in TINY.items():
+        monkeypatch.setenv(f"BM25_BENCH_{field.upper()}", str(value))
+    assert port_bench.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2
+    full, last = (json.loads(x) for x in lines)
+    assert last == port_bench.compact_headline(full)
+    assert last["metric"] == "bm25_query_throughput" and last["recall"] == 1.0

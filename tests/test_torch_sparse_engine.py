@@ -275,9 +275,12 @@ def test_unported_options_raise(lucene_index):
     eng = SparseEngine.from_scored_index(lucene_index, session=CPU,
                                          hot_tokens=4)
     q = np.zeros((2, 3), np.int32)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: the sparse doc mask"):
-        eng.search(q, doc_mask=np.ones(lucene_index.num_docs, bool))
+    # the doc mask is ported: a masked search, not a raise
+    mask = np.arange(lucene_index.num_docs) % 3 == 0
+    assert_matches_oracle(
+        *eng.search(q, doc_mask=mask),
+        *ReferenceEngine.from_scored_index(lucene_index).search(
+            q, top_k=100, doc_mask=mask))
     with pytest.raises(ValueError, match="weights"):
         eng.search(q, weights=np.ones((2, 4), np.float32))
     with pytest.raises(NotImplementedError,
