@@ -15,13 +15,13 @@ What differs from the JAX harness:
   back (``measure_device_step_ms``), and its bytes are the ones kernel B1
   moves (``models.sparse.b1_bytes``, the count ``chip_smoke.py`` bounds
   B1 with), against the H100 SXM's 3.35 TB/s;
-* the layout is explicit, ``hot_tokens=1024`` and ``max_buckets=2`` (or
-  ``cfg.max_buckets`` where it is not 0): the layout cost model is not
-  ported, and the record says so under ``extra["layout"]``;
+* the record keeps the layout the cost model chose (``extra["layout"]``
+  and the long-document row's ``"layout"``: the choice and each bucket
+  count's modelled ms, ``models.sparse.layout_candidates``);
 * ``extra["omitted"]`` names the row keys that have no counterpart (the
   VPU op model: the port's scan is a table lookup, not T compares a slot)
-  and ``extra["not_ported"]`` the rows switched off (the cold start, the
-  sharded rows and the memory trade's "mid" point).
+  and ``extra["not_ported"]`` the rows switched off (the cold start and
+  the sharded rows).
 """
 
 from __future__ import annotations
@@ -129,12 +129,6 @@ UPLOAD_INIT_WARM_BUDGET_S = 8.0
 # the H100 SXM's peak memory rate (bytes/s), the utilization denominator
 # (the peak chip_smoke.py's bounds use)
 H100_HBM_BYTES_PER_S = 3.35e12
-# the explicit layout, chip_smoke.py's (the layout cost model is not
-# ported): the hot tier's width and the ELL buckets
-LAYOUT_HOT_TOKENS = 1024
-LAYOUT_MAX_BUCKETS = 2
-LAYOUT_NOTE = ("explicit (the layout cost model is not ported: "
-               "ROADMAP.md: the H100 layout cost model)")
 # row keys of the JAX harness that have no counterpart here, and why
 OMITTED = {
     "achieved_vpu_tops": "no counterpart: the scan is a table lookup, not "
@@ -242,13 +236,20 @@ def make_longdoc_index(cfg: BenchConfig):
     return build_scored_index_flat(flat, lengths, vocab_size=cfg.vocab)
 
 
-def layout_kwargs(index, max_buckets: int = 0) -> dict:
-    """The explicit sparse layout: LAYOUT_HOT_TOKENS hot tokens (a memory
-    budget that admits them all) and ``max_buckets`` buckets, or
-    LAYOUT_MAX_BUCKETS where it is 0."""
-    return {"hot_tokens": LAYOUT_HOT_TOKENS,
-            "hot_budget_bytes": LAYOUT_HOT_TOKENS * index.num_docs * 4,
-            "max_buckets": max_buckets or LAYOUT_MAX_BUCKETS}
+def model_layout(index, k: int, cfg: BenchConfig, session) -> dict:
+    """The cost model's layout for ``index`` at ``k`` and the benchmark's
+    batch (``choose_layout``, JAX's harness's call), with each bucket
+    count's modelled ms: ``{"top_k", "max_buckets", "hot_tokens",
+    "candidates"}``.  The engine built at this ``max_buckets`` sizes the
+    same hot tier itself (``hot_tokens="auto"``)."""
+    from bm25_tpu_torch.models.sparse import best_layout, layout_candidates
+
+    cands = layout_candidates(index, k=k, q=cfg.batch,
+                              t=max(cfg.query_len, 8),
+                              device=session.device)
+    return {"top_k": k, **best_layout(cands), "candidates": [
+        {key: (round(v, 4) if isinstance(v, float) else v)
+         for key, v in c.items()} for c in cands]}
 
 
 def _free(session) -> None:
@@ -276,9 +277,10 @@ def _measure_longdoc(cfg: BenchConfig, queries: np.ndarray, log,
     index = make_longdoc_index(cfg)
     build_s = time.perf_counter() - t0
     k = min(cfg.top_k, cfg.longdoc_docs)
+    layout = model_layout(index, k, cfg, session)
     t0 = time.perf_counter()
     engine = SparseEngine.from_scored_index(
-        index, session=session, **layout_kwargs(index, cfg.max_buckets))
+        index, session=session, max_buckets=layout["max_buckets"])
     _sync(session)
     upload_s = time.perf_counter() - t0
     widths = [b["tokT"].shape[0] for b in engine.buckets if "tokT" in b]
@@ -306,7 +308,7 @@ def _measure_longdoc(cfg: BenchConfig, queries: np.ndarray, log,
         "recall_vs_reference": round(recall, 4),
         "overhead_ratio": mem.as_dict().get("overhead_ratio"),
         "upload_init_s": round(upload_s, 1),
-        "layout": LAYOUT_NOTE,
+        "layout": layout,
     }
     log(f"[bench] longdoc: k={k} device_step={row['device_step_ms']}ms "
         f"recall@{k}={recall:.4f} slot_tiled={row['slot_tiled']}")
@@ -334,7 +336,8 @@ def _time_step_chunk(engine, step, ids, iters: int) -> float:
     def enqueue(n):
         acc = torch.zeros((), dtype=torch.float32, device=ids.device)
         for _ in range(n):
-            out = step(ids, engine.buckets, engine.offsets, engine.hot_table)
+            out = step(ids, engine.buckets, engine.offsets, engine.hot_table,
+                       tail=engine._tail)
             leaf = out[0] if isinstance(out, tuple) else out
             acc = acc + leaf.float().amax()
         return acc
@@ -558,11 +561,12 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
 
     kwargs = cfg.engine_kwargs()
     layout = None
-    if "max_buckets" in kwargs:
-        kwargs.update(layout_kwargs(index, kwargs["max_buckets"]))
-        layout = {"layout": LAYOUT_NOTE, "hot_tokens": kwargs["hot_tokens"],
-                  "max_buckets": kwargs["max_buckets"]}
-        log(f"[bench] layout: {layout}")
+    if kwargs.get("max_buckets") == 0:
+        layout = model_layout(index, cfg.top_k, cfg, session)
+        kwargs["max_buckets"] = layout["max_buckets"]
+        log(f"[bench] layout model: max_buckets={layout['max_buckets']} "
+            f"hot_tokens={layout['hot_tokens']} (k={cfg.top_k}); "
+            f"candidates {json.dumps(layout['candidates'])}")
     t0 = time.perf_counter()
     engine = create_engine(index, mode=cfg.engine, session=session, **kwargs)
     _sync(session)
@@ -612,12 +616,11 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
                       "(ROADMAP.md: device checkpoints)",
         "sharded": "ROADMAP.md: the sharded engines",
         "shard_scaling": "ROADMAP.md: the sharded engines",
-        "memory_trade.mid": "overhead_target needs the layout cost model "
-                            "(ROADMAP.md: the H100 layout cost model)",
     }
 
-    # the memory rows: the same corpus at two points of the memory/speed
-    # dial, "parity" (hot_tokens=0, the ELL-only floor) and "speed" (the
+    # the memory rows: the same corpus at three points of the memory/speed
+    # dial, "parity" (hot_tokens=0, the ELL-only floor), "mid"
+    # (overhead_target=3.0, the user-facing budget knob) and "speed" (the
     # headline engine)
     parity = None
     trade = None
@@ -632,27 +635,36 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
         nb = min(cfg.baseline_queries, len(queries))
         pref_docs, _ = ref.search(queries[:nb], top_k=k0)
         trade = []
-        peng = SparseEngine.from_scored_index(
-            index, session=session,
-            max_buckets=kwargs.get("max_buckets", 4), hot_tokens=0)
-        pstep = measure_device_step_ms(peng, queries, k0, batch=cfg.batch)
-        pdocs, _ = peng.search(queries[:nb], top_k=k0)
-        pmem = index_memory_stats(index, peng)
-        parity = {
-            "top_k": k0,
-            "device_step_ms": None if pstep is None else round(pstep, 2),
-            "recall_vs_reference": round(
-                recall_at_k(np.asarray(pdocs), pref_docs), 4),
-            "index_memory": pmem.as_dict(),
-        }
-        trade.append({"point": "parity", "hot_tokens": 0,
-                      "hot_h": peng.hot_h, **parity})
-        log(f"[bench] memory-trade parity: "
-            f"overhead_ratio={pmem.as_dict().get('overhead_ratio')} "
-            f"hot_h={peng.hot_h} device_step={parity['device_step_ms']}ms "
-            f"recall@{k0}={parity['recall_vs_reference']}")
-        del peng
-        _free(session)
+        for point, build_kw in (("parity", {"hot_tokens": 0}),
+                                ("mid", {"overhead_target": 3.0})):
+            peng = SparseEngine.from_scored_index(
+                index, session=session,
+                max_buckets=kwargs.get("max_buckets", 4), **build_kw)
+            pstep = measure_device_step_ms(peng, queries, k0,
+                                           batch=cfg.batch)
+            pdocs, _ = peng.search(queries[:nb], top_k=k0)
+            pmem = index_memory_stats(index, peng)
+            row = {
+                "point": point,
+                **build_kw,
+                "hot_h": peng.hot_h,
+                "top_k": k0,
+                "device_step_ms": None if pstep is None else round(pstep, 2),
+                "recall_vs_reference": round(
+                    recall_at_k(np.asarray(pdocs), pref_docs), 4),
+                "index_memory": pmem.as_dict(),
+            }
+            trade.append(row)
+            log(f"[bench] memory-trade {point}: "
+                f"overhead_ratio={pmem.as_dict().get('overhead_ratio')} "
+                f"hot_h={peng.hot_h} device_step={row['device_step_ms']}ms "
+                f"recall@{k0}={row['recall_vs_reference']}")
+            if point == "parity":
+                parity = {key: row[key] for key in (
+                    "top_k", "device_step_ms", "recall_vs_reference",
+                    "index_memory")}
+            del peng
+            _free(session)
         trade.append({
             "point": "speed",
             "hot_h": engine_hot_h,

@@ -1,14 +1,18 @@
-"""Sparse engine (ELL + hot tier) — PyTorch counterpart of
+"""Sparse engine (hot + ELL + tail tiers) — PyTorch counterpart of
 ``bm25_tpu/models/sparse.py``.
 
-Tokens are split by document frequency into two tiers:
+Tokens are split by document frequency into three tiers:
 
 * **hot** (the top-H tokens by DF): a dense (H, rows) bf16 high + bf16
   residual pair per bucket, built on the device by kernel B2 from the hot
   postings, and scored by kernel B1's epilogue against per-query hot-token
   counts;
-* **cold** (every other token): doc-major padded postings (ELL) in length
-  buckets, stored slot-major and scored by B1's membership-count scan.
+* **mid** (the ELL): doc-major padded postings in length buckets, stored
+  slot-major and scored by B1's membership-count scan;
+* **tail** (tokens of DF at most ``tail_cap``, only where ``tail_cap`` >
+  0): token-major postings packed into shared rows; the step gathers a
+  query's tail postings, sums them per doc and merges those exact
+  candidates with the buckets' own.
 
 Per bucket, B1 writes the masked (Q, rows) base and its group maxima; the
 tournament tree selects the bucket's top k from them; one two-key merge
@@ -17,15 +21,18 @@ per-token offsets are added last.  Ties go to the smaller doc id: bucket
 rows are in doc-id order and every merge is stable.
 
 The host layout (``build_ell_buckets_from_csr``, ``split_hot_cold_csr``,
-``hot_ell_for_rows``, ``_filter_csr``) is copied function for function from
-the JAX package, which cannot be imported without JAX, so that both
-engines build bit-equal arrays.  This engine serves queries, weighted or
-not and of any width, through the ELL and hot tiers, with f32 or
+``hot_ell_for_rows``, ``_filter_csr``, ``build_token_tail``) is copied
+function for function from the JAX package, which cannot be imported
+without JAX, so that both engines build bit-equal arrays.  The layout
+cost model (``choose_layout``, ``choose_hot_tokens``, ``hot_tokens="auto"``,
+``overhead_target``) keeps JAX's search over hot-tier widths and bucket
+counts; its cost terms (``H100Costs``) were fitted on the card.  This
+engine serves queries, weighted or not and of any width, with f32 or
 bf16-rounded returned scores (``score_dtype``), a doc mask folded into
 B1's pad-row mask, long-query dedup (``maybe_dedup``), rankings-only
 search (``search_ids``) and a pipelined large-batch search
-(``search_pipelined``); the tail tier, cold-width routing and the layout
-cost model are ROADMAP items.
+(``search_pipelined``); cold-width routing and union selection are
+ROADMAP items.
 ``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
 other copied helpers; ``DenseEngine`` uses it too.
 """
@@ -41,12 +48,15 @@ import numpy as np
 import torch
 
 from bm25_tpu_torch.scoring import ScoredIndex
-from bm25_tpu_torch.utils.padding import next_multiple, next_pow2_at_least
+from bm25_tpu_torch.utils.padding import (cdiv, next_multiple,
+                                          next_pow2_at_least)
 from bm25_tpu_torch.utils.validate import empty_results, validate_query_batch
 from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, NEG_INF,
                                           ell_score, ell_score_fused,
-                                          hot_plan, scan_table)
-from bm25_tpu_torch.ops.topk import select_top_k, top_k_tree_with_maxes
+                                          hot_plan, max_hot_tokens,
+                                          scan_table, table_geometry)
+from bm25_tpu_torch.ops.topk import (DOC_SENTINEL, select_top_k,
+                                     top_k_tree_with_maxes)
 from bm25_tpu_torch.runtime.session import Session, get_session
 from bm25_tpu_torch.utils.counts import split_bf16, weighted_counts
 
@@ -59,8 +69,16 @@ PAD_TOK = -1  # never matches a query id (valid ids are >= 0)
 _USABLE_HBM_FRACTION = 14 / 16
 # bucket arrays a state dict may carry (see SparseEngine.from_arrays)
 _BUCKET_KEYS = ("doc_ids", "tokT", "valT", "hotT", "hotLo")
+# the tail tier's arrays, named as the engine's fields
+_TAIL_KEYS = ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
+              "tail_gpos")
 # most queries per dispatched chunk
 CHUNK_QUERIES = 512
+# the transient-buffer cap of a chunk's (Q, rows) score tiles, before
+# fit_score_buffer_budget fits it to the memory the index leaves
+SCORE_BUFFER_BUDGET = 4 << 30
+# the JAX model's ceiling on the hot-tier width it considers
+_AUTO_MAX_HOT = 8192
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +216,99 @@ def _filter_csr(csr, keep: np.ndarray, num_docs: int):
     )
 
 
+def build_token_tail(
+    index: ScoredIndex,
+    exclude_ids: np.ndarray,
+    tail_cap: int,
+    width: int = 512,
+) -> tuple[dict | None, np.ndarray]:
+    """Token-major tail layout for low-DF tokens (candidate generation).
+
+    Returns ``(tail_arrays, is_tail_mask)``.  Postings of tail tokens are
+    concatenated token-major and packed into shared ``width``-wide rows:
+
+    * ``docs/vals/toks (R+1, width)``: doc id, contribution, owning token
+      per slot (the last row is all-pad, the gather target for absent row
+      ids): no per-token padding, 12 bytes a slot.
+    * ``rows (V+1, C)``: for tail token v, the (contiguous) row ids its
+      postings touch, -1 padded; all -1 for non-tail tokens.
+
+    Only tokens whose contributions are all non-negative are eligible: the
+    merge keeps a doc's first entry in (doc, score desc) order as its
+    total, which needs tail >= 0 (negative values arise only from
+    robertson/atire IDF at DF > N/2).
+    """
+    df = index.df()
+    v = index.vocab_size
+    is_tail = df <= tail_cap
+    is_tail[exclude_ids] = False
+    if np.any(is_tail):
+        # exclude tokens with any negative contribution
+        col_min = np.full(v, np.inf, dtype=np.float64)
+        nz = np.flatnonzero(np.diff(index.indptr))
+        if len(nz):
+            mins = np.minimum.reduceat(index.data, index.indptr[nz])
+            col_min[nz] = mins
+        is_tail &= ~(col_min < 0)
+    sel = np.flatnonzero(is_tail).astype(np.int64)
+    seg = df[sel].astype(np.int64)
+    total = int(seg.sum())
+    if total == 0:
+        return None, np.zeros(v, dtype=bool)
+
+    starts = index.indptr[sel].astype(np.int64)
+    off = np.cumsum(seg) - seg
+    flat_src = np.repeat(starts - off, seg) + np.arange(total, dtype=np.int64)
+    r = cdiv(total, width)
+    pad = (r + 1) * width  # + one all-pad row
+    docs = np.full(pad, -1, dtype=np.int32)
+    vals = np.zeros(pad, dtype=np.float32)
+    toks = np.full(pad, -1, dtype=np.int32)
+    docs[:total] = index.indices[flat_src]
+    vals[:total] = index.data[flat_src]
+    toks[:total] = np.repeat(sel.astype(np.int32), seg)
+
+    first_row = off // width
+    last_row = np.where(seg > 0, (off + seg - 1) // width, first_row - 1)
+    n_rows = (last_row - first_row + 1).astype(np.int64)  # 0 for DF=0 tokens
+    c = max(int(n_rows.max(initial=0)), 1)
+    rows = np.full((v + 1, c), -1, dtype=np.int32)
+    span = first_row[:, None] + np.arange(c, dtype=np.int64)[None, :]
+    rows[sel] = np.where(
+        np.arange(c)[None, :] < n_rows[:, None], span, -1
+    ).astype(np.int32)
+    return (
+        {
+            "docs": docs.reshape(r + 1, width),
+            "vals": vals.reshape(r + 1, width),
+            "toks": toks.reshape(r + 1, width),
+            "rows": rows,
+        },
+        is_tail,
+    )
+
+
+def _ell_slot_estimate(
+    cold_nnz: np.ndarray, max_buckets: int, row_align: int,
+    width_align: int = 8,
+) -> int:
+    """Padded ELL slot count ``build_ell_buckets_from_csr`` would produce."""
+    d = len(cold_nnz)
+    if d == 0:
+        return 0
+    s = np.sort(cold_nnz)
+    mb = max(1, min(max_buckets, d // max(row_align, 1) or 1))
+    bounds = sorted({int(q * d) for q in np.linspace(0, 1, mb + 1)[1:]} | {d})
+    slots, start = 0, 0
+    for end in bounds:
+        if end <= start:
+            continue
+        width = next_multiple(max(int(s[end - 1]), 1), width_align)
+        slots += next_multiple(end - start, row_align) * width
+        start = end
+    return slots
+
+
 # ---------------------------------------------------------------------------
 # device layout and memory
 # ---------------------------------------------------------------------------
@@ -238,6 +349,352 @@ def fit_score_buffer_budget(engine: "SparseEngine") -> None:
 
 
 # ---------------------------------------------------------------------------
+# the layout cost model
+# ---------------------------------------------------------------------------
+
+
+def _interp_grid(points, n: float) -> float:
+    """Piecewise-linear in rows through measured (rows, cost) points,
+    extended past either end with the end segment's slope (floored at
+    half the first point's cost below it)."""
+    (n0, c0), (n1, c1) = points[0], points[-1]
+    if n <= n0:
+        slope = (points[1][1] - c0) / (points[1][0] - n0)
+        return max(c0 + slope * (n - n0), c0 / 2)
+    for (na, ca), (nb, cb) in zip(points[:-1], points[1:]):
+        if n <= nb:
+            return ca + (cb - ca) * (n - na) / (nb - na)
+    slope = (c1 - points[-2][1]) / (n1 - points[-2][0])
+    return c1 + slope * (n - n1)
+
+
+class H100Costs:
+    """The layout model's cost terms on the card: what a padded ELL slot,
+    a hot-tier row and a bucket's selection cost one query batch.
+
+    Fitted on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit by
+    ``bench/layout_sweep.py``: B1's terms by least squares over its
+    ``--sweep`` of 70 layouts (h in {0, 64, ..., 2048} x 2-8 buckets, on
+    the query benchmark's 524,288-doc corpus and its 65,536-doc
+    long-document corpus, 512 x 8 queries at k = 1000 and 100; B1's
+    launches timed by ``torch.profiler``), the selection grid from its
+    ``--sel-grid``.  The model sees no queries, so the hot term prices
+    every hot token of the tier as used.
+
+    ``choose_layout`` and ``_hot_cost_sweep`` read the module's
+    ``LAYOUT_COSTS``; a test swaps in other terms there."""
+
+    # B1's scan: a padded slot costs one lookup a table, and a table holds
+    # up to 128 queries (ops/ell_score.py::table_geometry), so a slot is
+    # priced per table of the batch; and the write of the (Q, rows) base,
+    # a padded row per 128-query block
+    SCAN_S_PER_SLOT_TABLE = 9.473e-12
+    SCAN_S_PER_ROW_BLOCK = 1.204e-10
+    # B1's hot kernel (h > 0): a padded row per 128-query block (the
+    # base's read and rewrite, the pass over the doc tiles), and a hot
+    # token x padded row x 128-query block (its products)
+    HOT_S_PER_ROW_BLOCK = 1.292e-9
+    HOT_S_PER_TOKEN_ROW_BLOCK = 5.861e-13
+    # a bucket's selection: the tree over its base and kernel maxima,
+    # microseconds a query by rows and k, on random (512, rows) bases
+    SEL_GRID = {
+        100: [(8192, 0.471), (16384, 0.434), (32768, 0.746),
+              (65536, 1.266), (131072, 0.811), (262144, 1.201),
+              (524288, 1.28), (1048576, 1.692), (2228224, 3.045)],
+        1000: [(8192, 1.236), (16384, 1.282), (32768, 1.349),
+               (65536, 2.288), (131072, 2.362), (262144, 2.548),
+               (524288, 3.752), (1048576, 4.284), (2228224, 5.821)],
+    }
+
+    def scan_hot_seconds(self, slots: int, h: int, rows_pad: int, q: int,
+                         t: int) -> float:
+        """Modelled seconds of B1 on a layout of ``slots`` padded ELL
+        slots, ``h`` hot tokens and ``rows_pad`` padded rows (all
+        buckets), for one batch of ``q`` queries of ``t`` ids."""
+        tables = cdiv(q, table_geometry(q, t)[0])
+        blocks = cdiv(q, 128)
+        cost = (slots * tables * self.SCAN_S_PER_SLOT_TABLE
+                + rows_pad * blocks * self.SCAN_S_PER_ROW_BLOCK)
+        if h > 0:
+            cost += rows_pad * blocks * (self.HOT_S_PER_ROW_BLOCK
+                                         + h * self.HOT_S_PER_TOKEN_ROW_BLOCK)
+        return cost
+
+    def selection_us_per_query(self, k: int, n_rows: int) -> float:
+        """One bucket's selection a query, interpolated in rows and
+        log-linear in k between the measured k = 100 and 1000."""
+        lo = _interp_grid(self.SEL_GRID[100], n_rows)
+        hi = _interp_grid(self.SEL_GRID[1000], n_rows)
+        kc = min(max(k, 100), 1000)
+        frac = (np.log(kc) - np.log(100)) / (np.log(1000) - np.log(100))
+        return float(lo + (hi - lo) * frac)
+
+    def h_cap(self, max_doc_nnz: int) -> int:
+        """The widest hot tier B1 takes: its hot kernel's shared-memory
+        list of used tokens (the doc widths do not bound it)."""
+        return max_hot_tokens()
+
+    def resident_cap(self, device, num_docs: int) -> int:
+        """The resident bytes the auto policy may fill: the usable share
+        of the device less the transient room ``fit_score_buffer_budget``
+        keeps, 4x the budget a full chunk of (Q, rows) f32 scores takes."""
+        usable = int(device_hbm_bytes(device) * _USABLE_HBM_FRACTION)
+        chunk = min(SCORE_BUFFER_BUDGET,
+                    CHUNK_QUERIES * 4 * next_multiple(max(num_docs, 1),
+                                                      BLOCK_ROWS))
+        return usable - 4 * chunk
+
+
+LAYOUT_COSTS = H100Costs()
+
+
+def _auto_resident_cap(device=None, num_docs: int = 0) -> int:
+    if device is None:
+        device = get_session().device
+    return LAYOUT_COSTS.resident_cap(device, num_docs)
+
+
+def layout_candidates(
+    index: ScoredIndex,
+    k: int,
+    q: int = 512,
+    t: int = 8,
+    budget_bytes: int | None = None,
+    tail_cap: int = 0,
+    bucket_candidates: tuple = (2, 3, 4, 6, 8),
+    log=None,
+    device=None,
+    overhead_target: float | None = None,
+) -> list[dict]:
+    """Each bucket count's best layout under the model: ``{"max_buckets",
+    "hot_tokens", "scan_hot_ms", "selection_ms", "total_ms"}`` a
+    candidate, in ``bucket_candidates`` order; ``choose_layout`` takes the
+    cheapest (the first of equals)."""
+    d = index.num_docs
+    sweep = _hot_cost_sweep(
+        index, tuple(bucket_candidates), q=q, t=t,
+        budget_bytes=budget_bytes, tail_cap=tail_cap, device=device,
+        overhead_target=overhead_target,
+    )
+    out = []
+    for mb in bucket_candidates:
+        h, cost = sweep[mb]
+        rows_b = next_multiple(max(d // max(mb, 1), 1), BLOCK_ROWS)
+        sel = mb * LAYOUT_COSTS.selection_us_per_query(k, rows_b) * q * 1e-6
+        total = cost + sel
+        if log is not None:
+            log(f"[layout] B={mb} h={h} scan+hot={cost*1e3:.1f}ms "
+                f"sel={sel*1e3:.1f}ms total={total*1e3:.1f}ms")
+        out.append({"max_buckets": mb, "hot_tokens": h,
+                    "scan_hot_ms": cost * 1e3, "selection_ms": sel * 1e3,
+                    "total_ms": total * 1e3})
+    return out
+
+
+def best_layout(candidates: list[dict]) -> dict:
+    """The cheapest of ``layout_candidates``'s list, as ``choose_layout``
+    returns it."""
+    best = None
+    for c in candidates:
+        if best is None or c["total_ms"] < best["total_ms"]:
+            best = c
+    return {"max_buckets": best["max_buckets"],
+            "hot_tokens": best["hot_tokens"]}
+
+
+def choose_layout(
+    index: ScoredIndex,
+    k: int,
+    q: int = 512,
+    t: int = 8,
+    budget_bytes: int | None = None,
+    tail_cap: int = 0,
+    bucket_candidates: tuple = (2, 3, 4, 6, 8),
+    log=None,
+    device=None,
+    overhead_target: float | None = None,
+) -> dict:
+    """Jointly pick (max_buckets, hot_tokens) from the cost model.
+
+    Extends :func:`choose_hot_tokens`'s scan + hot model with each
+    bucket's selection: more buckets tighten ELL padding (fewer slots to
+    scan) but pay one top-k tree each, and the trade moves with k."""
+    return best_layout(layout_candidates(
+        index, k, q=q, t=t, budget_bytes=budget_bytes, tail_cap=tail_cap,
+        bucket_candidates=bucket_candidates, log=log, device=device,
+        overhead_target=overhead_target))
+
+
+def choose_hot_tokens(
+    index: ScoredIndex,
+    max_buckets: int = 4,
+    q: int = 512,
+    t: int = 8,
+    budget_bytes: int | None = None,
+    row_align: int | None = None,
+    tail_cap: int = 0,
+    log=None,
+    device=None,
+    overhead_target: float | None = None,
+) -> int:
+    """Cost-model hot-tier sizing: minimize modelled step time under
+    memory.
+
+    Each hot token trades its ELL slots (one lookup a slot and query
+    table) for a dense (1, rows) bf16-pair row that B1's hot kernel reads
+    for every 128-query block; the first hot token also sends the base
+    through the hot kernel.  Under a Zipf DF distribution the slots of
+    the rank-h token fall as ~1/h while its row costs the same, so the
+    sweep evaluates h = 0 and powers of two with the exact padded-slot
+    count the bucketing would produce."""
+    h, _cost = _choose_hot_cost(
+        index, max_buckets=max_buckets, q=q, t=t,
+        budget_bytes=budget_bytes, row_align=row_align, tail_cap=tail_cap,
+        log=log, device=device, overhead_target=overhead_target,
+    )
+    return h
+
+
+def _choose_hot_cost(
+    index: ScoredIndex,
+    max_buckets: int = 4,
+    q: int = 512,
+    t: int = 8,
+    budget_bytes: int | None = None,
+    row_align: int | None = None,
+    tail_cap: int = 0,
+    log=None,
+    device=None,
+    overhead_target: float | None = None,
+) -> tuple[int, float]:
+    """(best_h, modelled scan+hot seconds per q-batch): choose_hot_tokens'
+    core."""
+    return _hot_cost_sweep(
+        index, (max_buckets,), q=q, t=t, budget_bytes=budget_bytes,
+        row_align=row_align, tail_cap=tail_cap, log=log, device=device,
+        overhead_target=overhead_target,
+    )[max_buckets]
+
+
+def _hot_cost_sweep(
+    index: ScoredIndex,
+    bucket_candidates: tuple,
+    q: int = 512,
+    t: int = 8,
+    budget_bytes: int | None = None,
+    row_align: int | None = None,
+    tail_cap: int = 0,
+    log=None,
+    device=None,
+    overhead_target: float | None = None,
+) -> dict:
+    """{max_buckets: (best_h, modelled scan+hot seconds)} in one pass.
+
+    JAX's search, with the card's cost terms (``LAYOUT_COSTS``): the per-h
+    postings bincounts are shared across every bucket candidate; a tail
+    tier's postings leave the modelled ELL and cap h at the tokens above
+    ``tail_cap``; ``overhead_target`` admits only the h whose modelled
+    device bytes (ELL + hot + doc ids + tables) fit ``overhead_target x``
+    the CSC bytes (h = 0, the ELL-only floor, is always admitted); the
+    hot bytes must fit ``budget_bytes`` (default: the resident cap less
+    the ELL's bytes, at least the CSC bytes), and an h over it is skipped
+    alone (freed ELL slots can make a larger h fit).
+    """
+    costs = LAYOUT_COSTS
+    if row_align is None:
+        row_align = BLOCK_ROWS
+    d, v = index.num_docs, index.vocab_size
+    if d == 0 or index.nnz == 0:
+        return {mb: (0, 0.0) for mb in bucket_candidates}
+    df = index.df()
+    order = np.argsort(-df, kind="stable")
+    if tail_cap > 0:
+        # hot and tail tiers are disjoint (hot = top-DF above the cap,
+        # tail = DF <= cap): the build caps h the same way
+        v_hot_max = int((df > tail_cap).sum())
+        if v_hot_max == 0:
+            return {mb: (0, 0.0) for mb in bucket_candidates}
+    else:
+        v_hot_max = v
+    doc_nnz = np.bincount(
+        index.indices, minlength=d
+    ).astype(np.int64)
+    if tail_cap > 0:
+        # low-DF tokens leave the ELL before bucketing
+        tail_tok = np.flatnonzero(df <= tail_cap).astype(np.int64)
+        if len(tail_tok):
+            lens = df[tail_tok].astype(np.int64)
+            starts = index.indptr[tail_tok].astype(np.int64)
+            off = np.cumsum(lens) - lens
+            flat = np.repeat(starts - off, lens) + np.arange(
+                int(lens.sum()), dtype=np.int64
+            )
+            doc_nnz = doc_nnz - np.bincount(index.indices[flat], minlength=d)
+
+    csc_bytes = index.data.nbytes + index.indices.nbytes + index.indptr.nbytes
+    h_cap = min(v, v_hot_max, _AUTO_MAX_HOT,
+                costs.h_cap(int(doc_nnz.max(initial=1))))
+    candidates = [0]
+    h = 64
+    while h < h_cap:
+        candidates.append(h)
+        h *= 2
+    candidates.append(h_cap)
+    candidates = sorted(set(candidates))
+
+    best = {mb: (0, float("inf")) for mb in bucket_candidates}
+    # queried once, against the device the engine will live on
+    resident_cap = (None if budget_bytes is not None
+                    else costs.resident_cap(
+                        get_session().device if device is None else device,
+                        d))
+    hot_cnt = np.zeros(d, dtype=np.int64)
+    prev = 0
+    for h in candidates:
+        new = order[prev:h]
+        prev = h
+        if tail_cap > 0 and len(new):
+            # tail tokens' postings are already excluded from doc_nnz
+            new = new[df[new] > tail_cap]
+        if len(new):
+            lens = df[new].astype(np.int64)
+            starts = index.indptr[new].astype(np.int64)
+            off = np.cumsum(lens) - lens
+            flat = np.repeat(starts - off, lens) + np.arange(
+                int(lens.sum()), dtype=np.int64
+            )
+            hot_cnt += np.bincount(index.indices[flat], minlength=d)
+        cold_nnz = doc_nnz - hot_cnt
+        hot_bytes = h * d * 4
+        for mb in bucket_candidates:
+            slots = _ell_slot_estimate(cold_nnz, mb, row_align)
+            if overhead_target is not None and h > 0:
+                # modelled device bytes: ELL (tok int32 + val f32 = 8/slot)
+                # + hot bf16 pair (4 B/entry over padded rows) + doc ids
+                # + the two (V+1) tables
+                rows_pad = next_multiple(d, row_align) + mb * row_align
+                est = (slots * 8 + h * rows_pad * 4 + rows_pad * 4
+                       + 8 * (v + 1))
+                if est > overhead_target * csc_bytes:
+                    continue
+            budget = budget_bytes if budget_bytes is not None else max(
+                csc_bytes, resident_cap - slots * 8
+            )
+            if hot_bytes > budget:
+                # skip this h only: the auto budget grows as hot tokens
+                # free ELL slots, so infeasibility is not monotone in h
+                continue
+            rows_pad = next_multiple(d, row_align) + mb * row_align
+            cost = costs.scan_hot_seconds(slots, h, rows_pad, q, t)
+            if log is not None:
+                log(f"[hot-auto] B={mb} h={h} slots={slots} "
+                    f"modeled_step={cost*1e3:.1f}ms")
+            if cost < best[mb][1]:
+                best[mb] = (h, cost)
+    return best
+
+
+# ---------------------------------------------------------------------------
 # device query step
 # ---------------------------------------------------------------------------
 
@@ -259,23 +716,82 @@ def hot_counts_for(ids: torch.Tensor, hot_table: torch.Tensor, hot_h: int,
     return split_bf16(cf)
 
 
+def _shift_right(x: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """``x`` moved ``n`` columns right, ``fill`` in the first ``n``."""
+    out = torch.full_like(x, fill)
+    out[:, n:] = x[:, :-n]
+    return out
+
+
+def tail_candidates(tail: dict, ids: torch.Tensor, w, mask):
+    """The tail tier's exact candidates for a chunk of (Q, T) ids, as
+    JAX's step makes them (``bm25_tpu/models/sparse.py:915-955``):
+    ``(is_cand, cand_docs, cand_tail, gpos)``, each (Q, T*C*P).
+
+    Each query token's tail rows are gathered; a slot counts only where
+    the query token owns it (so a duplicated query token counts once a
+    copy, and a weight scales the slots of its own token); the (doc,
+    value) pairs are sorted by doc (stably: a doc's entries stay in query
+    token order) and summed per doc by T-1 shifted adds, the last entry of
+    a run holding its doc's total.  ``is_cand`` marks those last entries
+    (and, under ``mask``, only eligible docs), ``cand_docs`` their doc (or
+    DOC_SENTINEL), ``cand_tail`` the tail sums and ``gpos`` each
+    candidate's position across the buckets' rows."""
+    q, t = ids.shape
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    qtok = torch.where(valid, ids, -2)  # never matches a slot pad (-1)
+    c = tail["rows"].shape[1]
+    pad_row = tail["docs"].shape[0] - 1
+    vrow = tail["rows"][safe]  # (Q, T, C)
+    vrow = torch.where(valid[:, :, None] & (vrow >= 0), vrow, pad_row)
+    flat = vrow.reshape(q, t * c).long()
+    g_docs = tail["docs"][flat]  # (Q, T*C, P)
+    g_vals = tail["vals"][flat]
+    mine = tail["toks"][flat] == qtok.repeat_interleave(c, dim=1)[:, :, None]
+    n = t * c * g_docs.shape[-1]
+    cd = torch.where(mine, g_docs, DOC_SENTINEL).reshape(q, n)
+    if w is not None:
+        g_vals = g_vals * w.repeat_interleave(c, dim=1)[:, :, None]
+    cv = torch.where(mine, g_vals, 0.0).reshape(q, n)
+    sd, order = torch.sort(cd, dim=1, stable=True)
+    sv = torch.gather(cv, 1, order)
+    # a doc appears once per matching query-token occurrence, so runs are
+    # at most T long: T-1 shifted adds
+    tot = sv
+    for s in range(1, t):
+        tot = tot + torch.where(_shift_right(sd, s, -9) == sd,
+                                _shift_right(sv, s, 0.0), 0.0)
+    nxt = torch.full_like(sd, -9)
+    nxt[:, :-1] = sd[:, 1:]
+    is_cand = (sd != nxt) & (sd != DOC_SENTINEL)
+    if mask is not None:
+        # filtered search: ineligible docs never become candidates
+        is_cand = is_cand & mask[sd.clamp(0, mask.shape[0] - 1).long()]
+    cand_docs = torch.where(is_cand, sd, DOC_SENTINEL)
+    gpos = tail["gpos"][torch.where(is_cand, sd, 0).long()]
+    return is_cand, cand_docs, tot, gpos
+
+
 def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                            score_dtype=None):
-    """The query step over the ELL and hot tiers.
+    """The query step over the hot, ELL and tail tiers.
 
-    ``step(ids, buckets, offsets, hot_table, w=None, mask=None) -> (scores
-    (Q, k), docs (Q, k) int32)``, or the docs alone with ``ids_only`` (the
-    scores never leave the device); ``buckets`` are dicts of ``doc_ids
-    (rows,)`` and, where present, ``tokT``/``valT`` (L, rows) and
-    ``hotT``/``hotLo`` (H, rows).  ``w`` (Q, T) f32 weights each query
-    token: its offset, its hot count and its ELL matches.  ``mask``
-    ((num_docs,) bool on the device, True = eligible) restricts the result
-    to a doc subset: slots left when fewer than k docs are eligible come
-    back as doc -1 / score 0.  ``score_dtype`` (a torch dtype or None for
-    f32) is the type the returned scores are rounded to.
+    ``step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None)
+    -> (scores (Q, k), docs (Q, k) int32)``, or the docs alone with
+    ``ids_only`` (the scores never leave the device); ``buckets`` are
+    dicts of ``doc_ids (rows,)`` and, where present, ``tokT``/``valT`` (L,
+    rows) and ``hotT``/``hotLo`` (H, rows).  ``w`` (Q, T) f32 weights each
+    query token: its offset, its hot count, its ELL matches and its tail
+    postings.  ``mask`` ((num_docs,) bool on the device, True = eligible)
+    restricts the result to a doc subset: slots left when fewer than k
+    docs are eligible come back as doc -1 / score 0.  ``tail`` is the
+    tail tier's arrays (``docs``, ``vals``, ``toks``, ``rows``, ``gpos``)
+    or None.  ``score_dtype`` (a torch dtype or None for f32) is the type
+    the returned scores are rounded to.
     """
 
-    def step(ids, buckets, offsets, hot_table, w=None, mask=None):
+    def step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None):
         valid = ids >= 0
         safe = torch.where(valid, ids, 0).long()
         zero = torch.zeros((), dtype=offsets.dtype, device=offsets.device)
@@ -291,8 +807,13 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
         # the card's scan tables, once for every bucket (the CPU twins
         # read none)
         table = scan_table(ids, w) if ids.is_cuda else None
+        if tail is not None:
+            is_cand, cand_docs, cand_tail, gpos = tail_candidates(
+                tail, ids, w, mask)
+            cand_base = torch.zeros_like(cand_tail)
 
         cand_s, cand_i = [], []
+        r0 = 0
         for b in buckets:
             did = b["doc_ids"]
             score_did = did
@@ -315,20 +836,35 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                 s, pos = top_k_tree_with_maxes(base, gmax, kk, branch=GROUP)
             else:
                 s, pos = select_top_k(base, kk)
+            if tail is not None:
+                # each tail candidate's base (its ELL and hot sums), from
+                # the bucket that holds its doc
+                rel = gpos - r0
+                in_b = (rel >= 0) & (rel < rows_b) & is_cand
+                look = torch.gather(base, 1,
+                                    torch.where(in_b, rel, 0).long())
+                cand_base = cand_base + torch.where(in_b, look, 0.0)
+            r0 += rows_b
             del base, gmax  # free this bucket's tile before the next
             cand_s.append(s)
             cand_i.append(did[pos])
 
-        cs = torch.cat(cand_s, dim=1)
-        ci = torch.cat(cand_i, dim=1)
-        kk = min(k, cs.shape[1])
-        # two-key merge, score desc then doc asc, as two stable sorts:
-        # by doc first, then by score (stability keeps doc order in ties)
-        ci, order = torch.sort(ci, dim=1, stable=True)
-        cs = torch.gather(cs, 1, order)
-        neg, order = torch.sort(-cs, dim=1, stable=True)
-        docs = torch.gather(ci, 1, order[:, :kk])
-        ms = -neg[:, :kk]
+        if tail is not None:
+            ms, docs = _merge_with_tail(
+                cand_s, cand_i, cand_docs,
+                torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
+        else:
+            cs = torch.cat(cand_s, dim=1)
+            ci = torch.cat(cand_i, dim=1)
+            kk = min(k, cs.shape[1])
+            # two-key merge, score desc then doc asc, as two stable sorts:
+            # by doc first, then by score (stability keeps doc order in
+            # ties)
+            ci, order = torch.sort(ci, dim=1, stable=True)
+            cs = torch.gather(cs, 1, order)
+            neg, order = torch.sort(-cs, dim=1, stable=True)
+            docs = torch.gather(ci, 1, order[:, :kk])
+            ms = -neg[:, :kk]
         if mask is not None:
             # slots beyond the eligible count become doc -1 / score 0 on
             # the device, so every fetch (ids only, bf16) stays uniform;
@@ -346,6 +882,24 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
         return scores, docs
 
     return step
+
+
+def _merge_with_tail(cand_s, cand_i, cand_docs, totals, k: int):
+    """The buckets' candidates merged with the tail's, duplicates
+    dropped: sorted by (doc asc, score desc) as two stable sorts, a doc's
+    first entry is its full total (the tail adds >= 0 to its base) and
+    later ones are stale bucket entries, set to -inf with DOC_SENTINEL;
+    then the top k (ties to the smaller position, so the smaller doc)."""
+    all_s = torch.cat(cand_s + [totals], dim=1)
+    all_d = torch.cat(cand_i + [cand_docs], dim=1)
+    neg, order = torch.sort(-all_s, dim=1, stable=True)
+    dd = torch.gather(all_d, 1, order)
+    dd, order = torch.sort(dd, dim=1, stable=True)
+    ss = -torch.gather(neg, 1, order)
+    ss = torch.where((dd == _shift_right(dd, 1, -9)) | (dd == DOC_SENTINEL),
+                     NEG_INF, ss)
+    ms, mpos = select_top_k(ss, min(k, ss.shape[1]))
+    return ms, torch.gather(dd, 1, mpos)
 
 
 class B1Bytes(NamedTuple):
@@ -514,7 +1068,8 @@ def plan_query_dispatch(queries: np.ndarray, max_q: int,
 
 @dataclass
 class SparseEngine:
-    """Device-resident BM25 engine over ELL buckets plus a dense hot tier."""
+    """Device-resident BM25 engine over ELL buckets, a dense hot tier and
+    a token-major tail tier."""
 
     buckets: list  # dicts: doc_ids, [tokT (L, rows), valT, hotT, hotLo]
     offsets: torch.Tensor  # (V+1,) float32 token offsets
@@ -525,7 +1080,7 @@ class SparseEngine:
     session: Session
     # cap on the transient (Q, rows) score tiles of one chunk; shrunk by
     # fit_score_buffer_budget when the index leaves less room
-    score_buffer_budget: int = 4 << 30
+    score_buffer_budget: int = SCORE_BUFFER_BUDGET
     # "bfloat16": the returned scores are rounded to bf16 on the device
     # (selection stays f32-exact; doc ids are exact) and come back as f32
     score_dtype: str = "float32"
@@ -536,6 +1091,13 @@ class SparseEngine:
     dedup_min_width: int = 16
     # the index's token -> id map (None for an engine made from arrays)
     vocab: dict[str, int] | None = None
+    # tail tier (candidate generation for low-DF tokens); None = disabled
+    tail_docs: torch.Tensor | None = None  # (R+1, P) int32 doc ids, -1 pad
+    tail_vals: torch.Tensor | None = None  # (R+1, P) float32 contributions
+    tail_toks: torch.Tensor | None = None  # (R+1, P) int32 owning token ids
+    tail_rows: torch.Tensor | None = None  # (V+1, C) int32 row ids, -1 pad
+    tail_gpos: torch.Tensor | None = None  # (D,) int32 doc -> bucket position
+    tail_cap: int = 0  # max DF routed to the tail tier
 
     @classmethod
     def from_scored_index(
@@ -543,39 +1105,73 @@ class SparseEngine:
         index: ScoredIndex,
         session: Session | None = None,
         max_buckets: int = 4,
-        hot_tokens: int = 0,
+        hot_tokens: int | str = "auto",
         hot_budget_bytes: int | None = None,
+        tail_cap: int = 0,
+        tail_width: int = 512,
         score_dtype: str = "float32",
+        overhead_target: float | None = None,
     ) -> "SparseEngine":
         """Lay the index out on the session's device.
 
-        ``hot_tokens`` is the requested hot-tier width H, capped by
-        ``hot_budget_bytes`` (default: the raw CSC bytes) at 4 bytes per
-        (token, doc) entry, and by the vocabulary.  The cost model that
-        picks H and ``max_buckets`` in the JAX package was measured on a
-        TPU and is not ported (ROADMAP.md: the H100 layout cost model), so H
-        is always explicit here.
-        ``score_dtype`` ("float32" or "bfloat16") is the type the returned
-        scores are rounded to.
+        ``hot_tokens="auto"`` sizes the hot tier with the cost model
+        (``choose_hot_tokens`` at ``max_buckets``) under the resident cap,
+        or under ``hot_budget_bytes`` where it is given; an integer is the
+        requested width H, capped by ``hot_budget_bytes`` (default: the
+        raw CSC bytes) at 4 bytes per (token, doc) entry, by the
+        vocabulary and by what B1's hot kernel takes.
+        ``overhead_target=R`` (with ``"auto"`` only) also caps the
+        modelled device bytes at R x the CSC bytes; a target below the
+        ELL-only floor degrades to no hot tier, with a warning.
+        ``tail_cap`` > 0 moves the postings of tokens of DF at most
+        ``tail_cap`` (none negative, none hot) out of the ELL into the
+        tail tier, rows of ``tail_width`` slots.  ``score_dtype``
+        ("float32" or "bfloat16") is the type the returned scores are
+        rounded to.
         """
-        _score_sdt(score_dtype)  # validate early, at build time
         session = session or get_session()
-        if isinstance(hot_tokens, str) or isinstance(hot_tokens, bool):
-            raise NotImplementedError(
-                f"hot_tokens={hot_tokens!r}: the layout cost model is not "
-                "ported (ROADMAP.md: the H100 layout cost model); pass an "
-                "integer"
-            )
-        if hot_tokens < 0:
-            raise ValueError(f"hot_tokens must be >= 0, got {hot_tokens}")
+        _score_sdt(score_dtype)  # validate early, at build time
+        if overhead_target is not None:
+            if hot_tokens != "auto":
+                raise ValueError(
+                    "overhead_target steers the auto hot-tier policy; it "
+                    "cannot combine with an explicit hot_tokens count"
+                )
+            if overhead_target <= 0:
+                raise ValueError("overhead_target must be positive")
         csc_bytes = (index.data.nbytes + index.indices.nbytes
                      + index.indptr.nbytes)
-        budget = csc_bytes if hot_budget_bytes is None else hot_budget_bytes
-        max_h = budget // max(index.num_docs * 4, 1)
-        h = int(min(hot_tokens, max_h, index.vocab_size))
-        if h < min(int(hot_tokens), index.vocab_size):
-            logger.info("hot_tokens=%s clamped to %d (memory budget %d B)",
-                        hot_tokens, h, budget)
+        if hot_tokens == "auto":
+            h = choose_hot_tokens(
+                index, max_buckets=max_buckets,
+                budget_bytes=hot_budget_bytes, tail_cap=tail_cap,
+                device=session.device, overhead_target=overhead_target,
+            )
+            # surface the memory trade the auto policy is making
+            logger.info(
+                "hot-auto: h=%d -> hot tier %.2f GB on a %.1f GB device "
+                "(resident cap %.2f GB; raw CSC %.2f GB)",
+                h, h * index.num_docs * 4 / 2**30,
+                device_hbm_bytes(session.device) / 2**30,
+                _auto_resident_cap(session.device, index.num_docs) / 2**30,
+                csc_bytes / 2**30,
+            )
+        else:
+            if isinstance(hot_tokens, str):
+                raise ValueError(
+                    f"hot_tokens must be an integer or 'auto', got "
+                    f"{hot_tokens!r}")
+            if hot_tokens < 0:
+                raise ValueError(f"hot_tokens must be >= 0, got {hot_tokens}")
+            budget = (csc_bytes if hot_budget_bytes is None
+                      else hot_budget_bytes)
+            max_h = budget // max(index.num_docs * 4, 1)
+            kernel_h = max_hot_tokens()
+            h = int(min(hot_tokens, max_h, index.vocab_size, kernel_h))
+            if h < min(int(hot_tokens), index.vocab_size):
+                logger.info("hot_tokens=%s clamped to %d (memory budget %d "
+                            "B, hot kernel cap %d)", hot_tokens, h, budget,
+                            kernel_h)
         if h > 0:
             hot_ids, cold_csr, hot_csr = split_hot_cold_csr(index, h)
             h = len(hot_ids)
@@ -583,14 +1179,23 @@ class SparseEngine:
             hot_ids, hot_csr = np.zeros(0, np.int32), None
             cold_csr = index.to_csc().tocsr()
 
+        # tail tier: low-DF tokens leave the ELL entirely
+        tail = None
+        if tail_cap > 0:
+            tail, is_tail = build_token_tail(index, hot_ids, tail_cap,
+                                             width=tail_width)
+            if tail is not None:
+                cold_csr = _filter_csr(
+                    cold_csr, ~is_tail[cold_csr.indices], index.num_docs)
+
         if cold_csr.nnz > 0:
             host_buckets = build_ell_buckets_from_csr(
                 cold_csr, index.num_docs, max_buckets=max_buckets,
                 row_align=BLOCK_ROWS,
             )
         else:
-            # no cold tier: one identity bucket (original doc order)
-            # carrying only the hot matrix
+            # no mid tier: one identity bucket (original doc order)
+            # carrying only the hot matrix and the doc mask
             n_pad = next_multiple(max(index.num_docs, 1), BLOCK_ROWS)
             doc_ids = np.full(n_pad, -1, dtype=np.int32)
             doc_ids[: index.num_docs] = np.arange(index.num_docs,
@@ -605,6 +1210,8 @@ class SparseEngine:
             hot_ids_dev = session.put(hot_ids.reshape(-1, 1))
 
         dev_buckets = []
+        gpos_host = np.zeros(max(index.num_docs, 1), dtype=np.int32)
+        r0 = 0
         for b in host_buckets:
             entry = {"doc_ids": session.put(b.doc_ids)}
             if b.tok is not None:
@@ -622,11 +1229,23 @@ class SparseEngine:
                 htok, hval = hot_ell_for_rows(hot_csr, b.doc_ids)
                 entry["hotT"], entry["hotLo"] = build_hot_pair_device(
                     hot_ids_dev, session.put(htok), session.put(hval))
+            real = b.doc_ids >= 0
+            gpos_host[b.doc_ids[real]] = r0 + np.flatnonzero(real).astype(
+                np.int32)
+            r0 += len(b.doc_ids)
             dev_buckets.append(entry)
 
         off_host = np.zeros((v + 1,), dtype=np.float32)
         if index.token_offsets is not None:
             off_host[:v] = index.token_offsets
+        tail_kw: dict = {}
+        if tail is not None:
+            tail_kw = {"tail_docs": session.put(tail["docs"]),
+                       "tail_vals": session.put(tail["vals"]),
+                       "tail_toks": session.put(tail["toks"]),
+                       "tail_rows": session.put(tail["rows"]),
+                       "tail_gpos": session.put(gpos_host),
+                       "tail_cap": tail_cap}
         engine = cls(
             buckets=dev_buckets,
             offsets=session.put(off_host),
@@ -637,8 +1256,18 @@ class SparseEngine:
             session=session,
             score_dtype=score_dtype,
             vocab=index.vocab,
+            **tail_kw,
         )
         fit_score_buffer_budget(engine)
+        if overhead_target is not None:
+            ratio = engine.device_bytes() / max(csc_bytes, 1)
+            if ratio > overhead_target * 1.1:
+                logger.warning(
+                    "overhead_target=%.2f not reachable: device footprint "
+                    "is %.2fx CSC (the ELL-only floor for this corpus); "
+                    "targets below the floor degrade to hot_tokens=0",
+                    overhead_target, ratio,
+                )
         return engine
 
     @classmethod
@@ -650,17 +1279,25 @@ class SparseEngine:
         vocab_size: int,
         hot_h: int,
         session: Session,
+        tail_cap: int = 0,
     ) -> "SparseEngine":
         """An engine from host copies of another engine's device arrays.
 
-        Keys: ``"offsets"``, ``"hot_table"`` and ``"buckets.<i>.<name>"``
-        with ``<name>`` one of doc_ids, tokT, valT, hotT, hotLo — e.g. the
-        numpy copies of a JAX ``SparseEngine``'s ``buckets[i][name]``
-        (bf16 arrays as ``ml_dtypes`` bfloat16).
+        Keys: ``"offsets"``, ``"hot_table"``, ``"buckets.<i>.<name>"``
+        with ``<name>`` one of doc_ids, tokT, valT, hotT, hotLo, and, for
+        a tail tier, all of ``"tail_docs"``, ``"tail_vals"``,
+        ``"tail_toks"``, ``"tail_rows"`` and ``"tail_gpos"`` (its
+        ``tail_cap`` passed beside) — e.g. the numpy copies of a JAX
+        ``SparseEngine``'s ``buckets[i][name]`` and fields (bf16 arrays as
+        ``ml_dtypes`` bfloat16).
         """
         buckets: dict[int, dict] = {}
+        tail = {}
         for key, arr in arrays.items():
             if key in ("offsets", "hot_table"):
+                continue
+            if key in _TAIL_KEYS:
+                tail[key] = session.put(np.asarray(arr))
                 continue
             parts = key.split(".")
             if len(parts) != 3 or parts[0] != "buckets" \
@@ -676,6 +1313,9 @@ class SparseEngine:
                     or ("hotT" in b) != (hot_h > 0):
                 raise ValueError(f"bucket {i} has keys {sorted(b)} "
                                  f"(hot_h={hot_h})")
+        if tail and sorted(tail) != sorted(_TAIL_KEYS):
+            raise ValueError(f"a tail tier needs all of {_TAIL_KEYS}, got "
+                             f"{sorted(tail)}")
         engine = cls(
             buckets=[buckets[i] for i in range(len(buckets))],
             offsets=session.put(np.asarray(arrays["offsets"], np.float32)),
@@ -684,6 +1324,8 @@ class SparseEngine:
             num_docs=num_docs,
             vocab_size=vocab_size,
             session=session,
+            **tail,
+            tail_cap=tail_cap if tail else 0,
         )
         fit_score_buffer_budget(engine)
         return engine
@@ -693,15 +1335,31 @@ class SparseEngine:
     def device_bytes(self) -> int:
         """Resident device footprint: every array the query step reads."""
         total = sum(t.nbytes for b in self.buckets for t in b.values())
-        return total + self.offsets.nbytes + self.hot_table.nbytes
+        total += self.offsets.nbytes + self.hot_table.nbytes
+        return total + sum(getattr(self, key).nbytes for key in _TAIL_KEYS
+                           if getattr(self, key) is not None)
+
+    @property
+    def _tail(self) -> dict | None:
+        if self.tail_docs is None:
+            return None
+        return {"docs": self.tail_docs, "vals": self.tail_vals,
+                "toks": self.tail_toks, "rows": self.tail_rows,
+                "gpos": self.tail_gpos}
 
     def plan_chunks(self, queries: np.ndarray,
                     weights: np.ndarray | None = None):
         """Chunks small enough that one bucket's (Q, rows) f32 base tile
-        fits the score-buffer budget, at most CHUNK_QUERIES rows:
+        and the tail tier's (Q, T*C*P) gather and sort transients fit the
+        score-buffer budget, at most CHUNK_QUERIES rows:
         ``(cq, padded_ids, padded_weights or None)``."""
-        base_rows = max(b["doc_ids"].shape[0] for b in self.buckets)
-        max_q = max(8, (self.score_buffer_budget // (4 * base_rows)) // 8 * 8)
+        bytes_per_q = 4 * max(b["doc_ids"].shape[0] for b in self.buckets)
+        if self.tail_docs is not None:
+            c = self.tail_rows.shape[1]
+            p = self.tail_docs.shape[1]
+            t_pad = next_pow2_at_least(max(queries.shape[1], 8))
+            bytes_per_q += 8 * t_pad * c * p * 4
+        max_q = max(8, (self.score_buffer_budget // bytes_per_q) // 8 * 8)
         return plan_query_dispatch(queries, min(max_q, CHUNK_QUERIES),
                                    weights)
 
@@ -711,7 +1369,7 @@ class SparseEngine:
                                       score_dtype=_score_sdt(self.score_dtype))
         w = None if wpadded is None else self.session.put_async(wpadded)
         return step(self.session.put_async(padded), self.buckets,
-                    self.offsets, self.hot_table, w, dmask)
+                    self.offsets, self.hot_table, w, dmask, self._tail)
 
     def search(self, queries: np.ndarray, top_k: int = 100,
                weights: np.ndarray | None = None,
@@ -747,6 +1405,12 @@ class SparseEngine:
         there is no mask or nothing to search."""
         queries, weights = validate_query_batch(queries, self.vocab_size,
                                                 weights)
+        if weights is not None and self.tail_docs is not None \
+                and np.any(weights < 0):
+            raise ValueError(
+                "negative query weights are not supported with the tail "
+                "tier enabled (tail_cap > 0): the exact-merge argument "
+                "requires non-negative tail contributions")
         k = min(top_k, self.num_docs)
         dmask = None
         if doc_mask is not None and len(queries) and k > 0:

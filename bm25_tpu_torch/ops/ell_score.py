@@ -53,6 +53,12 @@ NEG_INF = float("-inf")
 # hot tokens a stage of the hot kernel: the plan pads the counts' columns
 # to a multiple of it
 HOT_BK = 64
+# the hot kernel's shared memory at 128 queries a block
+# (csrc/ell_score.cu, HotShape<128>::smem): an alignment pad, 3 stages of
+# 128 x 128 bytes of counts beside 64 staged hot rows of 2 x 128 + 16
+# bytes (rounded to 1 KB), the stages' mbarriers, then 4 bytes a hot
+# token of the used-token list
+HOT_SMEM_FIXED = 1024 + 3 * 33792 + 2 * 3 * 8
 
 # the scan (csrc/ell_score.cu): 128 threads a block, as 128 / rows groups
 # of `rows` doc rows, each group against one table of at most
@@ -372,6 +378,13 @@ def hot_plan(hot_counts: torch.Tensor,
     return HotPlan(compact(hot_counts), compact(hot_counts_lo),
                    tokens.to(torch.int32),
                    used.sum(dtype=torch.int32).reshape(1))
+
+
+def max_hot_tokens() -> int:
+    """The widest hot tier B1's hot kernel takes: its block keeps the
+    chunk's used-token list (4 bytes a hot token, H rounded up to HOT_BK)
+    in shared memory beside its ring, within one block's opt-in limit."""
+    return (SMEM_ONE_BLOCK - HOT_SMEM_FIXED) // 4 // HOT_BK * HOT_BK
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,16 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    on and "auto", each against the oracle, timed in turns; then the
    benchmark's 2,048 queries at k=1000 and k=100, serial and through
    ``search_pipelined``: wall ms a batch, the card's busy ms
-   (``torch.profiler``) and the idle share;
+   (``torch.profiler``) and the idle share.  This phase keeps the
+   explicit hot_tokens=1024 layout so that B1's hot epilogue stays
+   measured: the layout cost model picks no hot tier at this corpus;
+4b. layout model and tail tier, on phase 4's corpus: ``choose_layout``'s
+   choice at k=1000 and k=100 with each bucket count's modelled ms, that
+   layout's device step beside the explicit h=1024 and the h=0 layouts
+   (2 buckets); a three-tier engine (h=1024, 2 buckets, tail_cap=512: hot,
+   ELL and tail all hold postings, the tail's count logged) at 512 x 8
+   and k=1000, plain, weighted and masked, against ``ReferenceEngine``,
+   and its device step;
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -130,19 +139,22 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    matmul``) against the same commands with ``--device cpu`` (no stemmer:
    the card's machine has no nltk); ``compat.BM25`` on the 13-doc corpus against the
    oracle; ``compat.BM25v`` over phase 4's 524,288-doc CSC, which must route
-   to ``SparseEngine``: 512 x 8 queries at k=1000, a weighted batch (also
-   on phase 4's hot-tier layout) and ``get_scores`` against
-   ``ReferenceEngine``;
+   to ``SparseEngine`` (the default layout it builds and its batch ms are
+   logged): 512 x 8 queries at k=1000, a weighted batch (also on phase
+   4's hot-tier layout) and ``get_scores`` against ``ReferenceEngine``;
 12. query benchmark harness: ``bench/query_bench.py::run`` at the default
-   ``BenchConfig`` on phase 4's corpus with the explicit layout
-   (hot_tokens=1024, 2 buckets): latency, pipelined and ids-only qps at
-   k=1000 and k=100, the device step and its bytes (B1's count,
-   ``models.sparse.b1_bytes``, which phase 4 bounds B1 with), the
-   ELL-only parity engine, the 65,536-doc long-document corpus (buckets
-   wider than 512 slots) and the synthetic-BEIR eval (dense and sparse);
-   every row's recall against ``ReferenceEngine`` must read 1.0, and B1,
-   B2, the tables and B3 must have launched, no plain twin run.  The
-   compact headline is logged on its own line.
+   ``BenchConfig`` on phase 4's corpus, at the cost model's layout
+   (``choose_layout``): latency, pipelined and ids-only qps at k=1000 and
+   k=100, the device step and its bytes (B1's count,
+   ``models.sparse.b1_bytes``, which phase 4 bounds B1 with), the memory
+   trade (the ELL-only parity engine, ``overhead_target=3.0`` and the
+   headline), the 65,536-doc long-document corpus at the model's layout
+   (buckets wider than 512 slots; where the model's layout has none, the
+   explicit no-hot 2-bucket layout is checked against the oracle too) and
+   the synthetic-BEIR eval (dense and sparse); every row's recall
+   against ``ReferenceEngine`` must read 1.0, and B1, the tables, B3 and
+   (where some engine of the run has a hot tier) B2 must have launched,
+   no plain twin run.  The compact headline is logged on its own line.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -1213,6 +1225,112 @@ def masked_and_dedup(torch, engine, ref, cfg) -> None:
         f"{json.dumps(busy)}; maybe_dedup alone on the host {rule_ms:.3f} "
         f"ms; each mode's first {CHECKED_QUERIES} queries match "
         "ReferenceEngine")
+
+
+def layout_and_tail(torch, session, index, cfg) -> None:
+    """Phase 4b, on phase 4's corpus: the layout cost model's choice at
+    k=1000 and k=100 with each bucket count's modelled ms, that layout's
+    device step beside the explicit h=1024 / 2-bucket layout and the
+    h=0 / 2-bucket one; then a three-tier engine (hot, ELL and tail all
+    holding postings) at 512 x 8 and k=1000, plain, weighted and masked,
+    against ``ReferenceEngine`` under the comparator, with B1's launches
+    over this phase and no plain twin run."""
+    from bm25_tpu_torch import ReferenceEngine, SparseEngine
+    from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.bench.query_bench import measure_device_step_ms
+    from bm25_tpu_torch.models.sparse import best_layout, layout_candidates
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    reset(ops.launches, ops.plain_calls)
+    queries = make_queries(cfg)[: cfg.batch]
+    sub = slice(0, CHECKED_QUERIES)
+    ks = (cfg.top_k, cfg.top_k2)
+    chosen = {}
+    for k in ks:
+        t0 = time.perf_counter()
+        cands = layout_candidates(index, k, q=cfg.batch,
+                                  t=max(cfg.query_len, 8),
+                                  device=session.device)
+        chosen[k] = best_layout(cands)
+        log(f"[layout] k={k}: choose_layout -> {chosen[k]} "
+            f"({time.perf_counter() - t0:.2f} s on the host); modelled ms "
+            + "; ".join(f"B={c['max_buckets']} h={c['hot_tokens']} "
+                        f"{c['total_ms']:.3f} (scan+hot "
+                        f"{c['scan_hot_ms']:.3f}, selection "
+                        f"{c['selection_ms']:.3f})" for c in cands))
+    layouts = {(c["hot_tokens"], c["max_buckets"]) for c in chosen.values()}
+    layouts |= {(HOT_TOKENS, MAX_BUCKETS), (0, MAX_BUCKETS)}
+    steps = {}
+    for h, mb in sorted(layouts):
+        eng = SparseEngine.from_scored_index(
+            index, session=session, hot_tokens=h,
+            hot_budget_bytes=max(h, 1) * index.num_docs * 4, max_buckets=mb)
+        for k in ks:
+            steps[(h, mb, k)] = measure_device_step_ms(eng, queries, k,
+                                                       batch=cfg.batch)
+        del eng
+        torch.cuda.empty_cache()
+    for k in ks:
+        c = chosen[k]
+        fastest = min((v, h, mb) for (h, mb, kk), v in steps.items()
+                      if kk == k)
+        log(f"[layout] k={k}: device step ms (measure_device_step_ms, "
+            f"512 x 8): the model's h={c['hot_tokens']} "
+            f"B={c['max_buckets']} "
+            f"{steps[(c['hot_tokens'], c['max_buckets'], k)]:.3f}; "
+            + "; ".join(f"h={h} B={mb} {v:.3f}"
+                        for (h, mb, kk), v in sorted(steps.items())
+                        if kk == k)
+            + f"; fastest of these h={fastest[1]} B={fastest[2]}")
+
+    # the three-tier engine: the tail takes the tokens of DF <= 512
+    tail_cap = 512
+    t0 = time.perf_counter()
+    eng = SparseEngine.from_scored_index(
+        index, session=session, hot_tokens=HOT_TOKENS,
+        hot_budget_bytes=HOT_TOKENS * index.num_docs * 4,
+        max_buckets=MAX_BUCKETS, tail_cap=tail_cap)
+    torch.cuda.synchronize()
+    ell = sum(int((b["tokT"] >= 0).sum()) for b in eng.buckets
+              if "tokT" in b)
+    tail = int((eng.tail_toks >= 0).sum())
+    if eng.hot_h != HOT_TOKENS or not ell or not tail:
+        raise AssertionError(f"three tiers: hot_h {eng.hot_h}, ELL "
+                             f"postings {ell}, tail postings {tail}")
+    log(f"[tail] three-tier engine (hot_tokens={HOT_TOKENS}, "
+        f"max_buckets={MAX_BUCKETS}, tail_cap={tail_cap}) built in "
+        f"{time.perf_counter() - t0:.2f} s: {ell} ELL postings, {tail} tail "
+        f"postings in {tuple(eng.tail_docs.shape)} rows, tail rows a token "
+        f"{eng.tail_rows.shape[1]}, device bytes {eng.device_bytes()}")
+    ref = ReferenceEngine.from_scored_index(index)
+    rng = np.random.default_rng(17)
+    weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
+    mask = rng.random(index.num_docs) < 0.3
+    k = cfg.top_k
+    for name, kw in (("plain", {}), ("weighted", {"weights": weights}),
+                     ("masked", {"doc_mask": mask})):
+        t0 = time.perf_counter()
+        docs, scores = eng.search(queries, top_k=k, **kw)
+        ms_ = (time.perf_counter() - t0) * 1e3
+        if docs.shape != (len(queries), k) or not np.isfinite(scores).all():
+            raise AssertionError(f"three tiers {name}: bad result")
+        want = ref.search(queries[sub], top_k=k, **{
+            n: (v[sub] if n == "weights" else v) for n, v in kw.items()})
+        assert_matches_oracle(docs[sub], scores[sub], *want)
+        log(f"[tail] {name} {len(queries)} x {queries.shape[1]} batch at "
+            f"k={k}: {ms_:.2f} ms; the first {CHECKED_QUERIES} queries match "
+            "ReferenceEngine")
+    tail_step = measure_device_step_ms(eng, queries, k, batch=cfg.batch)
+    log(f"[tail] three-tier device step at k={k}: {tail_step:.3f} ms")
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    log(f"[layout] kernel launches over this phase {launches}, plain twin "
+        f"runs {plain}")
+    if not launches["ell_score_fused"] or any(plain.values()):
+        raise AssertionError("the layout phase did not launch B1, or ran a "
+                             "plain twin")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
@@ -2377,12 +2495,20 @@ def entry_points(torch, session, index) -> None:
     torch.cuda.synchronize()
     if not isinstance(model._engine, SparseEngine):
         raise AssertionError(f"BM25v built {type(model._engine).__name__}")
+    widths = [b["tokT"].shape[0] for b in model._engine.buckets
+              if "tokT" in b]
     log(f"[compat] BM25v.index over {index.num_docs} docs routed to "
-        f"SparseEngine in {time.perf_counter() - t0:.1f} s")
+        f"SparseEngine in {time.perf_counter() - t0:.1f} s, the default "
+        f"layout: hot_h={model._engine.hot_h}, "
+        f"{len(model._engine.buckets)} buckets of widths {widths}")
     k = cfg.top_k
-    t0 = time.perf_counter()
-    docs, scores = model.search(queries, top_k=k)
-    ms_ = (time.perf_counter() - t0) * 1e3
+    model.search(queries, top_k=k)  # warm: the first call's allocations
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        docs, scores = model.search(queries, top_k=k)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms_ = statistics.median(runs)
     assert_matches_oracle(docs[sub], scores[sub],
                           *ref.search(queries[sub], top_k=k))
     hot = create_engine(index, mode="sparse", hot_tokens=HOT_TOKENS,
@@ -2402,7 +2528,8 @@ def entry_points(torch, session, index) -> None:
             raise AssertionError("BM25v's get_scores differs from the oracle")
     launches = {"ell_score_fused": ops.launches["ell_score_fused"],
                 "gather_add_rows": gr.launches["gather_add_rows"]}
-    log(f"[compat] BM25v.search 512 x 8 at k={k}: {ms_:.1f} ms, first "
+    log(f"[compat] BM25v.search 512 x 8 at k={k}: {ms_:.2f} ms (median "
+        f"of 5 after a warm-up call), first "
         f"{CHECKED_QUERIES} match ReferenceEngine; get_scores of 4 queries "
         f"equal the oracle; B1/B3 launches over this phase {launches}")
     if not all(launches.values()):
@@ -2432,16 +2559,60 @@ def harness(torch, session, index, timings) -> None:
     rows = {"headline": extra["headline"], "memory_parity":
             extra["memory_parity"], "longdoc": extra["longdoc"]}
     rows.update({f"secondary k={r['top_k']}": r for r in extra["secondary"]})
+    rows.update({f"memory_trade {r['point']}": r
+                 for r in extra["memory_trade"]})
     recall = {name: r["recall_vs_reference"] for name, r in rows.items()}
     if set(recall.values()) != {1.0}:
         raise AssertionError(f"harness recall_vs_reference {recall}")
-    needed = ("ell_score_fused", "ell_score", "ell_table", "gather_add_rows")
+    # B2 builds a hot tier: needed where some engine of the run has one
+    hot = (extra["hot_tokens"], extra["longdoc"]["layout"]["hot_tokens"],
+           *(r["hot_h"] for r in extra["memory_trade"]))
+    needed = ("ell_score_fused", "ell_table", "gather_add_rows") + (
+        ("ell_score",) if any(hot) else ())
     if not all(launches[n] for n in needed) or any(plain.values()):
-        raise AssertionError("the harness did not launch B1, B2, the "
-                             "tables and B3, or ran a plain twin")
+        raise AssertionError(f"the harness did not launch {needed}, or ran "
+                             "a plain twin")
+    log(f"[harness] the model's layouts: headline {extra['layout']}, "
+        f"longdoc {extra['longdoc']['layout']}; memory trade "
+        + "; ".join(f"{r['point']} hot_h={r['hot_h']} "
+                    f"{r['device_step_ms']} ms"
+                    for r in extra["memory_trade"]))
     log(f"[harness] recall_vs_reference 1.0 in every row {sorted(recall)}; "
         f"longdoc bucket widths {extra['longdoc']['bucket_widths']} "
         f"(slot-tiled: {extra['longdoc']['slot_tiled']})")
+    if not extra["longdoc"]["slot_tiled"]:
+        longdoc_slot_tiled(torch, session)
+
+
+def longdoc_slot_tiled(torch, session) -> None:
+    """Where the model's long-document layout has no bucket wider than
+    SLOT_TILE: the harness's long-document corpus at the explicit
+    layout (no hot tier, 2 buckets), whose wide bucket runs B1's
+    slot-tiled scan, against ``ReferenceEngine``."""
+    from bm25_tpu_torch import ReferenceEngine, SparseEngine
+    from bm25_tpu_torch.bench import BenchConfig, make_queries
+    from bm25_tpu_torch.bench.query_bench import make_longdoc_index
+    from bm25_tpu_torch.ops.ell_score import SLOT_TILE
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    cfg = BenchConfig()
+    index = make_longdoc_index(cfg)
+    eng = SparseEngine.from_scored_index(index, session=session,
+                                         hot_tokens=0, max_buckets=2)
+    widths = [b["tokT"].shape[0] for b in eng.buckets if "tokT" in b]
+    if max(widths) <= SLOT_TILE:
+        raise AssertionError(f"longdoc widths {widths}: none slot-tiled")
+    queries = make_queries(cfg)[: cfg.batch]
+    sub = slice(0, CHECKED_QUERIES)
+    docs, scores = eng.search(queries, top_k=cfg.top_k)
+    assert_matches_oracle(docs[sub], scores[sub],
+                          *ReferenceEngine.from_scored_index(index).search(
+                              queries[sub], top_k=cfg.top_k))
+    log(f"[harness] longdoc at the explicit layout (widths {widths}, "
+        f"slot-tiled): the first {CHECKED_QUERIES} queries match "
+        "ReferenceEngine")
+    del eng
+    torch.cuda.empty_cache()
 
 
 def drive(torch, dev) -> dict:
@@ -2485,6 +2656,8 @@ def drive(torch, dev) -> dict:
         index, timings = sparse_main(torch, dev, BenchConfig(), ops,
                                      session, record)
         torch.cuda.empty_cache()
+    with Phase("4b. layout model and tail tier"):
+        layout_and_tail(torch, session, index, BenchConfig())
     dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
                record)
     torch.cuda.empty_cache()

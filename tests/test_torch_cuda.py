@@ -453,6 +453,87 @@ def test_cuda_dedup_search_matches_oracle(cuda_device):
         assert_matches_oracle(*engine.search(q, top_k=100), *want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [100, 1000])
+def test_cuda_hot_sums_do_not_depend_on_chunk_mates(cuda_device, k):
+    """A query alone and the same query inside a 512-query batch: a
+    chunk's hot plan lists the hot tokens its own queries use, so the hot
+    products' order (and the last bits) follows the batch.  The ids agree
+    under the campaign comparator and every score within 2e-5 x the row's
+    largest |score| (B1's stated bound), unweighted and weighted."""
+    index, engine = sparse_engine_on_card()
+    rng = np.random.default_rng(4)
+    q = rng.integers(-1, 2000, (512, 8))
+    w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
+    for kw in ({}, {"weights": w}):
+        batch = engine.search(q, top_k=k, **kw)
+        for i in (0, 1, 7, 200, 511):
+            one = engine.search(q[i : i + 1], top_k=k, **{
+                n: v[i : i + 1] for n, v in kw.items()})
+            assert_matches_oracle(one[0], one[1], batch[0][i : i + 1],
+                                  batch[1][i : i + 1])
+            scale = max(1.0, float(np.abs(batch[1][i]).max()))
+            assert np.abs(one[1][0] - batch[1][i]).max() <= 2e-5 * scale
+
+
+def three_tier_index():
+    """The card tests' corpus and a tail_cap at its median nonzero DF:
+    hot, ELL and tail all hold postings."""
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    df = index.df()
+    return index, int(np.median(df[df > 0]))
+
+
+@pytest.mark.cuda
+def test_cuda_three_tier_engine_matches_cpu_and_oracle(cuda_device):
+    """Hot + ELL + tail on the card against the same engine on the CPU
+    (the kernels' twins, the same tail ops) and the oracle: plain,
+    weighted and masked, at k = 10 and 1000; the tail arrays equal."""
+    index, cap = three_tier_index()
+    kw = dict(mode="sparse", hot_tokens=16, hot_budget_bytes=1 << 24,
+              max_buckets=2, tail_cap=cap)
+    card = create_engine(index, session=Session("cuda"), **kw)
+    cpu = create_engine(index, session=Session("cpu"), **kw)
+    assert card.tail_docs is not None and card.hot_h == 16
+    assert any("tokT" in b for b in card.buckets)
+    for key in ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
+                "tail_gpos"):
+        assert torch.equal(getattr(card, key).cpu(), getattr(cpu, key))
+    ref = ReferenceEngine.from_scored_index(index)
+    rng = np.random.default_rng(6)
+    q = rng.integers(-1, 2000, (64, 8))
+    q[0] = -1
+    q[1, :3] = q[1, 0]
+    w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
+    mask = rng.random(index.num_docs) < 0.3
+    launched = dict(port.launches)
+    for extra in ({}, {"weights": w}, {"doc_mask": mask}):
+        for k in (10, 1000):
+            got = card.search(q, top_k=k, **extra)
+            assert_matches_oracle(*got, *cpu.search(q, top_k=k, **extra))
+            assert_matches_oracle(*got, *ref.search(q, top_k=k, **extra))
+    assert port.launches["ell_score_fused"] > launched["ell_score_fused"]
+
+
+@pytest.mark.cuda
+def test_cuda_auto_layout_matches_oracle(cuda_device):
+    """The default build (hot_tokens="auto" at the chosen bucket count)
+    on the card against the oracle."""
+    from bm25_tpu_torch.models.sparse import choose_layout
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    session = Session("cuda")
+    layout = choose_layout(index, k=100, device=session.device)
+    engine = create_engine(index, mode="sparse", session=session,
+                           max_buckets=layout["max_buckets"])
+    assert engine.hot_h == layout["hot_tokens"]
+    ref = ReferenceEngine.from_scored_index(index)
+    q = np.random.default_rng(8).integers(-1, 2000, (40, 8))
+    for k in (10, 100):
+        assert_matches_oracle(*engine.search(q, top_k=k),
+                              *ref.search(q, top_k=k))
+
+
 # -- B3 gather-accumulate -----------------------------------------------------
 
 # v, d, q, t, dtype, weighted

@@ -48,16 +48,25 @@ def test_record_keys_match_jax(records):
         assert set(got) == set(want) - omitted
     assert set(pe["longdoc"]) == set(je["longdoc"]) | {"layout"}
     assert pe["memory_parity"].keys() == je["memory_parity"].keys()
-    assert [r["point"] for r in pe["memory_trade"]] == ["parity", "speed"]
+    assert [r["point"] for r in pe["memory_trade"]] == ["parity", "mid",
+                                                        "speed"]
     assert [r["point"] for r in je["memory_trade"]] == ["parity", "mid",
                                                         "speed"]
+    for got, want in zip(pe["memory_trade"], je["memory_trade"]):
+        assert got.keys() == want.keys()
+    assert pe["memory_trade"][1]["overhead_target"] == 3.0
     # every row the JAX record has and the port's lacks is named
     not_ported = set(pe["not_ported"])
-    assert not_ported == {"cold_start", "sharded", "shard_scaling",
-                          "memory_trade.mid"}
+    assert not_ported == {"cold_start", "sharded", "shard_scaling"}
     assert set(je) - set(pe) <= not_ported
-    assert pe["layout"] == {"layout": port_bench.LAYOUT_NOTE,
-                            "hot_tokens": 1024, "max_buckets": 2}
+    # the config fixes max_buckets: the headline asks the model nothing;
+    # the long-document row takes the model's layout
+    assert "layout" not in pe
+    ld = pe["longdoc"]["layout"]
+    assert ld["top_k"] == pe["longdoc"]["top_k"]
+    assert [c["max_buckets"] for c in ld["candidates"]] == [2, 3, 4, 6, 8]
+    assert min(ld["candidates"], key=lambda c: c["total_ms"])[
+        "max_buckets"] == ld["max_buckets"]
     assert pe["beir_synthetic_eval"].keys() == je["beir_synthetic_eval"].keys()
 
 
@@ -110,6 +119,22 @@ def test_step_bytes_and_timing_helpers():
     dense = create_engine(index, mode="dense", session=cpu)
     assert port_bench.measure_device_step_ms(dense, queries, 10) is None
     assert port_bench.estimate_step_hbm_bytes(dense, 40, queries) is None
+
+
+def test_model_layout_is_choose_layouts_choice():
+    """With max_buckets=0 the harness takes choose_layout's layout at the
+    headline k and the benchmark's batch, and keeps each candidate's
+    modelled ms."""
+    from bm25_tpu_torch.models.sparse import choose_layout
+
+    cfg = port_bench.BenchConfig(**TINY)
+    index = port_bench.make_synthetic_index(cfg)
+    cpu = Session("cpu")
+    got = port_bench.model_layout(index, cfg.top_k, cfg, cpu)
+    want = choose_layout(index, cfg.top_k, q=cfg.batch, t=8,
+                         device=cpu.device)
+    assert {key: got[key] for key in want} == want
+    assert got["top_k"] == cfg.top_k and len(got["candidates"]) == 5
 
 
 def test_entry_point_prints_headline_last(capsys, monkeypatch):

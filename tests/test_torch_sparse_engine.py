@@ -38,14 +38,21 @@ def lucene_index():
     return build(0, "lucene")
 
 
+TAIL_KEYS = ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
+             "tail_gpos")
+
+
 def jax_state(engine) -> dict:
     """Numpy copies of a JAX SparseEngine's device arrays, keyed as
-    ``SparseEngine.from_arrays`` takes them."""
+    ``SparseEngine.from_arrays`` takes them (the tail's by field name)."""
     arrays = {"offsets": np.asarray(engine.offsets),
               "hot_table": np.asarray(engine.hot_table)}
     for i, b in enumerate(engine.buckets):
         for key, arr in b.items():
             arrays[f"buckets.{i}.{key}"] = np.asarray(arr)
+    for key in TAIL_KEYS:
+        if getattr(engine, key) is not None:
+            arrays[key] = np.asarray(getattr(engine, key))
     return arrays
 
 
@@ -61,6 +68,9 @@ def assert_state_equal(port_engine, arrays: dict):
     for i, b in enumerate(port_engine.buckets):
         for key, t in b.items():
             got[f"buckets.{i}.{key}"] = t
+    for key in TAIL_KEYS:
+        if getattr(port_engine, key) is not None:
+            got[key] = getattr(port_engine, key)
     assert sorted(got) == sorted(arrays)
     for key, want in arrays.items():
         if want.dtype.name == "bfloat16":
@@ -93,23 +103,29 @@ def test_host_layout_builders_bit_equal(lucene_index):
                 np.testing.assert_array_equal(u, v)
 
 
-@pytest.mark.parametrize("hot_tokens,max_buckets", [(0, 2), (16, 2),
-                                                    (64, 3)])
+@pytest.mark.parametrize("hot_tokens,max_buckets,tail_cap", [
+    (0, 2, 0), (16, 2, 0), (64, 3, 0),
+    (16, 2, 8),  # hot + ELL + tail
+    (0, 3, 1 << 30),  # the tail alone: one identity bucket, no ELL
+])
 def test_device_state_bit_equal_and_from_arrays(lucene_index, hot_tokens,
-                                                max_buckets):
+                                                max_buckets, tail_cap):
     idx = lucene_index
     kw = dict(hot_tokens=hot_tokens, hot_budget_bytes=1 << 22,
-              max_buckets=max_buckets)
+              max_buckets=max_buckets, tail_cap=tail_cap)
     jax_engine = jax_sparse.SparseEngine.from_scored_index(idx, **kw)
     port_engine = SparseEngine.from_scored_index(idx, session=CPU, **kw)
     assert port_engine.hot_h == jax_engine.hot_h == hot_tokens
+    assert (port_engine.tail_docs is None) == (tail_cap == 0)
     arrays = jax_state(jax_engine)
     assert_state_equal(port_engine, arrays)
+    assert port_engine.device_bytes() == jax_engine.device_bytes()
 
     carried = SparseEngine.from_arrays(
         arrays, num_docs=idx.num_docs, vocab_size=idx.vocab_size,
-        hot_h=jax_engine.hot_h, session=CPU)
+        hot_h=jax_engine.hot_h, session=CPU, tail_cap=tail_cap)
     assert_state_equal(carried, arrays)
+    assert carried.tail_cap == tail_cap
     q = np.random.default_rng(3).integers(-1, idx.vocab_size, (9, 6))
     d1, s1 = carried.search(q, top_k=20)
     d2, s2 = port_engine.search(q, top_k=20)
@@ -127,6 +143,9 @@ def test_from_arrays_rejects_bad_state(lucene_index):
     with pytest.raises(ValueError, match="unknown state key"):
         SparseEngine.from_arrays({**arrays, "buckets.0.junk": arrays[
             "offsets"]}, hot_h=8, **kw)
+    with pytest.raises(ValueError, match="a tail tier needs all of"):
+        SparseEngine.from_arrays({**arrays, "tail_docs": np.zeros(
+            (2, 512), np.int32)}, hot_h=8, **kw)
 
 
 def assert_fuzz_protocol(dd, ds, od, os_):
@@ -283,10 +302,15 @@ def test_unported_options_raise(lucene_index):
             q, top_k=100, doc_mask=mask))
     with pytest.raises(ValueError, match="weights"):
         eng.search(q, weights=np.ones((2, 4), np.float32))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: the H100 layout cost model"):
+    # the layout cost model is ported: "auto" builds (the default), any
+    # other string raises
+    auto = SparseEngine.from_scored_index(lucene_index, session=CPU,
+                                          hot_tokens="auto",
+                                          hot_budget_bytes=1 << 22)
+    assert 0 <= auto.hot_h <= lucene_index.vocab_size
+    with pytest.raises(ValueError, match="hot_tokens must be"):
         SparseEngine.from_scored_index(lucene_index, session=CPU,
-                                       hot_tokens="auto")
+                                       hot_tokens="many")
     with pytest.raises(ValueError, match="out of range"):
         eng.search(np.array([[lucene_index.vocab_size]]))
     for mode in ("sharded", "sharded_sparse"):
