@@ -1,4 +1,4 @@
-"""bm25-tpu-torch command line: index build, query, bench, demo, eval.
+"""bm25-tpu-torch command line: index build, query, bench, demo, eval, serve.
 
 The port's copy of ``bm25_tpu/cli/main.py``, command for command, with the
 port's imports: ``demo`` is ``python main.py`` without the interactive-only
@@ -7,9 +7,9 @@ flow (``reference/main.py:210-264``), ``index``/``query`` replace
 benchmarks``.  What differs:
 
 * a global ``--device`` (default ``cuda``): the ``Session`` that the
-  commands which run on a device (``query``, ``demo``, ``eval``, ``bench``)
-  build their engine or benchmark on; it raises where CUDA is absent
-  unless ``--device cpu`` is given;
+  commands which run on a device (``query``, ``demo``, ``eval``, ``bench``,
+  ``serve``) build their engine or benchmark on; it raises where CUDA is
+  absent unless ``--device cpu`` is given;
 * ``eval`` takes ``--stemmer snowball-en|none`` (default ``snowball-en``,
   the JAX CLI's tokenizer): the Snowball stemmer needs ``nltk``, which a
   GPU machine may not have.  ``index`` builds with the JAX CLI's default
@@ -21,9 +21,9 @@ benchmarks``.  What differs:
   (``bench/query_bench.py::run``, ``BM25_BENCH_*`` overrides) on the
   device and prints the full record, then the compact headline as the
   last line, as ``bench.py`` does;
-* ``checkpoint``, ``warm``, ``cache`` and ``serve`` are not registered until
-  device checkpoints and serving are ported (ROADMAP.md: device
-  checkpoints, serving).
+* ``checkpoint``, ``warm`` and ``cache`` are not registered until device
+  checkpoints are ported (ROADMAP.md: device checkpoints); ``serve
+  --device-checkpoint`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -243,11 +243,39 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    from bm25_tpu_torch.serve import Server
+
+    if args.index is None and not args.device_checkpoint:
+        print("error: provide an index dir and/or --device-checkpoint",
+              file=sys.stderr)
+        return 2
+    engine_kwargs = {"session": _session(args)}
+    if args.score_dtype != "float32":
+        engine_kwargs["score_dtype"] = args.score_dtype
+    if args.overhead_target is not None:
+        engine_kwargs["overhead_target"] = args.overhead_target
+    Server(args.index, host=args.host, port=args.port,
+           engine_mode=args.engine,
+           batch_window_ms=args.batch_window_ms,
+           warmup_top_k=args.warmup_top_k,
+           engine_kwargs=engine_kwargs,
+           device_checkpoint=args.device_checkpoint,
+           updatable=args.updatable,
+           auto_compact=args.auto_compact,
+           auto_compact_delta_docs=args.auto_compact_delta_docs,
+           auto_compact_deleted_frac=args.auto_compact_deleted_frac,
+           mmap=args.mmap,
+           result_cache=args.result_cache,
+           ).serve_forever()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bm25-tpu-torch")
     p.add_argument("--device", default="cuda",
-                   help="torch device that query/demo/eval/bench run on "
-                        "(default cuda; raises where CUDA is absent)")
+                   help="torch device that query/demo/eval/bench/serve run "
+                        "on (default cuda; raises where CUDA is absent)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pi = sub.add_parser("index", help="build and save an index from a corpus file")
@@ -306,6 +334,55 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--stemmer", default="snowball-en", choices=STEMMERS,
                     help="none: no stemming (the Snowball stemmer needs nltk)")
     pe.set_defaults(fn=cmd_eval)
+
+    ps = sub.add_parser("serve", help="HTTP search daemon over a saved index")
+    ps.add_argument("index", nargs="?", default=None)
+    ps.add_argument("--device-checkpoint", default=None,
+                    help="warm-restart from a device checkpoint (not ported "
+                         "yet: raises NotImplementedError)")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=8225)
+    ps.add_argument("--engine", default="auto",
+                    choices=["auto", "dense", "sparse", "sharded", "sharded_sparse"])
+    ps.add_argument("--batch-window-ms", type=float, default=0.0,
+                    help="coalesce concurrent requests arriving within this "
+                         "window into one device batch (0 = off)")
+    ps.add_argument("--warmup-top-k", type=int, default=0,
+                    help="run the query path once at this top_k before "
+                         "accepting traffic (0 = no warmup)")
+    ps.add_argument("--overhead-target", type=float, default=None,
+                    help="cap device memory at this ratio of the raw CSC "
+                         "footprint (auto hot-tier policy dial)")
+    ps.add_argument("--score-dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="bfloat16 halves result-transfer bytes (sparse "
+                         "engines; doc ids stay exact, returned score "
+                         "values round to bf16)")
+    ps.add_argument("--updatable", action="store_true",
+                    help="enable live index mutation: POST /add, /delete, "
+                         "/compact (delta segment + tombstones over the "
+                         "frozen base engine); acked mutations are fsynced "
+                         "to <index>/updates.wal and replayed on restart")
+    ps.add_argument("--auto-compact", action="store_true",
+                    help="background compaction when the delta/tombstone "
+                         "load crosses the thresholds below; persists to "
+                         "the served index dir and folds the update log "
+                         "(requires --updatable)")
+    ps.add_argument("--auto-compact-delta-docs", type=int, default=50_000,
+                    help="auto-compact when the delta holds more docs "
+                         "than this")
+    ps.add_argument("--auto-compact-deleted-frac", type=float, default=0.2,
+                    help="auto-compact when more than this fraction of "
+                         "docs is tombstoned")
+    ps.add_argument("--mmap", action="store_true",
+                    help="memory-map the index npy triplet at host load "
+                         "(bm25s load(mmap=True) analog); host RAM stays "
+                         "O(1) in index size")
+    ps.add_argument("--result-cache", type=int, default=0, metavar="N",
+                    help="LRU-cache up to N per-query results; repeat "
+                         "queries skip the device entirely (0 = off; "
+                         "invalidated on reload/add/delete/compact)")
+    ps.set_defaults(fn=cmd_serve)
     return p
 
 

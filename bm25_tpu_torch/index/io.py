@@ -139,12 +139,18 @@ def save_corpus(path: str | os.PathLike, corpus, doc_ids=None) -> None:
     with every field intact (an ``id`` is added if absent) so metadata
     survives a load -> save round trip.  Any indexable sequence streams
     one document at a time (an ``MMapCorpus`` is never materialized).
+
+    Both files are written beside their targets and moved into place
+    (``os.replace``): an ``MMapCorpus`` still open on the old files (a
+    server whose compaction persists into the directory it serves) keeps
+    reading the old ones instead of a file truncated under it.
     """
     path = os.fspath(path)
     os.makedirs(path, exist_ok=True)
     offsets = []
     pos = 0
-    with open(os.path.join(path, "corpus.jsonl"), "wb") as f:
+    jsonl = os.path.join(path, "corpus.jsonl")
+    with open(jsonl + ".tmp", "wb") as f:
         for i, doc in enumerate(corpus):
             offsets.append(pos)
             did = doc_ids[i] if doc_ids is not None else i
@@ -157,8 +163,11 @@ def save_corpus(path: str | os.PathLike, corpus, doc_ids=None) -> None:
             data = line.encode("utf-8")
             f.write(data)
             pos += len(data)
-    with open(os.path.join(path, "corpus.mmindex.json"), "w") as f:
+    mmindex = os.path.join(path, "corpus.mmindex.json")
+    with open(mmindex + ".tmp", "w") as f:
         json.dump(offsets, f)
+    os.replace(jsonl + ".tmp", jsonl)
+    os.replace(mmindex + ".tmp", mmindex)
 
 
 def load_index(path: str | os.PathLike, mmap: bool = False) -> ScoredIndex:

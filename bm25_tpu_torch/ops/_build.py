@@ -6,18 +6,26 @@ plain C interface, keyed by a hash of its source, the headers of ``csrc/``
 ``bm25_tpu_torch/_build/``.  A missing ``nvcc`` or a failed build raises:
 nothing falls back to a plain version.  The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library.
+
+First-use work is charged to every open phase collector
+(``collect_phases``, read by ``runtime/profiling.py::
+compile_phase_collector``): seconds in nvcc under ``nvcc_build_s``, in
+``ctypes.CDLL`` under ``library_load_s``.  With no collector open nothing
+is timed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import functools
 import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,6 +33,41 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+PHASES = ("nvcc_build_s", "library_load_s")
+_sinks: list[dict] = []  # the open collectors' dicts
+_sinks_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def collect_phases():
+    """Yield a dict of the seconds of first-use work (``PHASES``) done in
+    any thread while the block runs."""
+    sink = dict.fromkeys(PHASES, 0.0)
+    with _sinks_lock:
+        _sinks.append(sink)
+    try:
+        yield sink
+    finally:
+        with _sinks_lock:
+            _sinks.remove(sink)
+
+
+@contextlib.contextmanager
+def _charged(phase: str):
+    """Time the block into every open collector (free when none is)."""
+    if not _sinks:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        with _sinks_lock:
+            for sink in _sinks:
+                sink[phase] += dt
 
 
 def find_nvcc() -> str:
@@ -56,7 +99,8 @@ def build(name: str) -> str:
     os.close(fd)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        with _charged("nvcc_build_s"):
+            res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}) building {name}.cu:\n"
@@ -78,10 +122,25 @@ def build_all(names) -> dict[str, str]:
         return dict(zip(names, pool.map(build, names)))
 
 
-@functools.cache
+_libs: dict[str, ctypes.CDLL] = {}
+_lib_locks: dict[str, threading.Lock] = {}
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library for ``csrc/<name>.cu`` (built if needed)."""
-    return ctypes.CDLL(build(name))
+    """The loaded kernel library for ``csrc/<name>.cu`` (built if needed).
+    Threads that ask for one library first at the same time wait for one
+    build and one load."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _sinks_lock:
+        lock = _lib_locks.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _libs:
+            path = build(name)
+            with _charged("library_load_s"):
+                _libs[name] = ctypes.CDLL(path)
+        return _libs[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,4 +1,4 @@
-"""Device session of the PyTorch port."""
+"""Device session, health probes and profiling hooks of the PyTorch port."""
 
 from bm25_tpu_torch.runtime.session import Session, get_session
 

@@ -154,7 +154,35 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the synthetic-BEIR eval (dense and sparse); every row's recall
    against ``ReferenceEngine`` must read 1.0, and B1, the tables, B3 and
    (where some engine of the run has a hot tier) B2 must have launched,
-   no plain twin run.  The compact headline is logged on its own line.
+   no plain twin run.  The compact headline is logged on its own line;
+13. serving (``bm25_tpu_torch/serve.py``), every checked response held to
+   ``ReferenceEngine`` under the comparator after its load stopped:
+   (a) ``Server`` over phase 4's index (saved with the vocabulary w<i>
+   and a ``Tokenizer(stemmer=None)`` config) under ``engine_mode="auto"``,
+   which must route to ``SparseEngine`` (B1), with a 5 ms micro-batch
+   window and warm-up (its first-use breakdown logged): 8 client threads
+   for 20 s with the serving soak's query mix at top_k 10 (every 50th
+   response of each client checked), ``metrics.requests`` equal to the
+   requests sent and batch occupancy above 1; one POST of 512 x 8 queries
+   at k=100 (wall beside phase 12's p50 batch; the first 64 checked);
+   ``/healthz?deep=1`` green; then ``/reload`` with ``mode="auto"`` (its
+   sizing logged) and ``mode="drop"`` under the same load, 503s (with
+   Retry-After, retried) only inside the reload windows, and
+   ``memory_allocated`` after the drop reload within 2% of one engine's
+   device bytes of its value before it (both read with the clients held),
+   its peak below one and a half engines; (b) an updatable ``Server``
+   over the soak's 131,072-doc corpus (vocabulary 16,384, Poisson(32)
+   lengths) under ``engine_mode="auto"`` (``DenseEngine``, B3) with
+   auto-compaction at 44 delta docs: 6 clients, a mutator adding batches
+   of 8 marker docs and deleting earlier ones by their unique tokens,
+   whose sixth batch trips the auto-compaction once, a manual ``/compact``
+   folded into the served dir mid-traffic, 32 queries against
+   ``ReferenceEngine`` over a fresh build of the live texts, then every
+   live marker found and no deleted one returned, and a restart from the
+   same dir whose update-log replay (4 records) gives the same results.
+   Each server's B1/B2/B3 launches are logged, and the sparse builds'
+   device / CSC bytes of phases 4 and 4b beside the auto reload's
+   fallback ratio.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -1227,16 +1255,18 @@ def masked_and_dedup(torch, engine, ref, cfg) -> None:
         "ReferenceEngine")
 
 
-def layout_and_tail(torch, session, index, cfg) -> None:
+def layout_and_tail(torch, session, index, cfg) -> dict:
     """Phase 4b, on phase 4's corpus: the layout cost model's choice at
     k=1000 and k=100 with each bucket count's modelled ms, that layout's
     device step beside the explicit h=1024 / 2-bucket layout and the
     h=0 / 2-bucket one; then a three-tier engine (hot, ELL and tail all
     holding postings) at 512 x 8 and k=1000, plain, weighted and masked,
     against ``ReferenceEngine`` under the comparator, with B1's launches
-    over this phase and no plain twin run."""
+    over this phase and no plain twin run.  Returns each engine's device
+    bytes over the CSC bytes (``eval.engine_device_bytes``)."""
     from bm25_tpu_torch import ReferenceEngine, SparseEngine
     from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.eval import engine_device_bytes
     from bm25_tpu_torch.bench.query_bench import measure_device_step_ms
     from bm25_tpu_torch.models.sparse import best_layout, layout_candidates
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
@@ -1261,11 +1291,13 @@ def layout_and_tail(torch, session, index, cfg) -> None:
                         f"{c['selection_ms']:.3f})" for c in cands))
     layouts = {(c["hot_tokens"], c["max_buckets"]) for c in chosen.values()}
     layouts |= {(HOT_TOKENS, MAX_BUCKETS), (0, MAX_BUCKETS)}
-    steps = {}
+    steps, ratios = {}, {}
+    csc = index.indptr.nbytes + index.indices.nbytes + index.data.nbytes
     for h, mb in sorted(layouts):
         eng = SparseEngine.from_scored_index(
             index, session=session, hot_tokens=h,
             hot_budget_bytes=max(h, 1) * index.num_docs * 4, max_buckets=mb)
+        ratios[f"h={h} B={mb}"] = engine_device_bytes(eng) / csc
         for k in ks:
             steps[(h, mb, k)] = measure_device_step_ms(eng, queries, k,
                                                        batch=cfg.batch)
@@ -1303,6 +1335,8 @@ def layout_and_tail(torch, session, index, cfg) -> None:
         f"{time.perf_counter() - t0:.2f} s: {ell} ELL postings, {tail} tail "
         f"postings in {tuple(eng.tail_docs.shape)} rows, tail rows a token "
         f"{eng.tail_rows.shape[1]}, device bytes {eng.device_bytes()}")
+    ratios[f"h={HOT_TOKENS} B={MAX_BUCKETS} tail_cap={tail_cap}"] = \
+        engine_device_bytes(eng) / csc
     ref = ReferenceEngine.from_scored_index(index)
     rng = np.random.default_rng(17)
     weights = rng.uniform(0.1, 3.0, queries.shape).astype(np.float32)
@@ -1331,6 +1365,7 @@ def layout_and_tail(torch, session, index, cfg) -> None:
                              "plain twin")
     del eng
     torch.cuda.empty_cache()
+    return ratios
 
 
 def dense_main(torch, dev, cfg, gr, tk, session, record) -> None:
@@ -2536,12 +2571,12 @@ def entry_points(torch, session, index) -> None:
         raise AssertionError("the entry points did not run B1 and B3")
 
 
-def harness(torch, session, index, timings) -> None:
+def harness(torch, session, index, timings) -> dict:
     """Phase 12: the query benchmark harness (``bench/query_bench.py::
     run``) at the default ``BenchConfig`` on phase 4's corpus, with the
     explicit layout; every row's recall must read 1.0, and the path must
     launch B1, B2, the scan's tables and (the dense BEIR-eval row) B3 and
-    run no plain twin."""
+    run no plain twin.  Returns the harness's record."""
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.bench.query_bench import compact_headline, run
     from bm25_tpu_torch.ops import gather_rows as gr
@@ -2582,6 +2617,7 @@ def harness(torch, session, index, timings) -> None:
         f"(slot-tiled: {extra['longdoc']['slot_tiled']})")
     if not extra["longdoc"]["slot_tiled"]:
         longdoc_slot_tiled(torch, session)
+    return result
 
 
 def longdoc_slot_tiled(torch, session) -> None:
@@ -2615,8 +2651,517 @@ def longdoc_slot_tiled(torch, session) -> None:
     torch.cuda.empty_cache()
 
 
+SERVE_CLIENTS = 8
+SERVE_LOAD_S = 20.0
+SERVE_CHECK_EVERY = 50  # every 50th response of each client is checked
+UPD_DOCS = 131072  # the serving soak's updatable corpus
+UPD_VOCAB = 16384
+UPD_CLIENTS = 6
+UPD_TRIP_DOCS = 44  # the auto-compaction's delta threshold: 6 batches of 8
+MEMORY_MARGIN = 0.02  # of one engine's device bytes, quiet to quiet
+
+
+def http(port: int, path: str, payload=None, timeout: float = 300):
+    """(status, JSON body, headers) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), r.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+class Load:
+    """Client threads against one server with the serving soak's query
+    mix at top_k 10 (``scripts/exp_serve_soak.py``: five terms of w0-w1999,
+    plain, weighted or the first three; ``mix="upd"``: plain or weighted).
+    A 503 that carries Retry-After is retried; any other failure is kept
+    as an error.  Every ``SERVE_CHECK_EVERY``-th response of each client
+    is kept with its query, for the oracle after the load stops.
+    ``quiet()`` holds the clients and waits out the server's admitted
+    work."""
+
+    def __init__(self, port: int, clients: int, mix: str = "search"):
+        import threading
+
+        self.port, self.mix = port, mix
+        self.stop_ev, self.go = threading.Event(), threading.Event()
+        self.go.set()
+        self.lock = threading.Lock()
+        self.lat, self.kept, self.errors, self.retries = [], [], [], []
+        self.ok = 0
+        self.threads = [threading.Thread(target=self._client, args=(c,))
+                        for c in range(clients)]
+
+    def _query(self, r):
+        terms = [f"w{t}" for t in r.integers(0, 2000, size=5)]
+        style = r.integers(0, 2 if self.mix == "upd" else 3)
+        if style == 1:
+            return {t: float(r.uniform(0.5, 3.0)) for t in terms}
+        return " ".join(terms if style == 0 else terms[:3])
+
+    def _client(self, c: int) -> None:
+        r = np.random.default_rng(c)
+        n = 0
+        while not self.stop_ev.is_set():
+            self.go.wait()
+            q = self._query(r)
+            t0 = time.perf_counter()
+            try:
+                code, body, headers = http(self.port, "/search",
+                                           {"queries": [q], "top_k": 10})
+            except Exception as e:  # noqa: BLE001 — reported, fails the run
+                with self.lock:
+                    self.errors.append(f"client {c}: {e!r}")
+                return
+            t1 = time.perf_counter()
+            if code == 503 and headers.get("Retry-After") is not None:
+                with self.lock:
+                    self.retries.append((t0, t1))
+                time.sleep(0.2)
+                continue
+            row = body.get("results", [[]])[0] if code == 200 else None
+            if code != 200 or len(row) != 10:
+                with self.lock:
+                    self.errors.append(f"client {c}: HTTP {code} {body}")
+                return
+            n += 1
+            with self.lock:
+                self.ok += 1
+                self.lat.append(t1 - t0)
+                if n % SERVE_CHECK_EVERY == 0:
+                    self.kept.append((q, row))
+
+    def start(self) -> "Load":
+        self.t0 = time.perf_counter()
+        for t in self.threads:
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self.stop_ev.set()
+        self.go.set()
+        for t in self.threads:
+            t.join(timeout=300)
+        self.seconds = time.perf_counter() - self.t0
+        alive = [t for t in self.threads if t.is_alive()]
+        if alive or self.errors:
+            raise AssertionError(f"serving clients: {len(alive)} stuck, "
+                                 f"errors {self.errors[:5]}")
+
+    def quiet(self, srv) -> None:
+        self.go.clear()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            pending = srv.batcher.pending_rows if srv.batcher else 0
+            if pending == 0 and srv._inflight == 0:
+                return
+            time.sleep(0.01)
+        raise AssertionError("the server did not quiesce")
+
+    def summary(self) -> str:
+        lat = np.asarray(self.lat) * 1e3
+        return (f"{self.ok} requests in {self.seconds:.1f} s "
+                f"({self.ok / self.seconds:.1f} requests/s), per-request "
+                f"p50 {np.percentile(lat, 50):.2f} ms, p99 "
+                f"{np.percentile(lat, 99):.2f} ms, {len(self.retries)} "
+                f"503 retries")
+
+
+def check_windows(load: Load, windows: list, what: str) -> None:
+    """Every 503 a client saw overlaps a reload or compaction window."""
+    outside = [(a, b) for a, b in load.retries
+               if not any(a <= w1 and b >= w0 for w0, w1 in windows)]
+    if outside:
+        raise AssertionError(f"{what}: {len(outside)} 503s outside the "
+                             f"reload/compaction windows")
+    if load.retries:
+        log(f"[serve] {what}: 503 windows "
+            + "; ".join(f"{w1 - w0:.2f} s" for w0, w1 in windows)
+            + f"; {len(load.retries)} 503s, all inside them")
+
+
+def oracle_check(ref, tok, vocab, items, what: str) -> int:
+    """Hold (query, result row) pairs of top_k 10 to ``ReferenceEngine``
+    under the comparator; returns how many were checked."""
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    for q, row in items:
+        if isinstance(q, dict):
+            ids, w = tok.tokenize_weighted_queries([q], vocab)
+        else:
+            ids, w = tok.tokenize_queries([q], vocab), None
+        k = len(row)
+        docs = np.array([[it["doc"] for it in row]], np.int32)
+        scores = np.array([[it["score"] for it in row]], np.float32)
+        try:
+            assert_matches_oracle(docs, scores,
+                                  *ref.search(ids, top_k=k, weights=w))
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {q!r}: {e}") from None
+    return len(items)
+
+
+def kernel_counts(ops, gr) -> dict:
+    return {**ops.launches, **gr.launches}
+
+
+def search_server(torch, session, index, work, harness_p50) -> None:
+    """Phase 13 (a): ``Server`` over phase 4's 524,288-doc index under
+    ``engine_mode="auto"`` (it must route to ``SparseEngine``, B1), with
+    the micro-batcher and warm-up; the soak's load, a 512-query POST, deep
+    health, then an auto and a drop-mode reload mid-traffic."""
+    import gc
+
+    from bm25_tpu_torch import ReferenceEngine, Tokenizer
+    from bm25_tpu_torch.bench import BenchConfig, make_queries
+    from bm25_tpu_torch.eval import engine_device_bytes
+    from bm25_tpu_torch.index.io import save_index, save_tokenizer_config
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.serve import Server
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    tok = Tokenizer(stemmer=None)
+    vocab = {f"w{i}": i for i in range(index.vocab_size)}
+    idx_dir = os.path.join(work, "search_idx")
+    t0 = time.perf_counter()
+    save_index(idx_dir, dataclasses.replace(index, vocab=vocab))
+    save_tokenizer_config(idx_dir, tok)
+    log(f"[serve] (a) phase 4's index saved with the vocabulary w<i> and a "
+        f"Tokenizer(stemmer=None) config in {time.perf_counter() - t0:.1f} s")
+    reset(ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
+    t0 = time.perf_counter()
+    srv = Server(idx_dir, port=0, engine_mode="auto", batch_window_ms=5.0,
+                 warmup_top_k=10, engine_kwargs={"session": session})
+    build_s = time.perf_counter() - t0
+    stats = srv._handler.runtime.stats
+    engine = srv._handler.runtime.engine
+    if stats["engine"] != "SparseEngine":
+        raise AssertionError(f"auto routed to {stats['engine']}")
+    dev_bytes = engine_device_bytes(engine)
+    warm = kernel_counts(ops, gr)
+    if not (warm["ell_score_fused"] and warm["ell_table"]):
+        raise AssertionError(f"the warm-up did not launch B1: {warm}")
+    log(f"[serve] (a) launches by the build and the T=8 warm-up query: "
+        f"{warm}")
+    log(f"[serve] (a) Server up in {build_s:.1f} s: {stats['engine']} "
+        f"(hot_h={engine.hot_h}, {len(engine.buckets)} buckets, device "
+        f"bytes {dev_bytes}, {dev_bytes / stats['csc_bytes']:.3f} x CSC); "
+        f"warm-up breakdown {srv.last_warmup_breakdown}")
+    del engine
+    srv.start_background()
+    ref = ReferenceEngine.from_scored_index(index)
+
+    load = Load(srv.port, SERVE_CLIENTS).start()
+    time.sleep(SERVE_LOAD_S)
+    load.stop()
+    if load.retries:
+        raise AssertionError("503s with no reload running")
+    n = oracle_check(ref, tok, vocab, load.kept, "(a) load")
+    m = http(srv.port, "/healthz")[1]["metrics"]
+    log(f"[serve] (a) {SERVE_CLIENTS} clients: {load.summary()}; server "
+        f"metrics {m}; {n} kept responses match ReferenceEngine")
+    if m["requests"] != load.ok or m["errors"] or m["batch_occupancy"] <= 1:
+        raise AssertionError(f"metrics {m} against {load.ok} requests sent")
+
+    cfg = BenchConfig()
+    queries = make_queries(cfg)[: cfg.batch]
+    texts = [" ".join(f"w{t}" for t in row) for row in queries]
+    t0 = time.perf_counter()
+    code, body, _ = http(srv.port, "/search",
+                         {"queries": texts, "top_k": cfg.top_k2})
+    wall = (time.perf_counter() - t0) * 1e3
+    if code != 200 or len(body["results"]) != len(texts):
+        raise AssertionError(f"512-query POST: HTTP {code}")
+    rows = body["results"][:CHECKED_QUERIES]
+    ids = tok.tokenize_queries(texts[:CHECKED_QUERIES], vocab)
+    assert_matches_oracle(
+        np.array([[it["doc"] for it in r] for r in rows], np.int32),
+        np.array([[it["score"] for it in r] for r in rows], np.float32),
+        *ref.search(ids, top_k=cfg.top_k2))
+    log(f"[serve] (a) one POST of {len(texts)} queries x {queries.shape[1]} "
+        f"tokens at k={cfg.top_k2}: {wall:.2f} ms wall (phase 12's p50 "
+        f"batch at k={cfg.top_k2}: {harness_p50} ms); the first "
+        f"{CHECKED_QUERIES} match ReferenceEngine")
+    code, h, _ = http(srv.port, "/healthz?deep=1")
+    if code != 200 or h["status"] != "ok":
+        raise AssertionError(f"deep health {code} {h}")
+    log(f"[serve] (a) /healthz?deep=1 green: device_probe "
+        f"{h['device_probe']}, engine_probe {h['engine_probe']}")
+
+    def quiet_bytes(load):
+        """(memory_allocated, the allocator's requested bytes), read with
+        the clients held and no admitted work left."""
+        load.quiet(srv)
+        torch.cuda.synchronize()
+        out = (torch.cuda.memory_allocated(),
+               torch.cuda.memory_stats()["requested_bytes.all.current"])
+        load.go.set()
+        return out
+
+    load = Load(srv.port, SERVE_CLIENTS).start()
+    windows = []
+    time.sleep(1.0)
+    t0 = time.perf_counter()
+    code, rl, _ = http(srv.port, "/reload", {"mode": "auto"})
+    windows.append((t0, time.perf_counter()))
+    if code != 200:
+        raise AssertionError(f"auto reload: HTTP {code} {rl}")
+    log(f"[serve] (a) /reload mode=auto: chose {rl['mode']} in "
+        f"{windows[-1][1] - t0:.2f} s, sizing {rl.get('sizing')}")
+    time.sleep(1.0)
+    before = quiet_bytes(load)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    code, rl, _ = http(srv.port, "/reload", {"mode": "drop"})
+    windows.append((t0, time.perf_counter()))
+    if code != 200 or rl["mode"] != "drop":
+        raise AssertionError(f"drop reload: HTTP {code} {rl}")
+    time.sleep(1.0)
+    after = quiet_bytes(load)
+    peak = torch.cuda.max_memory_allocated()
+    load.stop()
+    check_windows(load, windows, "(a) reloads")
+    log(f"[serve] (a) /reload mode=drop in {windows[-1][1] - t0:.2f} s "
+        f"mid-traffic: memory_allocated {before[0]} -> {after[0]} B, "
+        f"requested {before[1]} -> {after[1]} B (one engine {dev_bytes} B, "
+        f"margin {MEMORY_MARGIN:.0%} of it), peak in the reload {peak} B; "
+        f"clients over both reloads: {load.summary()}")
+    if abs(after[0] - before[0]) > MEMORY_MARGIN * dev_bytes:
+        raise AssertionError("memory after the drop reload is off by "
+                             f"{after[0] - before[0]} B")
+    if peak > before[0] + dev_bytes // 2:
+        raise AssertionError("the old engine lived on into the drop "
+                             "reload's build")
+    n = oracle_check(ref, tok, vocab, load.kept, "(a) reloads")
+    log(f"[serve] (a) {n} kept responses over the reloads match "
+        "ReferenceEngine")
+    srv.shutdown()
+    counts, plain = kernel_counts(ops, gr), {**ops.plain_calls,
+                                             **gr.plain_calls}
+    log(f"[serve] (a) kernel launches {counts}, plain twin runs {plain}")
+    if not counts["ell_score_fused"] or any(plain.values()):
+        raise AssertionError("(a) did not launch B1, or ran a plain twin")
+    del srv, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def updatable_server(torch, session, work) -> None:
+    """Phase 13 (b): an updatable ``Server`` over the soak's 131,072-doc
+    corpus under ``engine_mode="auto"`` (``DenseEngine``, B3) with
+    auto-compaction that trips once; 6 clients, a mutator adding marker
+    docs and deleting earlier ones, one manual /compact; then markers,
+    deletes, the oracle over a fresh build and a restart's WAL replay."""
+    import gc
+
+    from bm25_tpu_torch import ReferenceEngine, Tokenizer, build_index
+    from bm25_tpu_torch.bench.query_bench import _zipf_probs
+    from bm25_tpu_torch.index.io import MMapCorpus
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.serve import Server
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    tok = Tokenizer(stemmer=None)
+    rng = np.random.default_rng(0)
+    cum = np.cumsum(_zipf_probs(UPD_VOCAB))
+    lengths = np.maximum(4, rng.poisson(32, UPD_DOCS))
+    t0 = time.perf_counter()
+    texts = [" ".join(f"w{t}" for t in np.searchsorted(cum, rng.random(n)))
+             for n in lengths]
+    idx_dir = os.path.join(work, "upd_idx")
+    _, st = build_index(texts, tokenizer=tok, save_to=idx_dir,
+                        save_corpus=True)
+    log(f"[serve] (b) {UPD_DOCS} docs (vocab {st.vocab_size}, {st.nnz} "
+        f"postings) made, built and saved in {time.perf_counter() - t0:.1f} s")
+    kw = dict(port=0, engine_mode="auto", batch_window_ms=5.0,
+              warmup_top_k=10, updatable=True, auto_compact=True,
+              auto_compact_interval_s=0.5,
+              auto_compact_delta_docs=UPD_TRIP_DOCS,
+              engine_kwargs={"session": session})
+    reset(ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
+    t0 = time.perf_counter()
+    srv = Server(idx_dir, **kw)
+    stats = srv._handler.runtime.stats
+    if stats["engine"] != "DenseEngine":
+        raise AssertionError(f"auto routed to {stats['engine']}")
+    if not gr.launches["gather_add_rows"]:
+        raise AssertionError("the warm-up did not launch B3")
+    log(f"[serve] (b) updatable Server up in {time.perf_counter() - t0:.1f} "
+        f"s: {stats['engine']}; warm-up {srv.last_warmup_breakdown}")
+    srv.start_background()
+    port = srv.port
+    load = Load(port, UPD_CLIENTS, mix="upd").start()
+    windows, alive, deleted = [], {}, set()
+    mr = np.random.default_rng(99)
+
+    def retry(path, payload):
+        while True:
+            code, body, headers = http(port, path, payload)
+            if code == 503 and headers.get("Retry-After") is not None:
+                time.sleep(0.2)
+                continue
+            if code != 200:
+                raise AssertionError(f"{path}: HTTP {code} {body}")
+            return body
+
+    def add_batch(n):
+        docs = [f"zzmarker{n} zzm{n}d{i} "
+                + " ".join(f"w{t}" for t in mr.integers(0, 2000, 8))
+                for i in range(8)]
+        out = retry("/add", {"docs": docs})
+        alive.update({f"zzm{n}d{i}": d for i, d in enumerate(docs)})
+        return out
+
+    def delete_marker(n, i):
+        token = f"zzm{n}d{i}"
+        row = retry("/search", {"queries": [token], "top_k": 1})
+        hit = row["results"][0][0]
+        if token not in hit["text"] or hit["score"] <= 0:
+            raise AssertionError(f"marker {token} not found: {hit}")
+        retry("/delete", {"doc_ids": [hit["doc"]]})
+        deleted.add(token)
+        del alive[token]
+
+    # stage 1: six batches of 8; the sixth crosses the threshold
+    for n in range(6):
+        out = add_batch(n)
+        if n in (2, 4):
+            delete_marker(n - 2, 0)
+            delete_marker(n - 2, 1)
+        if out["needs_compaction"] != (n == 5):
+            raise AssertionError(f"batch {n}: needs_compaction {out}")
+    t_trip = time.perf_counter()
+    deadline = t_trip + 300
+    while time.perf_counter() < deadline:
+        h = http(port, "/healthz")[1]
+        if h.get("updates", {}).get("delta_docs") == 0:
+            break
+        time.sleep(0.05)
+    windows.append((t_trip, time.perf_counter()))
+    if h["metrics"]["compactions"] != 1 or h["updates"]["delta_docs"]:
+        raise AssertionError(f"auto-compaction: {h}")
+    log(f"[serve] (b) auto-compaction folded the delta "
+        f"{windows[-1][1] - t_trip:.2f} s after the tripping add: "
+        f"{h['updates']}")
+    # stage 2: two more batches and deletes, then a manual compact
+    for n in (6, 7):
+        add_batch(n)
+    delete_marker(6, 0)
+    delete_marker(1, 2)
+    t0 = time.perf_counter()
+    out = retry("/compact", {"save_dir": idx_dir})
+    windows.append((t0, time.perf_counter()))
+    log(f"[serve] (b) manual /compact (folded into the served dir) in "
+        f"{windows[-1][1] - t0:.2f} s mid-traffic: {out}")
+    live_texts = [d["text"] for d in MMapCorpus.open(idx_dir).batch(
+        range(out["live_docs"]))]
+    t0 = time.perf_counter()
+    fresh, _ = build_index(live_texts, tokenizer=tok)
+    ref = ReferenceEngine.from_scored_index(fresh)
+    qr = np.random.default_rng(5)
+    sample = [" ".join(f"w{t}" for t in qr.integers(0, 2000, 5))
+              for _ in range(16)]
+    sample += [{f"w{t}": float(qr.uniform(0.5, 3.0))
+                for t in qr.integers(0, 2000, 5)} for _ in range(8)]
+    sample += [f"zzmarker{n}" for n in range(8)]
+    body = retry("/search", {"queries": sample, "top_k": 10})
+    n = oracle_check(ref, tok, fresh.vocab, list(zip(sample, body["results"])),
+                     "(b) after compaction")
+    log(f"[serve] (b) {n} queries match ReferenceEngine over a fresh build "
+        f"of the {len(live_texts)} live texts "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # stage 3: post-compaction ops, which live only in the update log
+    for n in (8, 9):
+        add_batch(n)
+    delete_marker(8, 3)
+    delete_marker(3, 4)
+    load.stop()
+    check_windows(load, windows, "(b) compactions")
+    m = http(port, "/healthz")[1]
+    log(f"[serve] (b) {UPD_CLIENTS} clients beside the mutator: "
+        f"{load.summary()}; server metrics {m['metrics']}; updates "
+        f"{m['updates']}")
+    if m["metrics"]["errors"] or m["metrics"]["batch_occupancy"] <= 1:
+        raise AssertionError(f"metrics {m['metrics']}")
+    tokens = sorted(alive) + sorted(deleted)
+    body = retry("/search", {"queries": tokens, "top_k": 1})
+    for token, row in zip(tokens, body["results"]):
+        found = bool(row) and row[0]["score"] > 0 and token in row[0]["text"]
+        if found != (token in alive):
+            raise AssertionError(f"marker {token}: found {found}, alive "
+                                 f"{token in alive}")
+    log(f"[serve] (b) {len(alive)} live markers found, {len(deleted)} "
+        "deleted ones never returned")
+    sample += sorted(alive)[:8]
+    before = retry("/search", {"queries": sample, "top_k": 10})
+    srv.shutdown()
+    del srv
+    gc.collect()
+    t0 = time.perf_counter()
+    srv = Server(idx_dir, **kw)
+    replayed = srv._handler.runtime.stats.get("wal_replayed")
+    srv.start_background()
+    port = srv.port  # retry() posts to the restarted server
+    after = retry("/search", {"queries": sample, "top_k": 10})
+    log(f"[serve] (b) restart from the same dir in "
+        f"{time.perf_counter() - t0:.1f} s replayed {replayed} logged "
+        "updates")
+    if replayed != 4:
+        raise AssertionError(f"restart replayed {replayed} updates, not 4")
+    for a, b in zip(before["results"], after["results"]):
+        if [it["doc"] for it in a] != [it["doc"] for it in b]:
+            raise AssertionError("the restart's results differ")
+        assert_matches_oracle(
+            np.array([[it["doc"] for it in b]]),
+            np.array([[it["score"] for it in b]], np.float32),
+            np.array([[it["doc"] for it in a]]),
+            np.array([[it["score"] for it in a]], np.float32))
+    log(f"[serve] (b) after the restart {len(sample)} queries return the "
+        "same docs and scores")
+    srv.shutdown()
+    counts, plain = kernel_counts(ops, gr), {**ops.plain_calls,
+                                             **gr.plain_calls}
+    log(f"[serve] (b) kernel launches {counts}, plain twin runs {plain}")
+    if not counts["gather_add_rows"] or any(plain.values()):
+        raise AssertionError("(b) did not launch B3, or ran a plain twin")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serving(torch, session, index, ratios, harness_p50) -> None:
+    """Phase 13: the HTTP server on the card, (a) and (b)."""
+    import shutil
+    import tempfile
+
+    from bm25_tpu_torch.serve import FALLBACK_DEVICE_CSC_RATIO
+
+    log("[serve] device bytes / CSC bytes of the sparse builds of phases 4 "
+        "and 4b: " + "; ".join(f"{k} {v:.5f}" for k, v in ratios.items())
+        + f"; serve.FALLBACK_DEVICE_CSC_RATIO {FALLBACK_DEVICE_CSC_RATIO}")
+    if FALLBACK_DEVICE_CSC_RATIO < max(ratios.values()):
+        raise AssertionError("the auto reload's fallback ratio is below a "
+                             "measured one")
+    scratch = os.path.join(HERE, "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=scratch)
+    try:
+        search_server(torch, session, index, work, harness_p50)
+        updatable_server(torch, session, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-12 on device ``dev``; returns the kernels' record."""
+    """Phases 2-13 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -2657,7 +3202,7 @@ def drive(torch, dev) -> dict:
                                      session, record)
         torch.cuda.empty_cache()
     with Phase("4b. layout model and tail tier"):
-        layout_and_tail(torch, session, index, BenchConfig())
+        ratios = layout_and_tail(torch, session, index, BenchConfig())
     dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
                record)
     torch.cuda.empty_cache()
@@ -2679,7 +3224,12 @@ def drive(torch, dev) -> dict:
         entry_points(torch, session, index)
     torch.cuda.empty_cache()
     with Phase("12. query benchmark harness"):
-        harness(torch, session, index, timings)
+        result = harness(torch, session, index, timings)
+    torch.cuda.empty_cache()
+    with Phase("13. serving"):
+        p50 = {r["top_k"]: r["p50_batch_ms"]
+               for r in result["extra"]["secondary"]}
+        serving(torch, session, index, ratios, p50.get(BenchConfig().top_k2))
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1582,3 +1582,216 @@ def test_cuda_matmul_schedules_raise(cuda_device):
         ms.matmul_mma(a.bfloat16(), b.bfloat16())
     empty = ms.matmul_sweep(a[:0], b)
     assert empty.shape == (0, 8)
+
+
+# -- serving on the card (serve.py, index/updates.py, runtime/health.py) ----
+
+
+def _http(srv, path, payload=None):
+    import json
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.port}{path}",
+                                 data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _rows(results):
+    docs = np.array([[it["doc"] for it in r] for r in results], np.int32)
+    scores = np.array([[it["score"] for it in r] for r in results],
+                      np.float32)
+    return docs, scores
+
+
+@pytest.fixture
+def served_index(tmp_path):
+    """A 20,000-doc Zipf index saved with the vocabulary w<i> and a
+    Tokenizer(stemmer=None) config (the card's machine has no nltk)."""
+    import dataclasses
+
+    from bm25_tpu_torch import Tokenizer
+    from bm25_tpu_torch.index.io import save_index, save_tokenizer_config
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    index = dataclasses.replace(
+        index, vocab={f"w{i}": i for i in range(index.vocab_size)})
+    save_index(str(tmp_path / "idx"), index)
+    save_tokenizer_config(str(tmp_path / "idx"), Tokenizer(stemmer=None))
+    return str(tmp_path / "idx"), index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sparse", "dense"])
+def test_cuda_server_concurrent_search_matches_oracle(cuda_device,
+                                                      served_index, mode):
+    import threading
+
+    from bm25_tpu_torch.serve import Server
+
+    d, index = served_index
+    srv = Server(d, port=0, engine_mode=mode, batch_window_ms=2.0,
+                 warmup_top_k=10,
+                 engine_kwargs={"session": Session(cuda_device)})
+    srv.start_background()
+    try:
+        rt = srv._handler.runtime
+        assert rt.engine.session.device.type == "cuda"
+        rng = np.random.default_rng(0)
+        ids = rng.integers(-1, index.vocab_size, (32, 6)).astype(np.int32)
+        w = rng.uniform(0.2, 3.0, ids.shape).astype(np.float32)
+        out = [None] * len(ids)
+
+        def client(i):
+            terms = [f"w{t}" for t in ids[i] if t >= 0] or ["zzz"]
+            q = (" ".join(terms) if i % 2 else
+                 {f"w{t}": float(x) for t, x in zip(ids[i], w[i]) if t >= 0})
+            out[i] = (q, _http(srv, "/search", {"queries": [q],
+                                                 "top_k": 25}))
+
+        ts = [threading.Thread(target=client, args=(i,))
+              for i in range(len(ids))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        ref = ReferenceEngine.from_scored_index(index)
+        for q, (code, body) in out:
+            assert code == 200
+            if isinstance(q, dict):
+                qi, qw = rt.tokenizer.tokenize_weighted_queries([q], rt.vocab)
+            else:
+                qi, qw = rt.tokenizer.tokenize_queries([q], rt.vocab), None
+            assert_matches_oracle(*_rows(body["results"]),
+                                  *ref.search(qi, top_k=25, weights=qw))
+        assert srv.batcher.batches_run < srv.batcher.rows_run
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_healthz_deep_probes_the_card(cuda_device, served_index):
+    from bm25_tpu_torch.runtime.health import device_probe
+    from bm25_tpu_torch.serve import Server
+
+    assert device_probe().ok and device_probe(cuda_device).ok
+    srv = Server(served_index[0], port=0,
+                 engine_kwargs={"session": Session(cuda_device)})
+    srv.start_background()
+    try:
+        code, h = _http(srv, "/healthz?deep=1")
+        assert code == 200 and h["status"] == "ok"
+        assert h["device_probe"]["ok"] and h["engine_probe"]["ok"]
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sparse", "dense"])
+def test_cuda_updatable_cycle_against_the_oracle(cuda_device, tmp_path,
+                                                 mode):
+    """add / delete / compact on an updatable server on the card, held to
+    an UpdatableEngine over ReferenceEngine fed the same ops, then (after
+    the compaction) to ReferenceEngine over a fresh build."""
+    from bm25_tpu_torch import Tokenizer, build_index
+    from bm25_tpu_torch.index.updates import UpdatableEngine
+    from bm25_tpu_torch.serve import Server
+
+    rng = np.random.default_rng(1)
+    texts = [" ".join(f"w{t}" for t in rng.integers(0, 300, rng.integers(
+        3, 20))) for _ in range(3000)]
+    tok = Tokenizer(stemmer=None)
+    d = str(tmp_path / "idx")
+    index, _ = build_index(texts, tokenizer=tok, save_to=d)
+    srv = Server(d, port=0, engine_mode=mode, updatable=True,
+                 batch_window_ms=2.0,
+                 engine_kwargs={"session": Session(cuda_device)})
+    srv.start_background()
+    oracle = UpdatableEngine(ReferenceEngine.from_scored_index(index), index)
+    vocab = dict(index.vocab)
+    queries = ["w1 w2 w3", "w250 zzq1", "zzq2 w7", "w0"]
+
+    def check(ref_engine, ref_vocab):
+        code, body = _http(srv, "/search", {"queries": queries, "top_k": 20})
+        assert code == 200
+        qi = tok.tokenize_queries(queries, ref_vocab)
+        assert_matches_oracle(*_rows(body["results"]),
+                              *ref_engine.search(qi, top_k=20))
+
+    try:
+        added = [f"zzq{i % 3} w{i} w{2 * i} fresh doc" for i in range(40)]
+        code, out = _http(srv, "/add", {"docs": added})
+        assert code == 200
+        tc = tok.tokenize_corpus(added, vocab=vocab)
+        np.testing.assert_array_equal(out["doc_ids"], oracle.add(tc.ids))
+        victims = [int(v) for v in rng.choice(3040, 60, replace=False)]
+        assert _http(srv, "/delete", {"doc_ids": victims})[0] == 200
+        oracle.delete(victims)
+        check(oracle, vocab)
+        code, out = _http(srv, "/compact", {})
+        assert code == 200 and out["live_docs"] == 3040 - 60
+        live = [t for i, t in enumerate(texts + added) if i not in victims]
+        fresh, _ = build_index(live, tokenizer=tok)
+        check(ReferenceEngine.from_scored_index(fresh), fresh.vocab)
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_drop_reload_returns_device_memory(cuda_device, served_index):
+    """The live tensor bytes after a drop-mode /reload are back within 2%
+    of one engine's device bytes of their value before it, and the old
+    engine is freed before the new one builds (the peak stays below two
+    engines).  Live bytes are the allocator's requested bytes:
+    ``memory_allocated`` counts whole cached blocks, which the caching
+    allocator leaves unsplit when less than 1 MiB would remain, so at
+    this engine's size (7.6 MB) it moved by 1 MB with nothing leaked."""
+    import gc
+    import time
+
+    from bm25_tpu_torch.eval import engine_device_bytes
+    from bm25_tpu_torch.serve import Server
+
+    srv = Server(served_index[0], port=0, engine_mode="sparse",
+                 batch_window_ms=2.0, warmup_top_k=10,
+                 engine_kwargs={"session": Session(cuda_device)})
+    srv.start_background()
+    try:
+        assert _http(srv, "/search", {"queries": ["w1 w2"],
+                                       "top_k": 10})[0] == 200
+        one = engine_device_bytes(srv._handler.runtime.engine)
+
+        def settled():
+            # earlier tests' servers (reference cycles) may still be
+            # freeing their engines: read once nothing else moves
+            last = -1
+            for _ in range(50):
+                gc.collect()
+                torch.cuda.synchronize()
+                now = (torch.cuda.memory_stats()[
+                    "requested_bytes.all.current"],
+                    torch.cuda.memory_allocated())
+                if now == last:
+                    return now
+                last = now
+                time.sleep(0.1)
+            return last
+
+        before = settled()
+        torch.cuda.reset_peak_memory_stats()
+        code, rl = _http(srv, "/reload", {"mode": "drop"})
+        assert code == 200 and rl["mode"] == "drop"
+        after = settled()
+        assert abs(after[0] - before[0]) <= 0.02 * one, (before, after, one)
+        assert torch.cuda.max_memory_allocated() < before[1] + one // 2
+        assert _http(srv, "/search", {"queries": ["w1 w2"],
+                                       "top_k": 10})[0] == 200
+    finally:
+        srv.shutdown()

@@ -170,10 +170,13 @@ def test_bench_suites(capsys, monkeypatch):
 
 
 def test_unported_commands_are_not_registered(capsys):
-    for cmd in ("serve", "warm", "checkpoint", "cache"):
+    for cmd in ("warm", "checkpoint", "cache"):
         with pytest.raises(SystemExit):
             main([cmd])
     capsys.readouterr()
+    # serve is ported: registered, and with no index dir it exits 2
+    assert main(["--device", "cpu", "serve"]) == 2
+    assert "index dir" in capsys.readouterr().err
 
 
 def test_read_corpus_equals_jax(tmp_path):

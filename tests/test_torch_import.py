@@ -108,6 +108,36 @@ BLOCKED_RUN = textwrap.dedent("""
                                 avg_len=10)
     assert evaluate_dataset(ds, top_k=5, log=len, session=cpu,
                             tokenizer=Tokenizer(stemmer=None))["num_queries"]
+    import json, tempfile, urllib.request
+    from bm25_tpu_torch import Server, build_index
+    from bm25_tpu_torch.index.updates import UpdatableRetriever
+    from bm25_tpu_torch.runtime.health import device_probe, engine_probe
+    from bm25_tpu_torch.runtime.profiling import compile_phase_collector
+    with tempfile.TemporaryDirectory() as d:
+        build_index(texts, tokenizer=Tokenizer(stemmer=None), save_to=d)
+        srv = Server(d, port=0, engine_kwargs={"session": cpu},
+                     updatable=True, warmup_top_k=2)
+        srv.start_background()
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/search",
+                data=json.dumps({"queries": ["dog barks"],
+                                 "top_k": 1}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                out = json.loads(r.read())
+            assert out["results"][0][0]["text"] == "the dog barks"
+        finally:
+            srv.shutdown()
+    assert device_probe("cpu").ok
+    assert engine_probe(engine).ok
+    with compile_phase_collector() as phases:
+        pass
+    assert set(phases) == {"nvcc_build_s", "library_load_s"}
+    u = UpdatableRetriever.fit(texts, tokenizer=Tokenizer(stemmer=None),
+                               engine_kwargs={"session": cpu})
+    u.add_documents(["a cat chases the dog"])
+    assert u.retrieve(["chases"], k=1)[0][0, 0] == 3
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_OK")
 """)
