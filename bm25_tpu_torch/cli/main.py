@@ -1,4 +1,5 @@
-"""bm25-tpu-torch command line: index build, query, bench, demo, eval, serve.
+"""bm25-tpu-torch command line: index build, query, bench, demo, eval,
+checkpoint, warm, cache, serve.
 
 The port's copy of ``bm25_tpu/cli/main.py``, command for command, with the
 port's imports: ``demo`` is ``python main.py`` without the interactive-only
@@ -8,8 +9,9 @@ benchmarks``.  What differs:
 
 * a global ``--device`` (default ``cuda``): the ``Session`` that the
   commands which run on a device (``query``, ``demo``, ``eval``, ``bench``,
-  ``serve``) build their engine or benchmark on; it raises where CUDA is
-  absent unless ``--device cpu`` is given;
+  ``checkpoint``, ``warm``, ``serve``) build or restore their engine or
+  benchmark on; it raises where CUDA is absent unless ``--device cpu`` is
+  given (``cache`` touches no device but to probe its fingerprint);
 * ``eval`` takes ``--stemmer snowball-en|none`` (default ``snowball-en``,
   the JAX CLI's tokenizer): the Snowball stemmer needs ``nltk``, which a
   GPU machine may not have.  ``index`` builds with the JAX CLI's default
@@ -21,9 +23,13 @@ benchmarks``.  What differs:
   (``bench/query_bench.py::run``, ``BM25_BENCH_*`` overrides) on the
   device and prints the full record, then the compact headline as the
   last line, as ``bench.py`` does;
-* ``checkpoint``, ``warm`` and ``cache`` are not registered until device
-  checkpoints are ported (ROADMAP.md: device checkpoints); ``serve
-  --device-checkpoint`` raises ``NotImplementedError``.
+* ``checkpoint`` writes the port's device checkpoint (one ``torch.save``
+  file and its ``.meta.json`` sidecar, ``index/device_checkpoint.py``),
+  which ``serve --device-checkpoint`` and ``warm --device-checkpoint``
+  restore; ``warm`` runs the engine's dispatch family once, which builds
+  and loads the kernel libraries the path needs, and ``cache`` inspects,
+  exports and imports the directory of those libraries
+  (``runtime/cache.py``), the port's counterpart of JAX's compile cache.
 """
 
 from __future__ import annotations
@@ -243,6 +249,122 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_warm(args) -> int:
+    """Run the serving dispatch family once: a deploy step.
+
+    The first run builds (nvcc) and loads every kernel library the served
+    path needs; ``cache export`` then ships the built libraries, so a
+    later ``serve`` on a fresh host of the same environment starts warm.
+    """
+    from bm25_tpu_torch.runtime.warmup import warm_engine
+
+    if args.index is None and not args.device_checkpoint:
+        print("error: provide an index dir and/or --device-checkpoint",
+              file=sys.stderr)
+        return 2
+    session = _session(args)
+    if args.device_checkpoint:
+        from bm25_tpu_torch.index.device_checkpoint import (
+            load_device_checkpoint)
+
+        engine = load_device_checkpoint(args.device_checkpoint,
+                                        session=session)
+    else:
+        from bm25_tpu_torch.index.io import load_index
+        from bm25_tpu_torch.models.auto import create_engine
+
+        engine_kwargs = {}
+        if args.score_dtype != "float32":
+            engine_kwargs["score_dtype"] = args.score_dtype
+        if args.overhead_target is not None:
+            engine_kwargs["overhead_target"] = args.overhead_target
+        engine = create_engine(load_index(args.index), mode=args.engine,
+                               session=session, **engine_kwargs)
+    ints = lambda s: tuple(int(x) for x in s.split(","))  # noqa: E731
+    t0 = time.perf_counter()
+    report = warm_engine(
+        engine,
+        top_ks=ints(args.top_k),
+        batch_sizes=ints(args.batch_sizes),
+        routed_batch=args.routed_batch,
+        widths=ints(args.widths),
+        cold_classes=ints(args.cold_classes),
+        weighted=args.weighted,
+        ids_only=args.ids_only,
+        filtered=args.filtered,
+        log=lambda *a: print(*a, file=sys.stderr),
+    )
+    print(json.dumps({
+        "shapes": len(report),
+        "total_seconds": round(time.perf_counter() - t0, 1),
+        "report": report,
+    }))
+    return 0
+
+
+def cmd_checkpoint(args) -> int:
+    """Build the engine once and save a device checkpoint for fast serves."""
+    from bm25_tpu_torch.index.device_checkpoint import save_device_checkpoint
+    from bm25_tpu_torch.index.io import load_index
+    from bm25_tpu_torch.models.auto import create_engine
+
+    session = _session(args)
+    t0 = time.perf_counter()
+    index = load_index(args.index)
+    engine_kwargs = {}
+    if getattr(args, "overhead_target", None) is not None:
+        engine_kwargs["overhead_target"] = args.overhead_target
+    engine = create_engine(index, mode=args.engine, session=session,
+                           **engine_kwargs)
+    print(f"engine built in {time.perf_counter() - t0:.1f}s "
+          f"({type(engine).__name__})")
+    t0 = time.perf_counter()
+    save_device_checkpoint(args.out, engine)
+    print(f"device checkpoint saved to {args.out} "
+          f"in {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+def cmd_cache(args) -> int:
+    """Kernel build-cache lifecycle: info / export / import.
+
+    Deploy flow: ``bm25-tpu-torch warm`` on a build host fills the build
+    directory, ``cache export`` tars it with an environment manifest,
+    ``cache import`` on each serving host validates and unpacks it — the
+    first ``serve`` there loads the libraries instead of running nvcc.
+    """
+    from bm25_tpu_torch.runtime import cache as cc
+
+    if args.action == "info":
+        print(json.dumps(cc.cache_info(args.dir)))
+        return 0
+    if args.archive is None:
+        print(f"error: cache {args.action} requires an archive path",
+              file=sys.stderr)
+        return 2
+    import tarfile
+
+    if args.action == "export":
+        try:
+            out = cc.export_cache(args.archive, path=args.dir)
+        except (FileNotFoundError, ValueError, OSError, tarfile.TarError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        print(json.dumps(out))
+        return 0
+    # import — tarfile.ReadError (corrupt/truncated/non-gzip archive) is a
+    # TarError, not an OSError; catch it so a bad file gets the clean path
+    try:
+        out = cc.import_cache(args.archive, path=args.dir, force=args.force)
+    except (FileNotFoundError, ValueError, OSError, tarfile.TarError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    for m in out["mismatches"]:
+        print(f"warning: fingerprint mismatch ({m})", file=sys.stderr)
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_serve(args) -> int:
     from bm25_tpu_torch.serve import Server
 
@@ -274,8 +396,9 @@ def cmd_serve(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bm25-tpu-torch")
     p.add_argument("--device", default="cuda",
-                   help="torch device that query/demo/eval/bench/serve run "
-                        "on (default cuda; raises where CUDA is absent)")
+                   help="torch device that query/demo/eval/bench/checkpoint/"
+                        "warm/serve run on (default cuda; raises where CUDA "
+                        "is absent)")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pi = sub.add_parser("index", help="build and save an index from a corpus file")
@@ -335,11 +458,86 @@ def build_parser() -> argparse.ArgumentParser:
                     help="none: no stemming (the Snowball stemmer needs nltk)")
     pe.set_defaults(fn=cmd_eval)
 
+    pc = sub.add_parser(
+        "checkpoint",
+        help="build an engine once and save a device checkpoint "
+             "(warm-restart serving without the index rebuild)",
+    )
+    pc.add_argument("index")
+    pc.add_argument("-o", "--out", required=True)
+    pc.add_argument("--overhead-target", type=float, default=None,
+                    help="cap device memory at this ratio of the raw CSC "
+                         "footprint (auto hot-tier policy dial)")
+    pc.add_argument("--engine", default="auto",
+                    choices=["auto", "dense", "sparse", "sharded",
+                             "sharded_sparse"])
+    pc.set_defaults(fn=cmd_checkpoint)
+
+    pw = sub.add_parser(
+        "warm",
+        help="run the serving dispatch family once, building and loading "
+             "the kernel libraries it needs (run once at deploy; later "
+             "serves start warm)",
+    )
+    pw.add_argument("index", nargs="?", default=None)
+    pw.add_argument("--device-checkpoint", default=None,
+                    help="warm an engine restored from a device checkpoint "
+                         "instead of building from the index dir")
+    pw.add_argument("--engine", default="auto",
+                    choices=["auto", "dense", "sparse", "sharded",
+                             "sharded_sparse"])
+    pw.add_argument("--top-k", default="10",
+                    help="comma-separated top_k values to warm (match what "
+                         "clients will send)")
+    pw.add_argument("--batch-sizes", default="1,8,32",
+                    help="comma-separated unrouted request sizes")
+    pw.add_argument("--routed-batch", type=int, default=512,
+                    help="row count for the routed (micro-batched) shapes")
+    pw.add_argument("--widths", default="8",
+                    help="comma-separated padded query widths (8 covers "
+                         "all queries with <= 8 terms)")
+    pw.add_argument("--cold-classes", default="2,4,8",
+                    help="comma-separated routed cold-width classes")
+    pw.add_argument("--weighted", action="store_true",
+                    help="also warm the weighted-query path")
+    pw.add_argument("--ids-only", action="store_true",
+                    help="also warm the rankings-only (search_ids) path")
+    pw.add_argument("--filtered", action="store_true",
+                    help="also warm the filtered-search (doc_mask / "
+                         "filter_ids) path — it bypasses the batcher, so "
+                         "its first production request pays any first-use "
+                         "work directly")
+    pw.add_argument("--overhead-target", type=float, default=None,
+                    help="cap device memory at this ratio of the raw CSC "
+                         "footprint (auto hot-tier policy dial; ~1.4 = "
+                         "parity floor, unset = speed-optimal)")
+    pw.add_argument("--score-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    pw.set_defaults(fn=cmd_warm)
+
+    pcc = sub.add_parser(
+        "cache",
+        help="kernel build-cache lifecycle: ship built kernel libraries to "
+             "new serving hosts (info / export <tar.gz> / import <tar.gz>)")
+    pcc.add_argument("action", choices=["info", "export", "import"])
+    pcc.add_argument("archive", nargs="?", default=None,
+                     help="archive path (required for export/import)")
+    pcc.add_argument("--dir", default=None,
+                     help="build directory (default: BM25_TPU_TORCH_BUILD_"
+                          "DIR, else bm25_tpu_torch/_build)")
+    pcc.add_argument("--force", action="store_true",
+                     help="import even if the archive's nvcc/torch/driver/"
+                          "device fingerprint does not match this host")
+    pcc.set_defaults(fn=cmd_cache)
+
     ps = sub.add_parser("serve", help="HTTP search daemon over a saved index")
     ps.add_argument("index", nargs="?", default=None)
     ps.add_argument("--device-checkpoint", default=None,
-                    help="warm-restart from a device checkpoint (not ported "
-                         "yet: raises NotImplementedError)")
+                    help="warm-restart the engine from a device checkpoint "
+                         "(bm25-tpu-torch checkpoint ...) instead of "
+                         "building from the index; the index dir remains "
+                         "optional for corpus text in responses and "
+                         "/reload")
     ps.add_argument("--host", default="127.0.0.1")
     ps.add_argument("--port", type=int, default=8225)
     ps.add_argument("--engine", default="auto",

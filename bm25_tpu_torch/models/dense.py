@@ -188,28 +188,37 @@ class DenseEngine:
         vocab: dict[str, int] | None = None,
         scoring: str = "gather",
     ) -> "DenseEngine":
-        """An engine from host copies of another engine's table and offsets,
+        """An engine from copies of another engine's table and offsets,
         e.g. ``np.asarray`` of a JAX ``DenseEngine``'s ``st`` (bf16 as
-        ``ml_dtypes`` bfloat16) and ``offsets``.  The doc axis is re-padded
-        from the other engine's width to this one's ``doc_pad``."""
+        ``ml_dtypes`` bfloat16) and ``offsets``: the doc axis of an array
+        is re-padded from the other engine's width to this one's
+        ``doc_pad``.  A tensor (a device checkpoint's) keeps its own
+        padding, a whole number of ``doc_pad``'s quanta, and is used as it
+        is where it already lies on the session's device."""
         session = session or get_session()
-        st = np.asarray(st)
         v_pad = next_multiple(vocab_size + 1, 8)
         if st.ndim != 2 or st.shape[0] != v_pad or st.shape[1] < num_docs:
-            raise ValueError(f"st shape {st.shape} does not hold ({v_pad}, "
-                             f">= {num_docs})")
+            raise ValueError(f"st shape {tuple(st.shape)} does not hold "
+                             f"({v_pad}, >= {num_docs})")
         table_dtype(st.dtype)
-        d_pad = doc_pad(num_docs)
-        if st.shape[1] >= d_pad:
-            st = st[:, :d_pad]
+        if isinstance(st, torch.Tensor):
+            if doc_pad(st.shape[1]) != st.shape[1]:
+                raise ValueError(f"st's {st.shape[1]} doc columns are not "
+                                 "a doc_pad width")
         else:
-            wide = np.zeros((v_pad, d_pad), dtype=st.dtype)
-            wide[:, : st.shape[1]] = st
-            st = wide
-        offsets = np.asarray(offsets, np.float32)
-        if offsets.shape != (v_pad,):
-            raise ValueError(f"offsets shape {offsets.shape} != ({v_pad},)")
-        return cls(st=session.put(st), offsets=session.put(offsets),
+            st = np.asarray(st)
+            d_pad = doc_pad(num_docs)
+            if st.shape[1] >= d_pad:
+                st = st[:, :d_pad]
+            else:
+                wide = np.zeros((v_pad, d_pad), dtype=st.dtype)
+                wide[:, : st.shape[1]] = st
+                st = wide
+        offsets = session.put(offsets).float()
+        if tuple(offsets.shape) != (v_pad,):
+            raise ValueError(f"offsets shape {tuple(offsets.shape)} != "
+                             f"({v_pad},)")
+        return cls(st=session.put(st), offsets=offsets,
                    num_docs=num_docs, vocab_size=vocab_size, session=session,
                    vocab=vocab, scoring=scoring)
 

@@ -326,6 +326,71 @@ def build_hot_pair_device(
     return split_bf16(ell_score(ids, tokT, valT))
 
 
+def hot_pair_to_sparse(hi: torch.Tensor, lo: torch.Tensor) -> dict:
+    """Sparse (rank, pos, hi, lo) form of a bucket's dense hot pair.
+
+    12 bytes per stored posting instead of 4 bytes per (H x rows) cell.
+    Used by the device checkpoints so that a restore ships postings, not
+    zeros.  BM25 contributions are never exactly 0, so the nonzero mask
+    loses nothing.  The JAX function's numpy, in torch ops on the pair's
+    own device (numpy has no bfloat16): only the postings leave the card,
+    in ``np.nonzero``'s row-major order.
+    """
+    nz = (hi != 0) | (lo != 0)
+    rank, pos = torch.nonzero(nz, as_tuple=True)
+    return {
+        "hotNzRank": rank.to(torch.int32),
+        "hotNzPos": pos.to(torch.int32),
+        "hotNzHi": hi[nz],
+        "hotNzLo": lo[nz],
+    }
+
+
+def _sparse_hot_ell(rows: int, rank: torch.Tensor, pos: torch.Tensor,
+                    vals: torch.Tensor, width_align: int = 8):
+    """(L, rows) slot-major ELL of sparse hot entries, ranks as token ids
+    (JAX's numpy, in torch ops on the entries' device)."""
+    order = torch.argsort(pos, stable=True)
+    pos_s = pos[order].long()
+    rank_s = rank[order].to(torch.int32)
+    vals_s = vals[order].float()
+    counts = torch.bincount(pos_s, minlength=rows)
+    most = int(counts.max()) if pos_s.numel() else 0
+    width = next_multiple(max(most, 1), width_align)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(len(pos_s), device=pos_s.device) - \
+        torch.repeat_interleave(starts, counts)
+    tokT = torch.full((width, rows), PAD_TOK, dtype=torch.int32,
+                      device=pos_s.device)
+    valT = torch.zeros((width, rows), dtype=torch.float32,
+                       device=pos_s.device)
+    tokT[slot, pos_s] = rank_s
+    valT[slot, pos_s] = vals_s
+    return tokT, valT
+
+
+def rebuild_hot_pair_from_sparse(
+    h: int, rows: int, sparse: dict, put,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense (H, rows) bf16 pair from its checkpointed sparse form.
+
+    Runs B2 twice, once over the hi values and once over the lo values,
+    so the restored pair is bit-identical to what was saved: each (rank,
+    row) cell holds one posting, so B2's sum is that value exactly
+    (summing hi + lo and re-splitting could flip a round-to-even tie in
+    the last bf16 bit).  ``put`` places tensors and host arrays on the
+    target device (``session.put``).  On CUDA tensors B2 launches its
+    kernel or raises; on CPU tensors its plain twin runs.
+    """
+    ids = put(np.arange(h, dtype=np.int32).reshape(-1, 1))
+    rank, pos = put(sparse["hotNzRank"]), put(sparse["hotNzPos"])
+    out = []
+    for key in ("hotNzHi", "hotNzLo"):
+        tokT, valT = _sparse_hot_ell(rows, rank, pos, put(sparse[key]))
+        out.append(ell_score(ids, tokT, valT).to(torch.bfloat16))
+    return out[0], out[1]
+
+
 def device_hbm_bytes(device: torch.device | str) -> int:
     """Memory capacity of the session's device in bytes: the card's total
     (``torch.cuda.mem_get_info``) on CUDA, physical RAM on the CPU."""
@@ -1280,8 +1345,10 @@ class SparseEngine:
         hot_h: int,
         session: Session,
         tail_cap: int = 0,
+        vocab: dict[str, int] | None = None,
+        score_dtype: str = "float32",
     ) -> "SparseEngine":
-        """An engine from host copies of another engine's device arrays.
+        """An engine from copies of another engine's device arrays.
 
         Keys: ``"offsets"``, ``"hot_table"``, ``"buckets.<i>.<name>"``
         with ``<name>`` one of doc_ids, tokT, valT, hotT, hotLo, and, for
@@ -1289,15 +1356,17 @@ class SparseEngine:
         ``"tail_toks"``, ``"tail_rows"`` and ``"tail_gpos"`` (its
         ``tail_cap`` passed beside) — e.g. the numpy copies of a JAX
         ``SparseEngine``'s ``buckets[i][name]`` and fields (bf16 arrays as
-        ``ml_dtypes`` bfloat16).
+        ``ml_dtypes`` bfloat16), or tensors (a device checkpoint's): a
+        tensor already on the session's device is used as it is.
         """
+        _score_sdt(score_dtype)
         buckets: dict[int, dict] = {}
         tail = {}
         for key, arr in arrays.items():
             if key in ("offsets", "hot_table"):
                 continue
             if key in _TAIL_KEYS:
-                tail[key] = session.put(np.asarray(arr))
+                tail[key] = session.put(arr)
                 continue
             parts = key.split(".")
             if len(parts) != 3 or parts[0] != "buckets" \
@@ -1318,11 +1387,13 @@ class SparseEngine:
                              f"{sorted(tail)}")
         engine = cls(
             buckets=[buckets[i] for i in range(len(buckets))],
-            offsets=session.put(np.asarray(arrays["offsets"], np.float32)),
-            hot_table=session.put(np.asarray(arrays["hot_table"], np.int32)),
+            offsets=session.put(arrays["offsets"]).float(),
+            hot_table=session.put(arrays["hot_table"]).to(torch.int32),
             hot_h=hot_h,
             num_docs=num_docs,
             vocab_size=vocab_size,
+            vocab=vocab,
+            score_dtype=score_dtype,
             session=session,
             **tail,
             tail_cap=tail_cap if tail else 0,

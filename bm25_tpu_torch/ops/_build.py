@@ -2,8 +2,12 @@
 
 Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface, keyed by a hash of its source, the headers of ``csrc/``
-(``*.cuh``) and the flags, under
-``bm25_tpu_torch/_build/``.  A missing ``nvcc`` or a failed build raises:
+(``*.cuh``) and the flags, in the build directory (``build_dir()``:
+``$BM25_TPU_TORCH_BUILD_DIR``, else ``bm25_tpu_torch/_build/``; the build
+cache that ``runtime/cache.py`` exports and imports).  A library found
+there is loaded as it is: the name does not hash the nvcc or the driver
+that built it, which is what the cache's fingerprint checks on import.
+A missing ``nvcc`` or a failed build raises:
 nothing falls back to a plain version.  The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library.
 
@@ -30,7 +34,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+BUILD_DIR = os.path.join(_PKG, "_build")  # the default build directory
+BUILD_DIR_ENV = "BM25_TPU_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,20 +87,35 @@ def find_nvcc() -> str:
     )
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless the library for the hash of its
-    source and the headers exists; returns the library's path."""
+def build_dir() -> str:
+    """The directory the kernel libraries are built into and loaded from:
+    ``$BM25_TPU_TORCH_BUILD_DIR`` where it is set, else ``BUILD_DIR``.
+    Read at each build, so a process started with the variable set reads
+    and fills that directory."""
+    return os.environ.get(BUILD_DIR_ENV) or BUILD_DIR
+
+
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` lies in the build directory:
+    its name carries a hash of the source, the headers and the flags."""
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
         with open(path, "rb") as f:
             h.update(f.read())
-    digest = h.hexdigest()
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless the library for the hash of its
+    source and the headers exists; returns the library's path."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    out = library_path(name)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    where = os.path.dirname(out)
+    os.makedirs(where, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=where)
     os.close(fd)
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
     try:

@@ -4,8 +4,9 @@ The port's copy of ``bm25_tpu/serve.py``: the same routes, JSON bodies,
 limits, micro-batcher, write-ahead log, reload modes and drain, serving
 the port's engines on the device of the ``Session`` passed in
 ``engine_kwargs`` (``Server(dir, engine_kwargs={"session":
-Session("cpu")})``; by default the CUDA session).  Device checkpoints are
-not ported yet: ``device_checkpoint=`` raises ``NotImplementedError``.
+Session("cpu")})``; by default the CUDA session).  ``device_checkpoint=``
+restores the engine from the port's device checkpoint
+(``index/device_checkpoint.py``) onto that session's device.
 
 The reference is script-only (no server — SURVEY.md section 0); production
 deployment needs a long-lived process with the index resident on device.
@@ -27,7 +28,7 @@ Stdlib-only JSON-over-HTTP:
                 -> per-term score breakdown for that (query, doc) pair
                    (scoring.explain_score; host-side, no device work).
                    409 when no host index matches the served docs
-                   (updatable serving)
+                   (updatable or device-checkpoint serving)
     POST /reload   {"index_dir": "...", "mode": "auto"|"swap"|"drop"}
                    (both optional; dir defaults to the served dir) — load
                    the index fresh and swap the engine atomically;
@@ -1100,10 +1101,6 @@ class Server:
                  auto_compact_deleted_frac: float = 0.2,
                  mmap: bool = False,
                  result_cache: int = 0):
-        if device_checkpoint:
-            raise NotImplementedError(
-                "device checkpoints are not ported yet (ROADMAP.md: device "
-                "checkpoints); serve from an index dir")
         self._index_dir = index_dir
         self._engine_mode = engine_mode
         # mmap the npy triplet at host load (bm25s load(mmap=True) analog):
@@ -1117,6 +1114,12 @@ class Server:
         self._reload_lock = threading.Lock()
         self._updatable = updatable
         self._update_lock = threading.Lock()  # serializes add/delete/compact
+        if updatable and device_checkpoint:
+            raise ValueError(
+                "updatable serving needs the host index (corpus stats for "
+                "delta scoring); start from an index dir, not a device "
+                "checkpoint"
+            )
         if auto_compact and not updatable:
             raise ValueError("auto_compact requires updatable=True")
         self._auto_compact = auto_compact
@@ -1138,13 +1141,20 @@ class Server:
         # first-use attribution of the most recent warmup (logged by
         # _warmup; surfaced on /healthz?deep=1 for operators)
         self.last_warmup_breakdown = None
-        if index_dir is None:
-            raise ValueError("provide an index dir")
-        runtime = self._build_runtime(index_dir, batch_window_ms)
-        if updatable:
-            runtime, self._wal = self._open_wal_and_replay(
-                runtime, index_dir, batch_window_ms
+        if device_checkpoint:
+            runtime = self._runtime_from_checkpoint(
+                device_checkpoint, index_dir, batch_window_ms
             )
+        else:
+            if index_dir is None:
+                raise ValueError(
+                    "provide an index dir or a device_checkpoint"
+                )
+            runtime = self._build_runtime(index_dir, batch_window_ms)
+            if updatable:
+                runtime, self._wal = self._open_wal_and_replay(
+                    runtime, index_dir, batch_window_ms
+                )
         handler = type("Handler", (BM25RequestHandler,), {})
         handler.runtime = runtime
         handler.limits = limits
@@ -1310,6 +1320,51 @@ class Server:
                 raise ValueError(f"unknown op {op!r} in update log {path}")
         return runtime
 
+    def _runtime_from_checkpoint(
+        self, path: str, index_dir: str | None,
+        batch_window_ms: float = 0.0,
+    ) -> EngineRuntime:
+        """Warm-restart the engine straight from a device checkpoint.
+
+        No ScoredIndex load, no ELL/hot rebuild — the vocab rides in the
+        checkpoint metadata.  The engine lands on the device of the
+        ``session`` in ``engine_kwargs`` (the default CUDA session
+        without one).  ``index_dir`` (optional) only supplies the corpus
+        texts for response bodies and a /reload target.
+        """
+        from bm25_tpu_torch.index.device_checkpoint import (
+            load_device_checkpoint)
+        from bm25_tpu_torch.index.io import MMapCorpus
+        from bm25_tpu_torch.text.tokenizer import Tokenizer
+
+        engine = load_device_checkpoint(
+            path, session=self._engine_kwargs.get("session"))
+        if engine.vocab is None:
+            raise ValueError(
+                "checkpoint has no vocab; re-save it from an engine built "
+                "with one (build_index keeps the vocab on the index)"
+            )
+        corpus = None
+        if index_dir is not None:
+            try:
+                corpus = MMapCorpus.open(index_dir)
+            except FileNotFoundError:
+                corpus = None
+        stats = {
+            "num_docs": engine.num_docs,
+            "vocab_size": engine.vocab_size,
+            "engine": type(engine).__name__,
+            "batch_window_ms": batch_window_ms,
+            "device_checkpoint": path,
+        }
+        from bm25_tpu_torch.index.io import load_tokenizer_config
+
+        tok = (load_tokenizer_config(index_dir)
+               if index_dir is not None else None) or Tokenizer()
+        return EngineRuntime(engine=engine, tokenizer=tok,
+                             vocab=engine.vocab, corpus=corpus, stats=stats,
+                             result_cache=self._new_result_cache())
+
     def _warmup(self, engine) -> None:
         # run the first query before accepting traffic: its first launch
         # of each kernel of the served path builds the kernel library
@@ -1385,6 +1440,11 @@ class Server:
         # after its records were read (or miss the new runtime entirely)
         with self._update_lock, self._reload_lock:
             index_dir = index_dir or self._index_dir
+            if index_dir is None:
+                raise FileNotFoundError(
+                    "no index dir to reload from (serving from a device "
+                    "checkpoint); pass 'index_dir' in the reload request"
+                )
             old_rt = self._handler.runtime
             old_stats = old_rt.stats
             window = old_stats.get("batch_window_ms", 0.0)

@@ -154,7 +154,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    the synthetic-BEIR eval (dense and sparse); every row's recall
    against ``ReferenceEngine`` must read 1.0, and B1, the tables, B3 and
    (where some engine of the run has a hot tier) B2 must have launched,
-   no plain twin run.  The compact headline is logged on its own line;
+   no plain twin run; the ``cold_start`` row runs three fresh processes
+   (phase 14 reads it).  The compact headline is logged on its own line;
 13. serving (``bm25_tpu_torch/serve.py``), every checked response held to
    ``ReferenceEngine`` under the comparator after its load stopped:
    (a) ``Server`` over phase 4's index (saved with the vocabulary w<i>
@@ -182,7 +183,28 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    same dir whose update-log replay (4 records) gives the same results.
    Each server's B1/B2/B3 launches are logged, and the sparse builds'
    device / CSC bytes of phases 4 and 4b beside the auto reload's
-   fallback ratio.
+   fallback ratio;
+14. warm restart: (a) device checkpoints of phase 4's corpus at three
+   layouts (the layout model's, the explicit h=1024 / 2 buckets, and
+   phase 4b's three tiers at tail_cap=512): save, load and
+   ``from_scored_index`` seconds and the bytes on disk, every restored
+   tensor ``torch.equal`` to the source's (the bf16 hot pairs, rebuilt by
+   B2, bit for bit), 512 x 8 queries at k=1000 and k=100 equal to the
+   source's, the first 64 held to ``ReferenceEngine``, and B2 launched
+   twice a hot bucket in each load, no plain twin run; (b) a
+   ``DenseEngine`` over 16,384 docs of the headline corpus (a 2.1 GB
+   table) the same way, B3 on its searches; (c) ``bm25-tpu-torch
+   checkpoint`` of phase 13's index dir and ``Server(device_checkpoint=
+   ...)`` over it (start seconds beside phase 13's build), 4 clients for
+   5 s with every 10th response held to the oracle, deep health green, a
+   400 on ``/reload`` with no index dir, and ``updatable=True`` beside a
+   checkpoint refused; (d) ``warm_engine`` at top_k 10, 100 and 1000 on
+   the restored model-layout engine (no nvcc or load left after phase
+   2), ``cache export`` and ``cache import`` through the CLI (the
+   fingerprint logged), an archive naming another sm refused without
+   ``--force``, and phase 12's ``cold_start`` row: the headline step's
+   first call in fresh processes against an empty build directory (nvcc
+   runs), this one and an imported copy (no nvcc).
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -203,9 +225,11 @@ import dataclasses
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2681,15 +2705,16 @@ class Load:
     mix at top_k 10 (``scripts/exp_serve_soak.py``: five terms of w0-w1999,
     plain, weighted or the first three; ``mix="upd"``: plain or weighted).
     A 503 that carries Retry-After is retried; any other failure is kept
-    as an error.  Every ``SERVE_CHECK_EVERY``-th response of each client
+    as an error.  Every ``check_every``-th response of each client
     is kept with its query, for the oracle after the load stops.
     ``quiet()`` holds the clients and waits out the server's admitted
     work."""
 
-    def __init__(self, port: int, clients: int, mix: str = "search"):
+    def __init__(self, port: int, clients: int, mix: str = "search",
+                 check_every: int = SERVE_CHECK_EVERY):
         import threading
 
-        self.port, self.mix = port, mix
+        self.port, self.mix, self.check_every = port, mix, check_every
         self.stop_ev, self.go = threading.Event(), threading.Event()
         self.go.set()
         self.lock = threading.Lock()
@@ -2734,7 +2759,7 @@ class Load:
             with self.lock:
                 self.ok += 1
                 self.lat.append(t1 - t0)
-                if n % SERVE_CHECK_EVERY == 0:
+                if n % self.check_every == 0:
                     self.kept.append((q, row))
 
     def start(self) -> "Load":
@@ -2811,11 +2836,13 @@ def kernel_counts(ops, gr) -> dict:
     return {**ops.launches, **gr.launches}
 
 
-def search_server(torch, session, index, work, harness_p50) -> None:
+def search_server(torch, session, index, work, harness_p50) -> float:
     """Phase 13 (a): ``Server`` over phase 4's 524,288-doc index under
     ``engine_mode="auto"`` (it must route to ``SparseEngine``, B1), with
     the micro-batcher and warm-up; the soak's load, a 512-query POST, deep
-    health, then an auto and a drop-mode reload mid-traffic."""
+    health, then an auto and a drop-mode reload mid-traffic.  The index
+    dir stays in ``work`` (``search_idx``) for phase 14; returns the
+    server's start seconds (load, build and warm-up)."""
     import gc
 
     from bm25_tpu_torch import ReferenceEngine, Tokenizer
@@ -2951,6 +2978,7 @@ def search_server(torch, session, index, work, harness_p50) -> None:
     del srv, ref
     gc.collect()
     torch.cuda.empty_cache()
+    return build_s
 
 
 def updatable_server(torch, session, work) -> None:
@@ -3137,11 +3165,9 @@ def updatable_server(torch, session, work) -> None:
     torch.cuda.empty_cache()
 
 
-def serving(torch, session, index, ratios, harness_p50) -> None:
-    """Phase 13: the HTTP server on the card, (a) and (b)."""
-    import shutil
-    import tempfile
-
+def serving(torch, session, index, ratios, harness_p50, work) -> float:
+    """Phase 13: the HTTP server on the card, (a) and (b), in ``work``;
+    returns (a)'s start seconds."""
     from bm25_tpu_torch.serve import FALLBACK_DEVICE_CSC_RATIO
 
     log("[serve] device bytes / CSC bytes of the sparse builds of phases 4 "
@@ -3150,18 +3176,330 @@ def serving(torch, session, index, ratios, harness_p50) -> None:
     if FALLBACK_DEVICE_CSC_RATIO < max(ratios.values()):
         raise AssertionError("the auto reload's fallback ratio is below a "
                              "measured one")
-    scratch = os.path.join(HERE, "_scratch")
-    os.makedirs(scratch, exist_ok=True)
-    work = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=scratch)
+    start_s = search_server(torch, session, index, work, harness_p50)
+    updatable_server(torch, session, work)
+    return start_s
+
+
+RESTART_CLIENTS = 4
+RESTART_LOAD_S = 5.0
+RESTART_CHECK_EVERY = 10  # every 10th response of each client is checked
+RESTART_DENSE_DOCS = 16384  # a 2.1 GB f32 table of the headline's vocab
+PR17_BUILD_S = 4.0  # phase 13 (a)'s start in PR 17 (PERF.md section 5)
+
+
+def leaves(engine) -> dict:
+    """Every tensor an engine's step reads, keyed as its checkpoint's."""
+    from bm25_tpu_torch import DenseEngine
+
+    if isinstance(engine, DenseEngine):
+        return {"st": engine.st, "offsets": engine.offsets}
+    out = {"offsets": engine.offsets, "hot_table": engine.hot_table}
+    for i, b in enumerate(engine.buckets):
+        out.update({f"buckets.{i}.{k}": t for k, t in b.items()})
+    for key in ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
+                "tail_gpos"):
+        if getattr(engine, key, None) is not None:
+            out[key] = getattr(engine, key)
+    return out
+
+
+def round_trip(torch, session, what, build, queries, oracle, work, counters):
+    """Build an engine, save its device checkpoint, load it back: save /
+    load / build seconds and bytes on disk logged, every restored tensor
+    ``torch.equal`` to the source's (bf16 bits included), ``queries`` at
+    k=1000 and k=100 equal to the source's, ids and scores, and the first
+    CHECKED_QUERIES held to ``oracle[k]`` under the comparator.  Returns
+    the restored engine and the kernels' launches over the load and
+    searches (``counters``: (launches, plain runs) dicts, reset here)."""
+    from bm25_tpu_torch import load_device_checkpoint, save_device_checkpoint
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    t0 = time.perf_counter()
+    engine = build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(work, "ck")
+    t0 = time.perf_counter()
+    save_device_checkpoint(path, engine)
+    save_s = time.perf_counter() - t0
+    disk = os.path.getsize(path) + os.path.getsize(path + ".meta.json")
+    reset(*counters)
+    t0 = time.perf_counter()
+    restored = load_device_checkpoint(path, session=session)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    at_load = {k: v for c in counters for k, v in c.items() if v}
+    got, want = leaves(restored), leaves(engine)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: restored keys {sorted(got)}")
+    for key in got:
+        if got[key].device != want[key].device or \
+                got[key].dtype != want[key].dtype or \
+                not torch.equal(got[key], want[key]):
+            raise AssertionError(f"{what}: restored {key} differs")
+    for k in sorted(oracle, reverse=True):
+        rd, rs = restored.search(queries, top_k=k)
+        sd, ss = engine.search(queries, top_k=k)
+        if not (np.array_equal(rd, sd) and np.array_equal(rs, ss)):
+            raise AssertionError(f"{what}: restored k={k} results differ")
+        assert_matches_oracle(rd[:CHECKED_QUERIES], rs[:CHECKED_QUERIES],
+                              *oracle[k])
+    os.unlink(path)
+    os.unlink(path + ".meta.json")
+    total = {k: v for c in counters for k, v in c.items() if v}
+    hot = sum("hotT" in b for b in getattr(engine, "buckets", []))
+    log(f"[restart] {what}: from_scored_index {build_s:.2f} s, save "
+        f"{save_s:.2f} s, {disk} B on disk (device bytes "
+        f"{sum(t.nbytes for t in want.values())}), load_device_checkpoint "
+        f"{load_s:.2f} s ({build_s / max(load_s, 1e-9):.1f}x faster than "
+        f"the build); {len(got)} tensors torch.equal to the source's"
+        f"{', hotT/hotLo bits included' if hot else ''}; "
+        f"{len(queries)} queries at k={sorted(oracle, reverse=True)} equal "
+        f"to the source's, the first {CHECKED_QUERIES} match "
+        f"ReferenceEngine; launches and plain twin runs in the load "
+        f"{at_load}, in the load and the searches {total}")
+    del engine
+    return restored, at_load, hot
+
+
+def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
+    """Phase 14: device checkpoints, serving from one, warm-up and the
+    build cache, on phase 4's corpus (made with ``cfg``) and phase 13's
+    index dir in ``work``; phase 12's cold-start row read from
+    ``harness_result``."""
+    import io
+    import tarfile
+
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, SparseEngine,
+                                Tokenizer)
+    from bm25_tpu_torch.bench import make_queries, make_synthetic_index
+    from bm25_tpu_torch.index.io import save_tokenizer_config
+    from bm25_tpu_torch.models.sparse import best_layout, layout_candidates
+    from bm25_tpu_torch.ops import _build
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.runtime import cache as cc
+    from bm25_tpu_torch.runtime.warmup import warm_engine
+    from bm25_tpu_torch.serve import Server
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    counters = (ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
+    queries = make_queries(cfg)[: cfg.batch]
+    ks = (cfg.top_k, cfg.top_k2)
+    ref = ReferenceEngine.from_scored_index(index)
+    oracle = {k: ref.search(queries[:CHECKED_QUERIES], top_k=k) for k in ks}
+
+    # (a) three sparse layouts of phase 4's corpus
+    model = best_layout(layout_candidates(index, cfg.top_k, q=cfg.batch,
+                                          t=max(cfg.query_len, 8),
+                                          device=session.device))
+    layouts = {
+        f"model's layout (h={model['hot_tokens']}, "
+        f"{model['max_buckets']} buckets)":
+            dict(hot_tokens=model["hot_tokens"],
+                 max_buckets=model["max_buckets"]),
+        f"h={HOT_TOKENS}, {MAX_BUCKETS} buckets":
+            dict(hot_tokens=HOT_TOKENS, max_buckets=MAX_BUCKETS),
+        f"three tiers (h={HOT_TOKENS}, {MAX_BUCKETS} buckets, "
+        "tail_cap=512)":
+            dict(hot_tokens=HOT_TOKENS, max_buckets=MAX_BUCKETS,
+                 tail_cap=512),
+    }
+    headline = None
+    for what, kw in layouts.items():
+        kw["hot_budget_bytes"] = max(kw["hot_tokens"], 1) * index.num_docs * 4
+        restored, at_load, hot = round_trip(
+            torch, session, what,
+            lambda: SparseEngine.from_scored_index(index, session=session,
+                                                   **kw),
+            queries, oracle, work, counters)
+        b2 = at_load.get("ell_score", 0)
+        if b2 != 2 * hot or any(c for c in ops.plain_calls.values()):
+            raise AssertionError(f"{what}: B2 launched {b2} times in the "
+                                 f"load for {hot} hot buckets, or a plain "
+                                 "twin ran")
+        if "tail_cap" in kw and restored.tail_docs is None:
+            raise AssertionError(f"{what}: no tail tier")
+        if headline is None:
+            headline = restored
+        else:
+            del restored
+        torch.cuda.empty_cache()
+    log("[restart] B2 launches in each load: 2 a hot bucket (hi and lo), "
+        "no plain twin run")
+
+    # (b) a dense engine at a depth whose table stays near 2 GB
+    dindex = make_synthetic_index(
+        dataclasses.replace(cfg, num_docs=RESTART_DENSE_DOCS))
+    dref = ReferenceEngine.from_scored_index(dindex)
+    doracle = {k: dref.search(queries[:CHECKED_QUERIES], top_k=k)
+               for k in ks}
+    restored, _, _ = round_trip(
+        torch, session, f"DenseEngine ({RESTART_DENSE_DOCS} docs)",
+        lambda: DenseEngine.from_scored_index(dindex, session=session),
+        queries, doracle, work, counters)
+    if not gr.launches["gather_add_rows"] or \
+            any(gr.plain_calls.values()):
+        raise AssertionError("the restored dense engine did not launch B3, "
+                             "or ran a plain twin")
+    log(f"[restart] B3 launches over the dense searches "
+        f"{gr.launches['gather_add_rows']}, no plain twin run")
+    del restored, dindex, dref
+    torch.cuda.empty_cache()
+
+    # (c) serving from a checkpoint of phase 13's index dir
+    idx_dir = os.path.join(work, "search_idx")
+    ck = os.path.join(work, "serve_ck")
+    t0 = time.perf_counter()
+    out = cli(["checkpoint", idx_dir, "-o", ck])
+    log(f"[restart] bm25-tpu-torch checkpoint {os.path.basename(idx_dir)} "
+        f"-o {os.path.basename(ck)} ({time.perf_counter() - t0:.2f} s): "
+        + " | ".join(out.strip().splitlines()))
+    reset(*counters)
+    t0 = time.perf_counter()
+    srv = Server(idx_dir, port=0, device_checkpoint=ck, batch_window_ms=5.0,
+                 warmup_top_k=10, engine_kwargs={"session": session})
+    up_s = time.perf_counter() - t0
+    stats = srv._handler.runtime.stats
+    if stats["engine"] != "SparseEngine":
+        raise AssertionError(f"the checkpoint holds a {stats['engine']}")
+    log(f"[restart] Server(device_checkpoint=...) up in {up_s:.2f} s "
+        f"({stats['engine']}, warm-up {srv.last_warmup_breakdown}); phase "
+        f"13's build from the index dir {start_s:.2f} s, PR 17's "
+        f"{PR17_BUILD_S} s")
+    srv.start_background()
+    vocab = {f"w{i}": i for i in range(index.vocab_size)}
+    load = Load(srv.port, RESTART_CLIENTS,
+                check_every=RESTART_CHECK_EVERY).start()
+    time.sleep(RESTART_LOAD_S)
+    load.stop()
+    if load.retries:
+        raise AssertionError("503s with no reload running")
+    n = oracle_check(ref, Tokenizer(stemmer=None), vocab, load.kept,
+                     "(restart) load")
+    code, h, _ = http(srv.port, "/healthz?deep=1")
+    if code != 200 or h["status"] != "ok":
+        raise AssertionError(f"deep health {code} {h}")
+    log(f"[restart] {RESTART_CLIENTS} clients: {load.summary()}; {n} kept "
+        f"responses match ReferenceEngine; /healthz?deep=1 green; launches "
+        f"{kernel_counts(ops, gr)}")
+    if not ops.launches["ell_score_fused"] or \
+            any(ops.plain_calls.values()):
+        raise AssertionError("the restored server did not launch B1, or "
+                             "ran a plain twin")
+    srv.shutdown()
+    # with no index dir a restored server takes the default Tokenizer(),
+    # whose Snowball stemmer needs nltk, as in the JAX package; where nltk
+    # is missing (the card's machine) the reload target is a dir holding
+    # only the tokenizer's config, which has no index to reload either
     try:
-        search_server(torch, session, index, work, harness_p50)
-        updatable_server(torch, session, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        import nltk  # noqa: F401
+        bare_dir = None
+    except ImportError:
+        try:
+            Server(None, port=0, device_checkpoint=ck,
+                   engine_kwargs={"session": session})
+        except RuntimeError as e:
+            if "nltk" not in str(e):
+                raise
+            log(f"[restart] Server(None, device_checkpoint=...) without "
+                f"nltk: RuntimeError ({e})")
+        else:
+            raise AssertionError("the default Tokenizer() built without "
+                                 "nltk")
+        bare_dir = os.path.join(work, "tokenizer_only")
+        os.makedirs(bare_dir)
+        save_tokenizer_config(bare_dir, Tokenizer(stemmer=None))
+    bare = Server(bare_dir, port=0, device_checkpoint=ck,
+                  engine_kwargs={"session": session})
+    bare.start_background()
+    code, body, _ = http(bare.port, "/reload", {})
+    bare.shutdown()
+    if code != 400:
+        raise AssertionError(f"/reload with no index to reload: HTTP {code}")
+    try:
+        Server(None, port=0, updatable=True, device_checkpoint=ck,
+               engine_kwargs={"session": session})
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("updatable=True beside a checkpoint started")
+    log(f"[restart] a restored server with "
+        f"{'no index dir' if bare_dir is None else 'a tokenizer-only dir'}"
+        f" answers /reload with 400 ({body['error']!r}); updatable=True "
+        f"with a checkpoint raises ValueError ({refused!r})")
+    del srv, bare
+    torch.cuda.empty_cache()
+
+    # (d) warm-up and the build cache
+    report = warm_engine(headline, top_ks=(10, 100, 1000))
+    first = {p: round(sum(t[p] for t in report), 4)
+             for p in ("nvcc_build_s", "library_load_s")}
+    log(f"[restart] warm_engine on the restored model-layout engine: "
+        f"{len(report)} tasks, seconds "
+        + ", ".join(f"q={t['q']} k={t['top_k']} {t['seconds']}"
+                    for t in report) + f"; first-use work {first}")
+    if any(first.values()):
+        raise AssertionError("warm-up built or loaded a library after "
+                             "phase 2")
+    del headline
+    archive = os.path.join(work, "cache.tar.gz")
+    exported = json.loads(cli(["cache", "export", archive]))
+    imported_dir = os.path.join(work, "imported_build")
+    imported = json.loads(cli(["cache", "import", archive, "--dir",
+                               imported_dir]))
+    if imported["imported"] != exported["entries"] or \
+            imported["mismatches"]:
+        raise AssertionError(f"cache import {imported}")
+    log(f"[restart] cache export of {_build.build_dir()}: "
+        f"{exported['entries']} files, {exported['bytes']} B; import: "
+        f"{imported['imported']} files; fingerprint "
+        f"{json.dumps(exported['manifest']['fingerprint'])}")
+    foreign = os.path.join(work, "foreign.tar.gz")
+    with tarfile.open(archive, "r:gz") as tar, \
+            tarfile.open(foreign, "w:gz") as dst:
+        for m in tar.getmembers():
+            data = tar.extractfile(m).read()
+            if m.name == cc.MANIFEST_NAME:
+                manifest = json.loads(data)
+                manifest["fingerprint"]["sm"] = "sm_80"
+                data = json.dumps(manifest).encode()
+            info = tarfile.TarInfo(m.name)
+            info.size = len(data)
+            dst.addfile(info, io.BytesIO(data))
+    from bm25_tpu_torch.cli.main import main as cli_main
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()) as err:
+        rc = cli_main(["cache", "import", foreign, "--dir",
+                       os.path.join(work, "foreign_build")])
+    if rc != 2 or "sm: archive='sm_80'" not in err.getvalue():
+        raise AssertionError(f"a foreign archive: exit {rc} "
+                             f"{err.getvalue()!r}")
+    forced = json.loads(cli(["cache", "import", foreign, "--dir",
+                             os.path.join(work, "foreign_build"),
+                             "--force"]))
+    log(f"[restart] an archive naming sm_80 is refused without --force "
+        f"({err.getvalue().strip()!r}); with --force it imports, reporting "
+        f"{forced['mismatches']}")
+    cold = harness_result["extra"]["cold_start"]
+    log(f"[restart] phase 12's cold_start row: {json.dumps(cold)}")
+    use = cold["first_use"]
+    if use["cold"]["nvcc_build_s"] <= 0 or \
+            use["cache_import"]["nvcc_build_s"] != 0 or \
+            use["warm"]["nvcc_build_s"] != 0:
+        raise AssertionError("cold_start: the cold child built nothing, or "
+                             "a warm or imported child ran nvcc")
+    log(f"[restart] first headline step in a fresh process: cold "
+        f"{cold['headline_step_cold_compile_s']} s (nvcc "
+        f"{use['cold']['nvcc_build_s']} s), warm "
+        f"{cold['headline_step_warm_cache_s']} s, after cache import "
+        f"{cold['headline_step_cache_import_s']} s (nvcc "
+        f"{use['cache_import']['nvcc_build_s']} s)")
 
 
 def drive(torch, dev) -> dict:
-    """Phases 2-13 on device ``dev``; returns the kernels' record."""
+    """Phases 2-14 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -3226,10 +3564,21 @@ def drive(torch, dev) -> dict:
     with Phase("12. query benchmark harness"):
         result = harness(torch, session, index, timings)
     torch.cuda.empty_cache()
-    with Phase("13. serving"):
-        p50 = {r["top_k"]: r["p50_batch_ms"]
-               for r in result["extra"]["secondary"]}
-        serving(torch, session, index, ratios, p50.get(BenchConfig().top_k2))
+    scratch = os.path.join(HERE, "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=scratch)
+    try:
+        with Phase("13. serving"):
+            p50 = {r["top_k"]: r["p50_batch_ms"]
+                   for r in result["extra"]["secondary"]}
+            start_s = serving(torch, session, index, ratios,
+                              p50.get(BenchConfig().top_k2), work)
+        torch.cuda.empty_cache()
+        with Phase("14. warm restart"):
+            warm_restart(torch, session, index, BenchConfig(), work,
+                         start_s, result)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1795,3 +1795,87 @@ def test_cuda_drop_reload_returns_device_memory(cuda_device, served_index):
                                        "top_k": 10})[0] == 200
     finally:
         srv.shutdown()
+
+
+# -- device checkpoints ----------------------------------------------------------
+
+
+def _leaves(engine) -> dict:
+    if isinstance(engine, DenseEngine):
+        return {"st": engine.st, "offsets": engine.offsets}
+    out = {"offsets": engine.offsets, "hot_table": engine.hot_table}
+    for i, b in enumerate(engine.buckets):
+        out.update({f"buckets.{i}.{k}": t for k, t in b.items()})
+    for key in ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
+                "tail_gpos"):
+        if getattr(engine, key) is not None:
+            out[key] = getattr(engine, key)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["hot", "three_tier", "dense"])
+def test_cuda_device_checkpoint_round_trip(cuda_device, layout, tmp_path):
+    """Save and load on the card: every tensor bit-equal to the source's
+    (the hot pairs rebuilt by B2, two launches a hot bucket and no plain
+    twin), results equal to the source's and the oracle's."""
+    from bm25_tpu_torch import load_device_checkpoint, save_device_checkpoint
+
+    session = Session("cuda")
+    if layout == "three_tier":
+        index, cap = three_tier_index()
+        kw = dict(mode="sparse", hot_tokens=16, hot_budget_bytes=1 << 24,
+                  max_buckets=2, tail_cap=cap)
+    else:
+        index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+        kw = (dict(mode="dense") if layout == "dense" else
+              dict(mode="sparse", hot_tokens=64, hot_budget_bytes=1 << 24,
+                   max_buckets=2))
+    engine = create_engine(index, session=session, **kw)
+    path = str(tmp_path / "ck")
+    save_device_checkpoint(path, engine)
+    launched, plain = dict(port.launches), dict(port.plain_calls)
+    restored = load_device_checkpoint(path, session=session)
+    hot = sum("hotT" in b for b in getattr(engine, "buckets", []))
+    assert (hot > 0) == (layout != "dense")
+    assert port.launches["ell_score"] - launched["ell_score"] == 2 * hot
+    assert port.plain_calls == plain
+    a, b = _leaves(restored), _leaves(engine)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        assert a[key].is_cuda and a[key].dtype == b[key].dtype, key
+        assert torch.equal(a[key], b[key]), key
+    ref = ReferenceEngine.from_scored_index(index)
+    q = np.random.default_rng(3).integers(-1, index.vocab_size, (40, 8))
+    for k in (10, 1000):
+        got = restored.search(q, top_k=k)
+        want = engine.search(q, top_k=k)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+        assert_matches_oracle(*got, *ref.search(q, top_k=k))
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_hot_pair_bit_identical(cuda_device):
+    """B2's rebuild of a hot pair from its sparse form on the card: the
+    saved bf16 pair bit for bit, and the CPU twin's."""
+    from bm25_tpu_torch.models import sparse as ps
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    engine = create_engine(index, mode="sparse", session=Session("cuda"),
+                           hot_tokens=64, hot_budget_bytes=1 << 24,
+                           max_buckets=2)
+    for b in engine.buckets:
+        sparse = ps.hot_pair_to_sparse(b["hotT"], b["hotLo"])
+        assert sparse["hotNzHi"].is_cuda
+        rows = b["doc_ids"].shape[0]
+        hi, lo = ps.rebuild_hot_pair_from_sparse(
+            engine.hot_h, rows, sparse, engine.session.put)
+        assert torch.equal(hi.view(torch.int16), b["hotT"].view(torch.int16))
+        assert torch.equal(lo.view(torch.int16),
+                           b["hotLo"].view(torch.int16))
+        cpu = Session("cpu")
+        chi, clo = ps.rebuild_hot_pair_from_sparse(
+            engine.hot_h, rows, {k: v.cpu() for k, v in sparse.items()},
+            cpu.put)
+        assert torch.equal(chi, hi.cpu()) and torch.equal(clo, lo.cpu())

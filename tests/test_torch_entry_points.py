@@ -12,6 +12,7 @@ mirror ``tests/test_compat.py`` and ``tests/test_datasets.py`` on
 a session the port's entry points raise where CUDA is absent.
 """
 
+import argparse
 import json
 import os
 import re
@@ -169,12 +170,40 @@ def test_bench_suites(capsys, monkeypatch):
     assert full["extra"]["device"] == {"type": "cpu"}
 
 
-def test_unported_commands_are_not_registered(capsys):
-    for cmd in ("warm", "checkpoint", "cache"):
-        with pytest.raises(SystemExit):
-            main([cmd])
-    capsys.readouterr()
-    # serve is ported: registered, and with no index dir it exits 2
+def _options(parser, cmd: str) -> dict:
+    """{dest: (flags, default, choices, nargs, required)} of a command."""
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices,
+                     a.nargs, a.required)
+            for a in sub.choices[cmd]._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("cmd", ["checkpoint", "warm", "cache"])
+def test_warm_restart_commands_take_jax_options(cmd, index_dirs, tmp_path,
+                                                capsys):
+    from bm25_tpu.cli.main import build_parser as jax_parser
+    from bm25_tpu_torch.cli.main import build_parser
+
+    assert _options(build_parser(), cmd) == _options(jax_parser(), cmd)
+    port_dir, _ = index_dirs
+    args = {"checkpoint": ["checkpoint", str(port_dir), "-o",
+                           str(tmp_path / "ck")],
+            "warm": ["warm", str(port_dir), "--batch-sizes", "1",
+                     "--routed-batch", "8"],
+            "cache": ["cache", "info", "--dir", str(tmp_path)]}[cmd]
+    if cmd != "cache" and not torch.cuda.is_available():
+        # warm and checkpoint build on the global --device: cuda by default
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(args)
+    assert main(["--device", "cpu", *args]) == 0
+    out = capsys.readouterr().out
+    if cmd == "checkpoint":
+        assert os.path.isfile(tmp_path / "ck")
+        assert os.path.isfile(tmp_path / "ck.meta.json")
+    else:
+        assert json.loads(out.splitlines()[-1])
+    # serve: registered, and with no index dir it exits 2
     assert main(["--device", "cpu", "serve"]) == 2
     assert "index dir" in capsys.readouterr().err
 

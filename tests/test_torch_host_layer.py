@@ -19,6 +19,8 @@ import bm25_tpu.eval as jeval
 import bm25_tpu.index.builder as jbuilder
 import bm25_tpu.index.io as jio
 import bm25_tpu.index.merge as jmerge
+import bm25_tpu.index.snapshot as jsnap
+import bm25_tpu.index.streaming as jstream
 import bm25_tpu.reference as jref
 import bm25_tpu.retriever as jretriever
 import bm25_tpu.scoring as jscoring
@@ -31,6 +33,8 @@ import bm25_tpu_torch.eval as peval
 import bm25_tpu_torch.index.builder as pbuilder
 import bm25_tpu_torch.index.io as pio
 import bm25_tpu_torch.index.merge as pmerge
+import bm25_tpu_torch.index.snapshot as psnap
+import bm25_tpu_torch.index.streaming as pstream
 import bm25_tpu_torch.reference as pref
 import bm25_tpu_torch.retriever as pretriever
 import bm25_tpu_torch.scoring as pscoring
@@ -230,6 +234,61 @@ def test_save_load_round_trip_across_packages(tmp_path, writer, mmap):
     assert len(jc) == len(pc) and jc.batch([0, 2, 7]) == pc.batch([0, 2, 7])
     jc.close()
     pc.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("method", ["lucene", "bm25l"])
+def test_snapshot_loads_across_packages(tmp_path, writer, method):
+    """A snapshot saved by either package loads in both, every field equal
+    to the index saved (the offsets of bm25l included); the suffix-less
+    path is accepted, and a newer version is refused with JAX's message."""
+    idx, _ = pbuilder.build_index(CORPUS, pscoring.BM25Params(method=method),
+                                  ptok.Tokenizer(stemmer=None))
+    save = (jsnap if writer == "jax" else psnap).save_snapshot
+    save(tmp_path / "snap", idx)
+    assert os.listdir(tmp_path) == ["snap.npz"]
+    for load in (jsnap.load_snapshot, psnap.load_snapshot):
+        fields_equal(load(tmp_path / "snap"), idx)
+    other = tmp_path / "other.npz"
+    (psnap if writer == "jax" else jsnap).save_snapshot(other, idx)
+    fields_equal(psnap.load_snapshot(other), jsnap.load_snapshot(other))
+    z = dict(np.load(other))
+    z["meta"] = np.frombuffer(bytes(z["meta"]).replace(
+        b'"version": 1', b'"version": 2'), np.uint8)
+    np.savez(tmp_path / "newer.npz", **z)
+    for mod in (jsnap, psnap):
+        with pytest.raises(ValueError, match="unsupported snapshot version"):
+            mod.load_snapshot(tmp_path / "newer.npz")
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_streaming_builder_bit_equal(tmp_path, spill):
+    """The streaming builder in chunks, with and without a spill to disk,
+    finalizes to JAX's index bit for bit (and to the one-shot build)."""
+    from conftest import make_zipf_corpus
+
+    corpus = make_zipf_corpus(300, vocab=500, avg_len=30, seed=7) + CORPUS
+    out = {}
+    for name, mod in (("jax", jstream), ("port", pstream)):
+        tok = (jtok if name == "jax" else ptok).Tokenizer(stemmer=None)
+        kw = ({"spill_dir": str(tmp_path / name),
+               "spill_threshold_bytes": 256} if spill else {})
+        b = mod.StreamingIndexBuilder(tokenizer=tok, **kw)
+        for i in range(0, len(corpus), 40):
+            b.add(corpus[i: i + 40])
+        b.add_iter(iter(CORPUS), chunk_size=3)
+        if spill:
+            assert b._spilled_tokens > 0
+        out[name] = b.finalize()
+        if spill:
+            assert os.listdir(tmp_path / name) == []
+    (jidx, jstats), (pidx, pstats) = out["jax"], out["port"]
+    fields_equal(jidx, pidx)
+    assert (pstats.num_docs, pstats.vocab_size, pstats.nnz) == \
+        (jstats.num_docs, jstats.vocab_size, jstats.nnz)
+    one, _ = pbuilder.build_index(corpus + CORPUS,
+                                  tokenizer=ptok.Tokenizer(stemmer=None))
+    fields_equal(pidx, one)
 
 
 def test_load_bundled_reference_index(reference_index_dir):

@@ -108,7 +108,7 @@ BLOCKED_RUN = textwrap.dedent("""
                                 avg_len=10)
     assert evaluate_dataset(ds, top_k=5, log=len, session=cpu,
                             tokenizer=Tokenizer(stemmer=None))["num_queries"]
-    import json, tempfile, urllib.request
+    import json, os, tempfile, urllib.request
     from bm25_tpu_torch import Server, build_index
     from bm25_tpu_torch.index.updates import UpdatableRetriever
     from bm25_tpu_torch.runtime.health import device_probe, engine_probe
@@ -138,6 +138,27 @@ BLOCKED_RUN = textwrap.dedent("""
                                engine_kwargs={"session": cpu})
     u.add_documents(["a cat chases the dog"])
     assert u.retrieve(["chases"], k=1)[0][0, 0] == 3
+    from bm25_tpu_torch import (StreamingIndexBuilder, load_device_checkpoint,
+                                load_snapshot, save_device_checkpoint,
+                                save_snapshot)
+    from bm25_tpu_torch.runtime.cache import cache_info, environment_fingerprint
+    from bm25_tpu_torch.runtime.warmup import warm_engine
+    sparse = create_engine(index, mode="sparse", session=cpu, hot_tokens=16,
+                           hot_budget_bytes=1 << 20, max_buckets=2)
+    with tempfile.TemporaryDirectory() as d:
+        save_device_checkpoint(os.path.join(d, "ck"), sparse)
+        back = load_device_checkpoint(os.path.join(d, "ck"), session=cpu)
+        assert np.array_equal(back.search(q, top_k=5)[0],
+                              sparse.search(q, top_k=5)[0])
+        save_snapshot(os.path.join(d, "snap"), index)
+        assert load_snapshot(os.path.join(d, "snap")).nnz == index.nnz
+        assert cache_info(d)["entries"] == 3
+    assert environment_fingerprint()["torch"] == torch.__version__
+    assert len(warm_engine(back, top_ks=(3,), batch_sizes=(1,),
+                           routed_batch=8)) == 2
+    sb = StreamingIndexBuilder(tokenizer=Tokenizer(stemmer=None))
+    sb.add(texts)
+    assert sb.finalize()[0].num_docs == 3
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_OK")
 """)

@@ -13,6 +13,7 @@ import pytest
 from bm25_tpu.bench import query_bench as jax_bench
 from bm25_tpu_torch import Session
 from bm25_tpu_torch.bench import query_bench as port_bench
+from bm25_tpu_torch.ops import _build
 
 TINY = dict(
     num_docs=256, vocab=512, avg_len=16, num_queries=64, batch=32,
@@ -28,15 +29,23 @@ def quiet(*_args):
 
 
 @pytest.fixture(scope="module")
-def records():
-    port = port_bench.run(port_bench.BenchConfig(**TINY), log=quiet,
-                          session=Session("cpu"))
+def records(tmp_path_factory):
+    # the port's record with its cold-start row, over a build directory
+    # holding one (fake) library for the cache export to ship
+    build_dir = tmp_path_factory.mktemp("build")
+    (build_dir / "libfake-0123456789abcdef.so").write_bytes(b"lib")
+    with pytest.MonkeyPatch.context() as m:
+        m.setenv(_build.BUILD_DIR_ENV, str(build_dir))
+        port = port_bench.run(port_bench.BenchConfig(**{**TINY, "cold_start": 1}),
+                              log=quiet, session=Session("cpu"))
+    port["build_dir"] = str(build_dir)
     jax = jax_bench.run(jax_bench.BenchConfig(**TINY), log=quiet)
     return port, jax
 
 
 def test_record_keys_match_jax(records):
     port, jax = records
+    port = {k: v for k, v in port.items() if k != "build_dir"}
     assert port.keys() == jax.keys()
     assert port["metric"] == jax["metric"] == "bm25_query_throughput"
     pe, je = port["extra"], jax["extra"]
@@ -57,7 +66,7 @@ def test_record_keys_match_jax(records):
     assert pe["memory_trade"][1]["overhead_target"] == 3.0
     # every row the JAX record has and the port's lacks is named
     not_ported = set(pe["not_ported"])
-    assert not_ported == {"cold_start", "sharded", "shard_scaling"}
+    assert not_ported == {"sharded", "shard_scaling"}
     assert set(je) - set(pe) <= not_ported
     # the config fixes max_buckets: the headline asks the model nothing;
     # the long-document row takes the model's layout
@@ -68,6 +77,24 @@ def test_record_keys_match_jax(records):
     assert min(ld["candidates"], key=lambda c: c["total_ms"])[
         "max_buckets"] == ld["max_buckets"]
     assert pe["beir_synthetic_eval"].keys() == je["beir_synthetic_eval"].keys()
+
+
+def test_cold_start_row(records):
+    """JAX's cold-start keys, each timing a first step in a fresh process
+    (an empty build directory, this process's, an imported copy of it),
+    with the first-use work of each; on the CPU nothing is built."""
+    port, _ = records
+    cold = port["extra"]["cold_start"]
+    keys = ("headline_step_cold_compile_s", "headline_step_warm_cache_s",
+            "headline_step_cache_import_s")
+    assert set(cold) == {"persistent_cache_dir", "upload_init_warm_s",
+                         "first_use", *keys}
+    assert cold["persistent_cache_dir"] == port["build_dir"]
+    assert all(cold[key] > 0 for key in keys)
+    assert set(cold["first_use"]) == {"cold", "warm", "cache_import"}
+    for phases in cold["first_use"].values():
+        assert phases == {"nvcc_build_s": 0.0, "library_load_s": 0.0}
+    assert cold["upload_init_warm_s"] == port["extra"]["upload_init_s"]
 
 
 def test_recall_is_exact_in_every_row(records):

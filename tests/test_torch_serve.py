@@ -6,9 +6,8 @@ comparator (``utils/parity.py``: scores within 2e-5 x the row's largest
 |score| + 5e-5 x |score|), texts equal; ``/explain`` bodies and
 ``/healthz`` keys equal; JAX's bad-request matrix gives the same status
 and error text; a write-ahead log written by either package replays in
-the other.  Then every test of ``tests/test_serve.py`` that needs no
-device checkpoint, on the port (engines on ``Session("cpu")``), with
-short waits, and the pins of the two reference faults the copy fixes: the
+the other.  Then the tests of ``tests/test_serve.py``, on
+the port (engines on ``Session("cpu")``), with short waits, and the pins of the two reference faults the copy fixes: the
 auto-compaction counted before its runtime is published, and no cached
 row from a search that raced a mutation.
 """
@@ -530,23 +529,81 @@ def test_result_cache_generation_unit():
         ["fresh"], ["no generation"]]
 
 
-# -- device checkpoints are not ported yet --------------------------------------
+# -- device checkpoints -------------------------------------------------------
 
 
-def test_device_checkpoint_raises_before_building(monkeypatch, capsys):
+def test_device_checkpoint_raises_before_building(monkeypatch, capsys,
+                                                  tmp_path):
+    """A server started from a device checkpoint never builds from an
+    index: a missing checkpoint, or ``updatable=True`` beside one, raises
+    before any build."""
     def no_build(*a, **kw):
         raise AssertionError("built something")
 
     monkeypatch.setattr(serve.Server, "_build_runtime", no_build)
-    for kw in ({}, {"updatable": True}):
-        with pytest.raises(NotImplementedError, match="device checkpoints"):
-            port_server(None, port=0, device_checkpoint="/tmp/x", **kw)
+    missing = str(tmp_path / "no_ck")
+    with pytest.raises(ValueError, match="no metadata sidecar"):
+        port_server(None, port=0, device_checkpoint=missing)
+    with pytest.raises(ValueError, match="updatable"):
+        port_server(None, port=0, device_checkpoint=missing, updatable=True)
     from bm25_tpu_torch.cli.main import main
 
-    with pytest.raises(NotImplementedError, match="device checkpoints"):
-        main(["--device", "cpu", "serve", "--device-checkpoint", "/tmp/x"])
+    with pytest.raises(ValueError, match="no metadata sidecar"):
+        main(["--device", "cpu", "serve", "--device-checkpoint", missing])
     assert main(["--device", "cpu", "serve"]) == 2
     assert "index dir" in capsys.readouterr().err
+
+
+def test_serve_from_device_checkpoint(tmp_path_factory, animal_corpus,
+                                      server, capsys):
+    """``checkpoint`` + ``Server(device_checkpoint=...)``: the server
+    warm-restarts from the checkpoint (no index build) on the session of
+    ``engine_kwargs`` and answers what the server built from the same
+    index answers, bit for bit."""
+    from bm25_tpu_torch.cli.main import main
+
+    d = tmp_path_factory.mktemp("idx_ck")
+    build_index(animal_corpus, save_to=str(d), save_corpus=True)
+    ck = str(tmp_path_factory.mktemp("ck_dir") / "ck")
+    assert main(["--device", "cpu", "checkpoint", str(d), "-o", ck]) == 0
+    assert "device checkpoint saved" in capsys.readouterr().out
+    srv = port_server(None, port=0, device_checkpoint=ck)
+    srv.start_background()
+    try:
+        assert srv._handler.runtime.stats["device_checkpoint"] == ck
+        assert srv._handler.runtime.engine.session is CPU
+        out = _post(srv, {"queries": ["does the fish purr like a cat?"],
+                          "top_k": 2})
+        assert out["results"][0][0]["doc"] == 0
+        # no corpus dir -> no text in responses, but ids/scores work
+        assert "text" not in out["results"][0][0]
+        for q in ("does the fish purr like a cat?", "bird that can fly",
+                  {"cat": 2.0, "fish": 0.5}):
+            body = {"queries": [q], "top_k": 5}
+            (gd, gs, _), = _rows(_post(srv, body))
+            (wd, ws, _), = _rows(_post(server, body))
+            np.testing.assert_array_equal(gd, wd)
+            np.testing.assert_array_equal(gs, ws)
+        # reload without an index dir is a client error, not a crash
+        code, body, _ = _request(srv, "/reload", {})
+        assert code == 400 and "no index dir" in body["error"]
+        assert _healthz(srv, deep=True)["status"] == "ok"
+    finally:
+        srv.shutdown()
+
+    # with the index dir alongside, corpus text comes back
+    srv2 = port_server(str(d), port=0, device_checkpoint=ck)
+    srv2.start_background()
+    try:
+        out = _post(srv2, {"queries": ["bird that can fly"], "top_k": 1})
+        assert "fly" in out["results"][0][0]["text"]
+    finally:
+        srv2.shutdown()
+
+
+def test_updatable_rejects_device_checkpoint():
+    with pytest.raises(ValueError, match="updatable"):
+        port_server(None, port=0, updatable=True, device_checkpoint="ck")
 
 
 def test_cli_serve_runs_the_port_server(monkeypatch, animal_dir):
