@@ -6,7 +6,9 @@ package's module layout and names, runs eagerly on an explicit
 the query paths of both engines and in the top-k op library, and serves
 them over HTTP with live updates (``Server``, ``UpdatableRetriever``),
 restarting warm from device checkpoints (``save_device_checkpoint``,
-``load_device_checkpoint``).  It
+``load_device_checkpoint``), and shards an index over several devices or
+processes (``ShardedEngine``, ``ShardedSparseEngine``: imported on first
+access, with ``bm25_tpu_torch.parallel``).  It
 imports neither JAX nor ``bm25_tpu``: the host layer (tokenizer, scoring maths,
 index builders, bm25s index I/O, the oracle, ``Retriever`` and the eval
 helpers) is the port's own copy of ``bm25_tpu``'s JAX-free modules, under
@@ -35,6 +37,25 @@ from bm25_tpu_torch.serve import Server
 from bm25_tpu_torch.text.tokenizer import (TokenizedCorpus, Tokenizer,
                                            pad_token_lists)
 
+_LAZY = {
+    "ShardedEngine": ("bm25_tpu_torch.parallel.sharded_engine",
+                      "ShardedEngine"),
+    "ShardedSparseEngine": ("bm25_tpu_torch.parallel.sharded_engine",
+                            "ShardedSparseEngine"),
+}
+
+
+def __getattr__(name):
+    try:
+        module, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None
+    import importlib
+
+    return getattr(importlib.import_module(module), attr)
+
+
 __all__ = [
     "BM25Params", "ScoredIndex", "build_scored_index", "explain_score",
     "ReferenceEngine", "topk_descending",
@@ -43,5 +64,5 @@ __all__ = [
     "Session", "get_session", "SparseEngine", "DenseEngine", "create_engine",
     "top_k", "custom", "BM25", "BM25v", "Server", "UpdatableRetriever",
     "StreamingIndexBuilder", "save_snapshot", "load_snapshot",
-    "save_device_checkpoint", "load_device_checkpoint",
+    "save_device_checkpoint", "load_device_checkpoint", *_LAZY,
 ]

@@ -20,7 +20,11 @@ What differs from the JAX harness:
   count's modelled ms, ``models.sparse.layout_candidates``);
 * ``extra["omitted"]`` names the row keys that have no counterpart (the
   VPU op model: the port's scan is a table lookup, not T compares a slot)
-  and ``extra["not_ported"]`` the rows switched off (the sharded rows);
+  and ``extra["not_ported"]`` the rows switched off (none now);
+* the ``sharded`` row's step is timed by CUDA events through the engine's
+  ``bench_step_fn``, and the ``shard_scaling`` curve runs in process over
+  1, 2, 4 and 8 shards of the mesh's first device (JAX's runs a script on
+  a CPU mesh in a subprocess);
 * the ``cold_start`` row times the headline step's first call in fresh
   processes against an empty, a warm and an imported build directory
   (``measure_cold_start``): the nvcc bill a fresh host pays, and what a
@@ -80,8 +84,8 @@ class BenchConfig:
     longdoc_short_len: int = 150
     longdoc_long_pct: int = 20
     # sharded-engine row (0 = off): ShardedSparseEngine over the local
-    # mesh — a 1-device mesh on a single chip (hardware proof
-    # of the shard_map + merge path each round), real scaling on a slice
+    # mesh: a (1, 1) mesh on one card (the sharded step and its merge run
+    # and stay exact on the card each run), real scaling over several
     sharded_docs: int = 131072
     # headline score-payload dtype.  bfloat16 halves the d2h result bytes
     # with EXACT rankings (selection runs in f32 on-device; only the
@@ -95,12 +99,10 @@ class BenchConfig:
     # headline chunk (0 = off).  Adds three fresh processes to the run and,
     # on the card, one nvcc build of the step's kernel libraries
     cold_start: int = 1
-    # shard-scaling curve row (0 = off): strong-scaling of the sharded
-    # step at S in {1,2,4,8} on a subprocess CPU mesh, with the measured
-    # merge share per S next to the finding-7 linear-in-S model — the
-    # falsifiable prediction the first real multi-chip session starts
-    # from (VERDICT r4 item 6).  Small shape: a per-round regression
-    # signal; the full curve lives in scripts/exp_shard_scaling.py
+    # shard-scaling curve row (0 = off; 2 forces it below the headline
+    # shape): the sharded step at S in {1, 2, 4, 8} doc shards of one
+    # device, in process, with each S's merge share (full step less the
+    # local_only step)
     shard_scaling: int = 1
     shard_scaling_docs: int = 32768
 
@@ -329,28 +331,20 @@ def recall_at_k(got_docs: np.ndarray, want_docs: np.ndarray) -> float:
     return _recall(got_docs, want_docs)
 
 
-def _time_step_chunk(engine, step, ids, iters: int) -> float:
-    """Device ms of one step on one chunk of ids: t(n) is n steps enqueued
-    back to back on the same device inputs, each step's output consumed
-    on the device (a max folded into one accumulator), timed by CUDA
-    events with one sync at the end (the host clock on the CPU), best of
-    three; the step is (t(iters) - t(1)) / (iters - 1)."""
-    cuda = ids.is_cuda
-
-    def enqueue(n):
-        acc = torch.zeros((), dtype=torch.float32, device=ids.device)
-        for _ in range(n):
-            out = step(ids, engine.buckets, engine.offsets, engine.hot_table,
-                       tail=engine._tail)
-            leaf = out[0] if isinstance(out, tuple) else out
-            acc = acc + leaf.float().amax()
-        return acc
+def _time_enqueued(enqueue, device: torch.device, iters: int) -> float:
+    """Device ms of one step: ``enqueue(n)`` enqueues n steps back to back
+    on the same device inputs, each step's output consumed on the device
+    (a max folded into one accumulator on ``device``, which it returns);
+    t(n) is timed by CUDA events with one sync at the end (the host clock
+    on the CPU), best of three; the step is (t(iters) - t(1)) / (iters -
+    1)."""
+    cuda = device.type == "cuda"
 
     def timed(n):
         best = float("inf")
         for _ in range(3):
             if cuda:
-                torch.cuda.synchronize(ids.device)
+                torch.cuda.synchronize(device)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -369,6 +363,22 @@ def _time_step_chunk(engine, step, ids, iters: int) -> float:
     float(enqueue(iters))
     t1, tn = timed(1), timed(iters)
     return max((tn - t1) / (iters - 1), 0.0) * 1e3
+
+
+def _time_step_chunk(engine, step, ids, iters: int) -> float:
+    """Device ms of one SparseEngine step on one chunk of ids
+    (``_time_enqueued``)."""
+
+    def enqueue(n):
+        acc = torch.zeros((), dtype=torch.float32, device=ids.device)
+        for _ in range(n):
+            out = step(ids, engine.buckets, engine.offsets, engine.hot_table,
+                       tail=engine._tail)
+            leaf = out[0] if isinstance(out, tuple) else out
+            acc = acc + leaf.float().amax()
+        return acc
+
+    return _time_enqueued(enqueue, ids.device, iters)
 
 
 def measure_device_step_ms(engine, queries: np.ndarray, k: int,
@@ -420,6 +430,137 @@ def estimate_step_hbm_bytes(engine, q: int,
         total += sum(b.scan + b.epilogue
                      for b in b1_bytes(engine, engine.session.put(padded)))
     return total
+
+
+def measure_sharded_step_ms(engine, queries: np.ndarray, k: int,
+                            iters: int = 5,
+                            local_only: bool = False) -> float | None:
+    """Device ms of the ShardedSparseEngine step on the batch's first
+    chunk, through the engine's own production step (``bench_step_fn``):
+    the shards' B1, selection and bucket merge, the copies to the merge
+    device and the cross-shard merge (``_time_enqueued``; the JAX harness
+    chains the steps in a ``fori_loop``).  ``local_only`` stops after the
+    shards' local top k, so that the merge costs the difference."""
+    from bm25_tpu_torch.parallel.sharded_engine import ShardedSparseEngine
+
+    if not isinstance(engine, ShardedSparseEngine):
+        return None
+    fn, args, _ = engine.bench_step_fn(queries.astype(np.int32), k,
+                                       local_only=local_only)
+    dev = engine.mesh.devices[0, 0]
+
+    def enqueue(n):
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for _ in range(n):
+            for out in fn(*args):
+                # a merged row's (scores, docs), or with local_only a
+                # row's list of them a shard
+                for s, _ in (out if isinstance(out, list) else [out]):
+                    acc = acc + s.float().amax().to(dev)
+        return acc
+
+    return _time_enqueued(enqueue, dev, iters)
+
+
+def _measure_sharded(cfg: BenchConfig, log, session) -> dict:
+    """Sharded-engine row: ShardedSparseEngine over the local mesh at
+    ``sharded_docs``.  On one card this is a (1, 1) mesh: it proves the
+    sharded step and its merge run and stay exact on the card, and its
+    device step beside the single-device engine's bounds what the
+    sharding machinery costs at one shard."""
+    import dataclasses
+
+    from bm25_tpu_torch.parallel.mesh import default_mesh
+    from bm25_tpu_torch.parallel.sharded_engine import ShardedSparseEngine
+    from bm25_tpu_torch.reference import ReferenceEngine
+
+    scfg = dataclasses.replace(cfg, num_docs=cfg.sharded_docs)
+    t0 = time.perf_counter()
+    index = make_synthetic_index(scfg)
+    build_s = time.perf_counter() - t0
+    queries = make_queries(scfg)
+    k = min(cfg.top_k, cfg.sharded_docs)
+
+    mesh = default_mesh(session)
+    t0 = time.perf_counter()
+    engine = ShardedSparseEngine.from_scored_index(index, mesh=mesh)
+    _sync(session)
+    upload_s = time.perf_counter() - t0
+    log(f"[bench] sharded: mesh={dict(mesh.shape)} {cfg.sharded_docs} docs "
+        f"nnz={index.nnz} hot_h={engine.hot_h} "
+        f"(build {build_s:.1f}s, up {upload_s:.1f}s)")
+
+    step_ms = measure_sharded_step_ms(engine, queries, k)
+    nb = min(cfg.baseline_queries, len(queries))
+    docs, _ = engine.search(queries[:nb], top_k=k)
+    ref_docs, _ = ReferenceEngine.from_scored_index(index).search(
+        queries[:nb], top_k=k
+    )
+    recall = recall_at_k(np.asarray(docs), ref_docs)
+    row = {
+        "top_k": k,
+        "num_docs": cfg.sharded_docs,
+        "mesh": {str(ax): int(n) for ax, n in mesh.shape.items()},
+        "device_step_ms": None if step_ms is None else round(step_ms, 2),
+        "recall_vs_reference": round(recall, 4),
+        "upload_init_s": round(upload_s, 1),
+    }
+    log(f"[bench] sharded: k={k} device_step={row['device_step_ms']}ms "
+        f"recall@{k}={recall:.4f}")
+    del engine
+    _free(session)
+    return row
+
+
+def _measure_shard_scaling(cfg: BenchConfig, log, session,
+                           shards=(1, 2, 4, 8)) -> dict:
+    """Strong-scaling curve of the sharded step, in process: the corpus
+    at ``shard_scaling_docs`` over 1, 2, 4 and 8 doc shards of the
+    harness mesh's first device, 64 queries, each point's full and
+    ``local_only`` step (``measure_sharded_step_ms``), the merge's share
+    of the step and recall against the oracle on 16 queries.  (JAX's row
+    runs ``scripts/exp_shard_scaling.py`` in a subprocess, whose platform
+    has 8 CPU devices; a port mesh names one device several times.)"""
+    import dataclasses
+
+    from bm25_tpu_torch.parallel.mesh import default_mesh, make_mesh
+    from bm25_tpu_torch.parallel.sharded_engine import ShardedSparseEngine
+    from bm25_tpu_torch.reference import ReferenceEngine
+
+    scfg = dataclasses.replace(cfg, num_docs=cfg.shard_scaling_docs)
+    index = make_synthetic_index(scfg)
+    queries = make_queries(scfg)[:64]
+    k = min(cfg.top_k, cfg.shard_scaling_docs)
+    dev = default_mesh(session).devices[0, 0]
+    nb = min(16, len(queries))
+    ref_docs, _ = ReferenceEngine.from_scored_index(index).search(
+        queries[:nb], top_k=k)
+    log(f"[bench] shard-scaling curve ({cfg.shard_scaling_docs} docs, "
+        f"shards {list(shards)} of {dev})")
+    rows = []
+    for n in shards:
+        engine = ShardedSparseEngine.from_scored_index(
+            index, mesh=make_mesh(n, devices=[dev] * n))
+        docs, _ = engine.search(queries[:nb], top_k=k)
+        full = measure_sharded_step_ms(engine, queries, k)
+        local = measure_sharded_step_ms(engine, queries, k, local_only=True)
+        merge = max(0.0, full - local)
+        row = {
+            "shards": n,
+            "num_docs": cfg.shard_scaling_docs,
+            "k": k,
+            "recall": round(recall_at_k(np.asarray(docs), ref_docs), 4),
+            "step_full_ms": round(full, 2),
+            "step_local_ms": round(local, 2),
+            "merge_ms": round(merge, 2),
+            "merge_share": round(merge / max(full, 1e-9), 4),
+        }
+        rows.append(row)
+        log(f"[bench] shard-scaling S={n}: step={row['step_full_ms']}ms "
+            f"merge_share={row['merge_share']} recall={row['recall']}")
+        del engine
+        _free(session)
+    return {"k": k, "strong": rows}
 
 
 def first_step_seconds(work: str, k: int, device: str) -> dict:
@@ -743,12 +884,8 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
         if cold is not None:
             cold["upload_init_warm_s"] = round(upload_s, 1)
 
-    # rows of the JAX harness that need modules not ported yet: switched
-    # off whatever the config asks
-    not_ported = {
-        "sharded": "ROADMAP.md: the sharded engines",
-        "shard_scaling": "ROADMAP.md: the sharded engines",
-    }
+    # rows of the JAX harness that need modules not ported yet: none
+    not_ported: dict[str, str] = {}
 
     # the memory rows: the same corpus at three points of the memory/speed
     # dial, "parity" (hot_tokens=0, the ELL-only floor), "mid"
@@ -814,6 +951,16 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
     longdoc = None
     if cfg.longdoc_docs:
         longdoc = _measure_longdoc(cfg, queries, log, session)
+
+    sharded = None
+    if cfg.sharded_docs:
+        sharded = _measure_sharded(cfg, log, session)
+
+    scaling = None
+    # headline-scale runs only, as in JAX (2 = force)
+    if cfg.shard_scaling and (cfg.num_docs >= 100_000
+                              or cfg.shard_scaling >= 2):
+        scaling = _measure_shard_scaling(cfg, log, session)
     omitted = dict(OMITTED)
     if session.device.type != "cuda":
         omitted.update(CARD_ONLY)
@@ -848,6 +995,8 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
             **({"memory_parity": parity} if parity is not None else {}),
             **({"memory_trade": trade} if trade is not None else {}),
             **({"longdoc": longdoc} if longdoc is not None else {}),
+            **({"sharded": sharded} if sharded is not None else {}),
+            **({"shard_scaling": scaling} if scaling is not None else {}),
             "omitted": omitted,
             "not_ported": not_ported,
             **({"warning": warning} if warning is not None else {}),

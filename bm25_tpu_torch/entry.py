@@ -1,9 +1,12 @@
-"""Entry point of the port: the dense query step over a tiny index.
+"""Entry points of the port: the dense query step over a tiny index, and
+the multi-device dry run.
 
-The counterpart of ``__graft_entry__.entry``: ``entry(session)`` returns
+The counterpart of ``__graft_entry__.py``: ``entry(session)`` returns
 ``(fn, args)`` such that ``fn(*args)`` runs the dense engine's query step
 (kernel B3's gather-accumulate, the masked top-k, the offsets) over the
-same tiny index and the same four query rows, on the session's device.
+same tiny index and the same four query rows, on the session's device;
+``dryrun_multichip(n)`` runs one sharded step of both sharded engines
+over an n-shard mesh.
 """
 
 from __future__ import annotations
@@ -37,3 +40,16 @@ def entry(session: Session | None = None):
     fn = make_query_step(num_docs=index.num_docs, k=8)
     ids = torch.tensor(QUERY_IDS, dtype=torch.int32, device=session.device)
     return fn, (engine.st, engine.offsets, ids)
+
+
+def dryrun_multichip(n_devices: int, device=None) -> None:
+    """One full sharded step of both sharded engines over an
+    ``n_devices``-shard mesh (queries split over a data axis of 2 where n
+    is even): per-shard scoring, local top-k and the merge, on tiny
+    shapes, checked against the host oracle.  The mesh names ``device``
+    (the card by default; ``"cpu"`` off it) ``n_devices`` times, so any
+    shard count runs on one device, where JAX's dry run needs a fresh
+    process with that many virtual CPU devices."""
+    from bm25_tpu_torch.parallel.sharded_engine import dryrun_sharded_step
+
+    dryrun_sharded_step(n_devices, device=device)

@@ -26,7 +26,8 @@ the dense bf16 pair is rebuilt on the device at restore by two B2 scans
 
 What differs from JAX: a path that is a directory (an Orbax checkpoint
 of the JAX package) is refused with a ``ValueError`` that names the
-format; the sharded engines are not ported (``NotImplementedError``);
+format; the sharded engines' checkpoints are not ported
+(``NotImplementedError``);
 and ``restore_device_checkpoint`` needs the sidecar, since the port never
 wrote a checkpoint without one (JAX's pre-sidecar Orbax path has no
 counterpart here).
@@ -49,8 +50,9 @@ _TAIL_KEYS = ("tail_docs", "tail_vals", "tail_toks", "tail_rows",
 def _refuse_sharded(name: str) -> None:
     if name in _SHARDED_ENGINES:
         raise NotImplementedError(
-            f"{name}: the sharded engines are not ported yet (ROADMAP.md: "
-            "the sharded engines)")
+            f"{name}: the sharded engines' device checkpoints are not "
+            "ported yet (ROADMAP.md: the sharded engines' device "
+            "checkpoints)")
 
 
 def _compact_buckets(buckets: list) -> list:
@@ -216,7 +218,7 @@ def load_device_checkpoint(path: str | os.PathLike, mesh=None,
     This is the warm-restart path: no ScoredIndex, no ELL re-bucketing, no
     hot/cold re-split; tensors restore straight onto ``session``'s device
     (the default CUDA session when None).  ``mesh`` belongs to the
-    sharded engines, which are not ported.
+    sharded engines, whose checkpoints are not ported.
     """
     path = os.path.abspath(os.fspath(path))
     meta = _read_meta(path)
@@ -224,8 +226,9 @@ def load_device_checkpoint(path: str | os.PathLike, mesh=None,
     _refuse_sharded(name)
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh restores the sharded engines, which are not ported yet "
-            "(ROADMAP.md: the sharded engines)")
+            "a mesh restores the sharded engines, whose device checkpoints "
+            "are not ported yet (ROADMAP.md: the sharded engines' device "
+            "checkpoints)")
     vocab = meta["vocab"]
     if vocab is not None:
         vocab = dict(vocab)

@@ -8,9 +8,8 @@ Scale path of the build pipeline (SURVEY.md section 7, step 5): documents
 arrive in batches (file shards, generators, datasets); tokenization runs
 per chunk, token-id streams accumulate in
 flat int32 arrays, and scoring happens once at finalize.  Combined with
-a doc-range plan (the JAX package's ``parallel.distributed.DocShardPlan``;
-the port's sharded engines are not ported yet), each host builds only its
-doc range and the shards concatenate positionally.
+a doc-range plan (``parallel.distributed.DocShardPlan``), each host
+builds only its doc range and the shards concatenate positionally.
 
 With ``spill_dir`` set, buffered token-id streams spill to a flat binary
 file once they exceed ``spill_threshold_bytes``, and ``finalize()`` reads

@@ -36,9 +36,9 @@ def create_engine(
 ):
     """Build the device engine for this index.
 
-    mode: "auto" / "dense" / "sparse"; "sharded" and "sharded_sparse"
-    raise ``NotImplementedError`` (not ported yet, ROADMAP.md: the
-    sharded engines).  Extra
+    mode: "auto" / "dense" / "sparse" / "sharded" / "sharded_sparse" (the
+    doc-sharded engines of ``parallel/sharded_engine.py``, over ``mesh=``
+    or by default every visible card).  Extra
     kwargs pass through to the chosen engine's ``from_scored_index``.
     Under mode="auto" kwargs the chosen engine doesn't take are dropped;
     explicit modes keep strict kwargs and raise on unknown options.
@@ -49,10 +49,15 @@ def create_engine(
     memory, capped by a ``max_bytes`` kwarg, and forwarded as the dense
     engine's ``max_bytes``.
     """
-    if mode in ("sharded", "sharded_sparse"):
-        raise NotImplementedError(
-            f"mode={mode!r}: the sharded engines are not ported yet "
-            "(ROADMAP.md: the sharded engines)")
+    if mode == "sharded":
+        from bm25_tpu_torch.parallel.sharded_engine import ShardedEngine
+
+        return _build(ShardedEngine, index, kwargs, filter_kwargs=False)
+    if mode == "sharded_sparse":
+        from bm25_tpu_torch.parallel.sharded_engine import \
+            ShardedSparseEngine
+
+        return _build(ShardedSparseEngine, index, kwargs, filter_kwargs=False)
     if mode == "dense":
         return _build(DenseEngine, index, kwargs, filter_kwargs=False)
     if mode == "sparse":

@@ -838,6 +838,52 @@ def tail_candidates(tail: dict, ids: torch.Tensor, w, mask):
     return is_cand, cand_docs, tot, gpos
 
 
+def bucket_top_k(b: dict, ids: torch.Tensor, k: int, hot_counts=None,
+                 hot_lo=None, w=None, mask=None, plan=None, table=None):
+    """One bucket's base and its top k, ``(scores (Q, kk), positions (Q,
+    kk), base (Q, rows))`` with ``kk = min(k, rows)``: B1 over the bucket
+    (``plan`` and ``table`` made once a chunk by the caller), then the
+    tournament tree over the kernel's group maxima, or one stable sort
+    where the bucket is narrow.
+
+    Shared by the single-device step and each shard of the sharded step
+    (``parallel/sharded_engine.py``), as JAX shares
+    ``bucket_base_scores``, so that filtered search cannot drift between
+    them.  Under ``mask`` ((num_docs,) bool) the ineligible rows fold
+    into B1's pad-row mask through a scoring-only copy of the bucket's
+    doc ids: base and group maxima come out masked, eligible rows keep
+    the unmasked bits, and callers take candidate ids from the real
+    ``doc_ids``."""
+    did = b["doc_ids"]
+    if mask is not None:
+        elig = mask[did.clamp(min=0).long()] & (did >= 0)
+        did = torch.where(elig, did, -1)
+    base, gmax = ell_score_fused(
+        ids, b.get("tokT"), b.get("valT"), did, hot_counts, b.get("hotT"),
+        b.get("hotLo"), weights=w, hot_counts_lo=hot_lo, plan=plan,
+        table=table,
+    )
+    rows = did.shape[0]
+    kk = min(k, rows)
+    if rows > max(2 * kk, 4096) and gmax.shape[1] >= kk:
+        s, pos = top_k_tree_with_maxes(base, gmax, kk, branch=GROUP)
+    else:
+        s, pos = select_top_k(base, kk)
+    return s, pos, base
+
+
+def two_key_merge(cs: torch.Tensor, ci: torch.Tensor, k: int):
+    """The top ``min(k, width)`` of (Q, width) candidate scores ``cs`` and
+    doc ids ``ci`` by score descending, then doc ascending: two stable
+    sorts, by doc first, then by score (stability keeps doc order in
+    ties).  -> (scores, docs)."""
+    kk = min(k, cs.shape[1])
+    ci, order = torch.sort(ci, dim=1, stable=True)
+    cs = torch.gather(cs, 1, order)
+    neg, order = torch.sort(-cs, dim=1, stable=True)
+    return -neg[:, :kk], torch.gather(ci, 1, order[:, :kk])
+
+
 def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                            score_dtype=None):
     """The query step over the hot, ELL and tail tiers.
@@ -881,26 +927,9 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
         r0 = 0
         for b in buckets:
             did = b["doc_ids"]
-            score_did = did
-            if mask is not None:
-                # ineligible rows fold into B1's pad-row mask through a
-                # scoring-only copy of the bucket's doc ids (as JAX's
-                # bucket_base_scores): base and group maxima come out
-                # masked, eligible rows keep the unmasked bits, and the
-                # candidates still take their ids from the real doc_ids
-                elig = mask[did.clamp(min=0).long()] & (did >= 0)
-                score_did = torch.where(elig, did, -1)
             rows_b = did.shape[0]
-            base, gmax = ell_score_fused(
-                ids, b.get("tokT"), b.get("valT"), score_did, hot_counts,
-                b.get("hotT"), b.get("hotLo"), weights=w,
-                hot_counts_lo=hot_lo, plan=plan, table=table,
-            )
-            kk = min(k, rows_b)
-            if rows_b > max(2 * kk, 4096) and gmax.shape[1] >= kk:
-                s, pos = top_k_tree_with_maxes(base, gmax, kk, branch=GROUP)
-            else:
-                s, pos = select_top_k(base, kk)
+            s, pos, base = bucket_top_k(b, ids, k, hot_counts, hot_lo, w,
+                                        mask, plan, table)
             if tail is not None:
                 # each tail candidate's base (its ELL and hot sums), from
                 # the bucket that holds its doc
@@ -910,7 +939,7 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                                     torch.where(in_b, rel, 0).long())
                 cand_base = cand_base + torch.where(in_b, look, 0.0)
             r0 += rows_b
-            del base, gmax  # free this bucket's tile before the next
+            del base  # free this bucket's tile before the next
             cand_s.append(s)
             cand_i.append(did[pos])
 
@@ -919,17 +948,8 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                 cand_s, cand_i, cand_docs,
                 torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
         else:
-            cs = torch.cat(cand_s, dim=1)
-            ci = torch.cat(cand_i, dim=1)
-            kk = min(k, cs.shape[1])
-            # two-key merge, score desc then doc asc, as two stable sorts:
-            # by doc first, then by score (stability keeps doc order in
-            # ties)
-            ci, order = torch.sort(ci, dim=1, stable=True)
-            cs = torch.gather(cs, 1, order)
-            neg, order = torch.sort(-cs, dim=1, stable=True)
-            docs = torch.gather(ci, 1, order[:, :kk])
-            ms = -neg[:, :kk]
+            ms, docs = two_key_merge(torch.cat(cand_s, dim=1),
+                                     torch.cat(cand_i, dim=1), k)
         if mask is not None:
             # slots beyond the eligible count become doc -1 / score 0 on
             # the device, so every fetch (ids only, bf16) stays uniform;

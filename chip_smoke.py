@@ -205,6 +205,23 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``--force``, and phase 12's ``cold_start`` row: the headline step's
    first call in fresh processes against an empty build directory (nvcc
    runs), this one and an imported copy (no nvcc).
+15. the doc-sharded engines on phase 4's corpus and batch, each result
+   held to ``ReferenceEngine`` (the first 64 queries) and to the
+   single-device engine at the same layout (ids equal, scores within 2e-5
+   x the row's largest |score|): (a) ``ShardedSparseEngine`` on
+   ``make_mesh()`` (one shard a card) at the model's layout, with
+   ``search_ids``, a masked batch, bf16 scores and ``search_pipelined``
+   over 2,048 queries; (b) on (1, 4) and (2, 2) meshes over the one card
+   and on (1, 4) at hot_tokens=1024, where B2 must build each shard's hot
+   pair; each with its build seconds, each shard's bytes, its step, its
+   ``local_only`` step (the merge is the difference) and the card's busy
+   ms in a step, beside ``SparseEngine``'s step; (c) ``ShardedEngine`` on
+   (1, 1) and (1, 4) over 131,072 docs, bit-equal to ``DenseEngine``; (d)
+   a k_local trim, exact, and the fallback on planted ties; (e) two
+   ``_multihost_main`` processes sharing the card over gloo, which must
+   print ``MULTIHOST_OK``; (f) ``query --engine sharded_sparse`` equal to
+   ``--engine sparse``.  B1, B2 and B3 must launch within the phase, no
+   plain twin.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -2616,7 +2633,11 @@ def harness(torch, session, index, timings) -> dict:
     log(f"[harness] kernel launches {launches}, plain twin runs {plain}")
     extra = result["extra"]
     rows = {"headline": extra["headline"], "memory_parity":
-            extra["memory_parity"], "longdoc": extra["longdoc"]}
+            extra["memory_parity"], "longdoc": extra["longdoc"],
+            "sharded": extra["sharded"]}
+    rows.update({f"shard_scaling S={r['shards']}": {
+        "recall_vs_reference": r["recall"]}
+        for r in extra["shard_scaling"]["strong"]})
     rows.update({f"secondary k={r['top_k']}": r for r in extra["secondary"]})
     rows.update({f"memory_trade {r['point']}": r
                  for r in extra["memory_trade"]})
@@ -3498,8 +3519,301 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
         f"{use['cache_import']['nvcc_build_s']} s)")
 
 
+def sharded_vs_single(got, want, what: str) -> float:
+    """A sharded engine's (docs, scores) against the single-device
+    engine's at the same layout: ids equal, scores within 2e-5 x max(1,
+    the row's largest |score|) (where a data row's chunk plans another hot
+    token list: the hot sums' order, ROADMAP.md section C 5).  Returns the
+    largest |difference|."""
+    gd, gs = got
+    wd, ws = want
+    if not np.array_equal(gd, wd):
+        raise AssertionError(f"{what}: ids differ from the single-device "
+                             "engine's")
+    scale = np.maximum(1.0, np.abs(ws).max(axis=1, keepdims=True))
+    diff = np.abs(gs - ws)
+    if not (diff <= 2e-5 * scale).all():
+        raise AssertionError(f"{what}: scores differ by {diff.max():.3e}")
+    return float(diff.max())
+
+
+def sharded(torch, session, index, cfg) -> None:
+    """Phase 15: the doc-sharded engines on the card.  (a) a
+    ``ShardedSparseEngine`` on ``make_mesh()`` (the (1, 1) mesh), (b) on
+    (1, 4) and (2, 2) meshes over the one card and on (1, 4) at an
+    explicit hot_tokens=1024 (B2 once a shard), each held to
+    ``ReferenceEngine`` and to a ``SparseEngine`` at the same layout, with
+    its build, each shard's bytes and its device step (and the card's
+    busy ms in it) beside the single engine's; (c) ``ShardedEngine`` over 131,072 docs on (1, 1) and (1, 4)
+    against ``DenseEngine``; (d) a forced k_local trim, exact, and its
+    fallback on planted ties; (e) two ``_multihost_main`` processes on the
+    card over gloo; (f) the CLI's ``query --engine sharded_sparse`` equal
+    to ``--engine sparse``.  B1, B2 and B3 must launch, no plain twin."""
+    import shutil
+    import socket
+    import tempfile
+
+    from bm25_tpu_torch import (DenseEngine, ReferenceEngine, ShardedEngine,
+                                ShardedSparseEngine, SparseEngine, Tokenizer,
+                                build_index)
+    from bm25_tpu_torch.bench import (BenchConfig, make_queries,
+                                      make_synthetic_index)
+    from bm25_tpu_torch.bench.query_bench import (measure_device_step_ms,
+                                                  measure_sharded_step_ms)
+    from bm25_tpu_torch.datasets import synthetic_corpus
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.parallel import make_mesh
+    from bm25_tpu_torch.parallel import sharded_engine as pse
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    reset(ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
+    card = session.device
+    queries = make_queries(cfg)
+    batch = queries[: cfg.batch]
+    sub = slice(0, CHECKED_QUERIES)
+    ks = (cfg.top_k, cfg.top_k2)
+    ref = ReferenceEngine.from_scored_index(index)
+    want = {k: ref.search(batch[sub], top_k=k) for k in ks}
+    rng = np.random.default_rng(15)
+    mask = rng.random(index.num_docs) < 0.5
+    want_m = ref.search(batch[sub], top_k=cfg.top_k, doc_mask=mask)
+
+    def build(cls, idx, **kw):
+        t0 = time.perf_counter()
+        eng = cls.from_scored_index(idx, **kw)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def sparse_case(what, mesh, layout, single):
+        eng, build_s = build(ShardedSparseEngine, index, mesh=mesh,
+                             **layout)
+        if eng.hot_h != single.hot_h:
+            raise AssertionError(f"{what}: hot_h {eng.hot_h} != "
+                                 f"{single.hot_h}")
+        worst = 0.0
+        steps = []
+        for k in ks:
+            got = eng.search(batch, top_k=k)
+            assert_matches_oracle(got[0][sub], got[1][sub], *want[k])
+            worst = max(worst, sharded_vs_single(
+                got, single.search(batch, top_k=k), f"{what} k={k}"))
+            full = measure_sharded_step_ms(eng, batch, k)
+            local = measure_sharded_step_ms(eng, batch, k, local_only=True)
+            one = measure_device_step_ms(single, batch, k, batch=cfg.batch)
+            # the card's busy ms in one step: below the step where the
+            # host's launches pace it
+            fn, args, _ = eng.bench_step_fn(batch, k)
+            busy = device_busy_ms(torch, lambda: fn(*args))
+            if busy <= 0:
+                raise AssertionError("torch.profiler recorded no device "
+                                     "time")
+            steps.append(f"k={k} step {full:.3f} ms (local {local:.3f}, "
+                         f"merge {full - local:.3f}; device busy "
+                         f"{busy:.3f}, idle share {1 - busy / full:.3f}; "
+                         f"SparseEngine {one:.3f})")
+        log(f"[sharded] {what}: mesh {eng.mesh.shape}, hot_h={eng.hot_h}, "
+            f"{len(eng.buckets)} buckets, built in {build_s:.2f} s "
+            f"(SparseEngine's layout); shard bytes {eng.shard_bytes()}; "
+            f"{'; '.join(steps)}; {cfg.batch} queries at k={ks} match "
+            f"ReferenceEngine (first {CHECKED_QUERIES}) and the "
+            f"SparseEngine's ids, scores within {worst:.3e}")
+        return eng
+
+    # (a) the (1, 1) mesh of make_mesh() at the model's layout (h from the
+    # cost model, 2 buckets), beside the single-device engine's
+    layout = {"max_buckets": MAX_BUCKETS}
+    mesh = make_mesh()
+    if mesh.shape != {"data": 1, "docs": torch.cuda.device_count()}:
+        raise AssertionError(f"make_mesh(): {mesh}")
+    single, single_s = build(SparseEngine, index, session=session, **layout)
+    log(f"[sharded] SparseEngine at the model's layout built in "
+        f"{single_s:.2f} s (hot_h={single.hot_h}, {len(single.buckets)} "
+        "buckets)")
+    eng = sparse_case("(a) make_mesh()", mesh, layout, single)
+    # the meshes below take the same layout, whatever their row alignment
+    layout = {"max_buckets": MAX_BUCKETS, "hot_tokens": single.hot_h,
+              "hot_budget_bytes": 1 << 40}
+    k = cfg.top_k
+    docs, scores = eng.search(batch, top_k=k)
+    if not np.array_equal(eng.search_ids(batch, top_k=k), docs):
+        raise AssertionError("(a) search_ids differs from search's ids")
+    got_m = eng.search(batch, top_k=k, doc_mask=mask)
+    assert_matches_oracle(got_m[0][sub], got_m[1][sub], *want_m)
+    sharded_vs_single(got_m, single.search(batch, top_k=k, doc_mask=mask),
+                      "(a) masked")
+    if not mask[got_m[0][got_m[0] >= 0]].all():
+        raise AssertionError("(a) a masked doc was returned")
+    eng.score_dtype = "bfloat16"
+    d16, s16 = eng.search(batch, top_k=k)
+    rounded = torch.from_numpy(scores).bfloat16().float().numpy()
+    if not np.array_equal(d16, docs) or not np.array_equal(s16, rounded):
+        raise AssertionError("(a) bf16: not the f32 batch's ids and its "
+                             "scores rounded to bf16 (plus offsets 0)")
+    eng.score_dtype = "float32"
+    t0 = time.perf_counter()
+    pd, ps = eng.search_pipelined(queries, top_k=k, batch=cfg.batch)
+    pipe_s = time.perf_counter() - t0
+    sd, ss = eng.search(queries, top_k=k)
+    if not (np.array_equal(pd, sd) and np.array_equal(ps, ss)):
+        raise AssertionError("(a) search_pipelined differs from search")
+    log(f"[sharded] (a) search_ids equal to search's ids; a masked batch "
+        f"({int(mask.sum())} docs eligible) matches ReferenceEngine and "
+        f"SparseEngine; bf16 scores are the f32 batch's rounded; "
+        f"search_pipelined over {len(queries)} queries ({pipe_s * 1e3:.1f} "
+        f"ms wall) equals search")
+    del eng
+
+    # (b) four doc shards, and 2 x 2, over the one card, then (1, 4) at
+    # the explicit hot tier: B2 builds each shard's hot pair
+    e14 = sparse_case("(b) (1, 4)", make_mesh(4, devices=[card] * 4),
+                      layout, single)
+    del e14
+    e22 = sparse_case("(b) (2, 2)", make_mesh(4, data=2,
+                                              devices=[card] * 4),
+                      layout, single)
+    del e22, single
+    torch.cuda.empty_cache()
+    hot = {"hot_tokens": HOT_TOKENS,
+           "hot_budget_bytes": HOT_TOKENS * index.num_docs * 4,
+           "max_buckets": MAX_BUCKETS}
+    single, single_s = build(SparseEngine, index, session=session, **hot)
+    b2 = ops.launches["ell_score"]
+    e14 = sparse_case("(b) (1, 4) hot_tokens=1024",
+                      make_mesh(4, devices=[card] * 4), hot, single)
+    b2 = ops.launches["ell_score"] - b2
+    if b2 != 4 * len(e14.buckets):
+        raise AssertionError(f"B2 ran {b2} times, not once a shard and "
+                             "bucket")
+    log(f"[sharded] (b) B2 built each shard's hot pair: {b2} launches for 4 "
+        f"shards x {len(e14.buckets)} buckets")
+
+    # (d) the k_local trim: on (1, 4) at k=100 with 50 a shard, exact;
+    # then planted ties on (1, 8), where the exactness check must fall back
+    counts = dict(pse.trim_counts)
+    e14.k_local = cfg.top_k2 // 2
+    got = e14.search(batch, top_k=cfg.top_k2)
+    assert_matches_oracle(got[0][sub], got[1][sub], *want[cfg.top_k2])
+    sharded_vs_single(got, single.search(batch, top_k=cfg.top_k2),
+                      "(d) trimmed")
+    from bm25_tpu_torch.scoring import build_scored_index
+
+    tied = build_scored_index([np.array([0, 1], np.int32)] * 64,
+                              vocab_size=4)
+    te = ShardedSparseEngine.from_scored_index(
+        tied, mesh=make_mesh(8, devices=[card] * 8))
+    te.k_local = 3
+    td, ts = te.search(np.array([[0, 1]], np.int32), top_k=16)
+    if not np.array_equal(td[0], np.arange(16)) or len(set(ts[0])) != 1:
+        raise AssertionError(f"(d) the tied fallback returned {td[0]}")
+    delta = {key: pse.trim_counts[key] - counts[key] for key in counts}
+    log(f"[sharded] (d) k_local={e14.k_local} of k={cfg.top_k2} on 4 "
+        f"shards: exact; planted "
+        f"ties on 8 shards at k_local=3: ids 0..15; trims {delta}")
+    if delta["fallback"] < 1 or delta["trimmed"] < 2:
+        raise AssertionError(f"(d) trim counts {delta}")
+    del e14, single, te
+    torch.cuda.empty_cache()
+
+    # (c) the dense engines over 131,072 docs (17.2 GB tables)
+    dcfg = BenchConfig(num_docs=DENSE_DOCS)
+    dindex = make_synthetic_index(dcfg)
+    dq = make_queries(dcfg)[: dcfg.batch]
+    dref = {k: ReferenceEngine.from_scored_index(dindex).search(
+        dq[sub], top_k=k) for k in ks}
+    dense, dense_s = build(DenseEngine, dindex, session=session)
+    dwall = {k: wall_ms(lambda k=k: dense.search(dq, top_k=k)) for k in ks}
+    for what, mesh in (("(c) (1, 1)", make_mesh(1, devices=[card])),
+                       ("(c) (1, 4)", make_mesh(4, devices=[card] * 4))):
+        eng, build_s = build(ShardedEngine, dindex, mesh=mesh)
+        walls = []
+        for k in ks:
+            got = eng.search(dq, top_k=k)
+            assert_matches_oracle(got[0][sub], got[1][sub], *dref[k])
+            want_d = dense.search(dq, top_k=k)
+            if not (np.array_equal(got[0], want_d[0])
+                    and np.array_equal(got[1], want_d[1])):
+                raise AssertionError(f"{what} k={k}: not DenseEngine's "
+                                     "ids and scores")
+            walls.append(f"k={k} {wall_ms(lambda k=k: eng.search(dq, top_k=k)):.2f} "
+                         f"ms (DenseEngine {dwall[k]:.2f})")
+        log(f"[sharded] {what} ShardedEngine: built in {build_s:.2f} s "
+            f"(DenseEngine {dense_s:.2f} s); shard bytes "
+            f"{[t.numel() * t.element_size() for t in eng.st.parts[0]]}; "
+            f"batch wall {'; '.join(walls)}; DenseEngine's ids and scores "
+            "bit for bit, ReferenceEngine's")
+        del eng
+        torch.cuda.empty_cache()
+    del dense
+    torch.cuda.empty_cache()
+
+    # (e) two processes sharing the card over gloo
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": HERE}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bm25_tpu_torch.parallel._multihost_main",
+         str(pid), "2", str(port), "2", "--device", card.type], cwd=HERE,
+        env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for pid, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.startswith(f"[p{pid}]") or "MULTIHOST" in line:
+                log(f"[sharded] (e) {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"(e) process {pid} exited "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+    if "MULTIHOST_OK" not in outs[0] or f"(gloo, {card.type}" not in outs[0]:
+        raise AssertionError(f"(e) no MULTIHOST_OK over gloo on the card:\n"
+                             f"{outs[0][-3000:]}")
+    log(f"[sharded] (e) 2 processes x 2 shards on the card over gloo (CUDA "
+        f"tensors in all_gather): MULTIHOST_OK in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (f) the CLI
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_",
+                            dir=os.path.join(HERE, "_scratch"))
+    try:
+        idx = os.path.join(work, "idx")
+        build_index(synthetic_corpus(4000, vocab=3000, avg_len=24, seed=0),
+                    tokenizer=Tokenizer(stemmer=None), save_to=idx)
+        texts = ["w000007^2.5 w000120 w001500", "w000017 w000002",
+                 "w000300^0.5 w000044 w002999 w000001"]
+        out = {engine: cli(["--device", card.type, "query", idx, *texts,
+                            "-k", "10", "--engine", engine])
+               for engine in ("sharded_sparse", "sparse")}
+        # every rank's doc and printed score (the batch ms differs)
+        if query_results(out["sharded_sparse"]) != \
+                query_results(out["sparse"]):
+            raise AssertionError("(f) query --engine sharded_sparse differs "
+                                 "from --engine sparse")
+        log(f"[sharded] (f) query --engine sharded_sparse equal to --engine "
+            f"sparse: " + " | ".join(out["sparse"].splitlines()[:2]))
+    finally:
+        shutil.rmtree(work)
+
+    launches = {**ops.launches, **gr.launches}
+    plain = {**ops.plain_calls, **gr.plain_calls}
+    log(f"[sharded] kernel launches within the phase {launches}, plain twin "
+        f"runs {plain}")
+    needed = ("ell_score_fused", "ell_score", "gather_add_rows")
+    if not all(launches[n] for n in needed) or any(plain.values()):
+        raise AssertionError("the sharded phase did not launch B1, B2 and "
+                             "B3, or ran a plain twin")
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-14 on device ``dev``; returns the kernels' record."""
+    """Phases 2-15 on device ``dev``; returns the kernels' record."""
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
     from bm25_tpu_torch.ops import _build
@@ -3579,6 +3893,9 @@ def drive(torch, dev) -> dict:
                          start_s, result)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    with Phase("15. sharded engines"):
+        sharded(torch, session, index, BenchConfig())
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -1879,3 +1879,77 @@ def test_cuda_rebuild_hot_pair_bit_identical(cuda_device):
             engine.hot_h, rows, {k: v.cpu() for k, v in sparse.items()},
             cpu.put)
         assert torch.equal(chi, hi.cpu()) and torch.equal(clo, lo.cpu())
+
+
+# -- the sharded engines on the card -----------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,docs", [(1, 2), (2, 2)])
+def test_cuda_sharded_engines_match_single_device(cuda_device, data, docs):
+    """ShardedSparseEngine and ShardedEngine on meshes over the one card
+    against SparseEngine and DenseEngine at the same layout: plain,
+    weighted and masked batches at k=10 and 1000, bf16 scores, ids only
+    and pipelined; B1 in every shard, B2 once a shard and bucket at build,
+    B3 once a shard and chunk, no plain twin."""
+    from bm25_tpu_torch import ShardedEngine, ShardedSparseEngine, SparseEngine
+    from bm25_tpu_torch.parallel import make_mesh
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    ref = ReferenceEngine.from_scored_index(index)
+    session = Session("cuda")
+    mesh = make_mesh(data * docs, data=data,
+                     devices=[cuda_device] * (data * docs))
+    rng = np.random.default_rng(7)
+    q = rng.integers(-1, 2000, (40, 8))
+    q[0] = -1
+    w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
+    mask = rng.random(index.num_docs) < 0.5
+    layout = dict(hot_tokens=64, hot_budget_bytes=1 << 30, max_buckets=2)
+    plain = (dict(port.plain_calls), dict(gr.plain_calls))
+    b2 = port.launches["ell_score"]
+    sharded = ShardedSparseEngine.from_scored_index(index, mesh=mesh,
+                                                    **layout)
+    assert port.launches["ell_score"] - b2 == docs * len(sharded.buckets)
+    single = SparseEngine.from_scored_index(index, session=session, **layout)
+    dense = DenseEngine.from_scored_index(index, session=session)
+    sdense = ShardedEngine.from_scored_index(index, mesh=mesh)
+    b1 = b3 = 0
+    for kw in ({}, {"weights": w}, {"doc_mask": mask}):
+        for k in (10, 1000):
+            want = ref.search(q, top_k=k, **kw)
+            before = port.launches["ell_score_fused"]
+            got = sharded.search(q, top_k=k, **kw)
+            b1 += port.launches["ell_score_fused"] - before
+            assert_matches_oracle(*got, *want)
+            # the hot sums' order follows each chunk's used tokens (a data
+            # row's slice here): the single-device engine to 2e-5 x row
+            assert_matches_oracle(*got, *single.search(q, top_k=k, **kw))
+            before = gr.launches["gather_add_rows"]
+            got_d = sdense.search(q, top_k=k, **kw)
+            b3 += gr.launches["gather_add_rows"] - before
+            want_d = dense.search(q, top_k=k, **kw)
+            np.testing.assert_array_equal(got_d[0], want_d[0])
+            np.testing.assert_array_equal(got_d[1], want_d[1])
+            assert_matches_oracle(*got_d, *want)
+    # one launch a chunk, data row, shard (and bucket)
+    assert b1 == 6 * docs * data * len(sharded.buckets)
+    assert b3 == 6 * docs * data
+    f32 = sharded.search(q, top_k=100)
+    sharded.score_dtype = "bfloat16"
+    d16, s16 = sharded.search(q, top_k=100)
+    np.testing.assert_array_equal(d16, f32[0])
+    # no offsets in this index: the host add leaves bf16(s) as it is
+    np.testing.assert_array_equal(
+        s16, torch.from_numpy(f32[1]).bfloat16().float().numpy())
+    np.testing.assert_array_equal(sharded.search_ids(q, top_k=100), f32[0])
+    big = rng.integers(-1, 2000, (300, 8))
+    want = sharded.search(big, top_k=100)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sharded.search_pipelined(big, top_k=100, batch=128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert_matches_oracle(*got, *want)
+    assert (dict(port.plain_calls), dict(gr.plain_calls)) == plain

@@ -427,10 +427,20 @@ def test_explicit_modes_are_strict(route_index):
         create_engine(route_index, mode="sparse", session=CPU, max_bytes=1)
     assert isinstance(create_engine(route_index, mode="dense", session=CPU),
                       DenseEngine)
-    for mode in ("sharded", "sharded_sparse"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md: the sharded engines"):
-            create_engine(route_index, mode=mode, session=CPU)
+    # the sharded modes build the port's sharded engines, as strictly
+    for mode, extra in (("sharded", {"hot_tokens": 8}),
+                        ("sharded_sparse", {"max_bytes": 1})):
+        with pytest.raises(TypeError):
+            create_engine(route_index, mode=mode, session=CPU, **extra)
+        with pytest.raises(TypeError):
+            jax_auto.create_engine(route_index, mode=mode, **extra)
+    from bm25_tpu_torch import ShardedEngine, ShardedSparseEngine
+
+    assert isinstance(create_engine(route_index, mode="sharded", session=CPU),
+                      ShardedEngine)
+    assert isinstance(create_engine(route_index, mode="sharded_sparse",
+                                    session=CPU, hot_tokens=8),
+                      ShardedSparseEngine)
     with pytest.raises(ValueError, match="unknown engine mode"):
         create_engine(route_index, mode="nope", session=CPU)
 

@@ -84,10 +84,14 @@ def test_query_top_hit_and_errors(index_dirs, capsys):
                      "fish^50 purr cat", "-k", "1"], capsys)
     assert "fish" in out.splitlines()[-1]
     assert main(["--device", "cpu", "query", str(port_dir)]) == 2
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md: the sharded engines"):
-        main(["--device", "cpu", "query", str(port_dir), "cat",
-              "--engine", "sharded"])
+    # the sharded engines answer as their single-device counterparts
+    for sharded, single in (("sharded", "dense"),
+                            ("sharded_sparse", "sparse")):
+        got, want = (run(main, ["--device", "cpu", "query", str(port_dir),
+                                "fish^50 purr cat", "-k", "3", "--engine",
+                                engine], capsys)
+                     for engine in (sharded, single))
+        assert got == want and "doc=" in got
 
 
 def test_demo_equals_jax(capsys):

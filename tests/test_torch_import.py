@@ -159,6 +159,20 @@ BLOCKED_RUN = textwrap.dedent("""
     sb = StreamingIndexBuilder(tokenizer=Tokenizer(stemmer=None))
     sb.add(texts)
     assert sb.finalize()[0].num_docs == 3
+    import bm25_tpu_torch.parallel
+    from bm25_tpu_torch import ShardedEngine, ShardedSparseEngine
+    from bm25_tpu_torch.entry import dryrun_multichip
+    from bm25_tpu_torch.parallel import (_dryrun_main, _multihost_main,
+                                         distributed, make_mesh, mesh,
+                                         sharded_engine)
+    mesh4 = make_mesh(4, data=2, devices=[cpu.device] * 4)
+    for mode in ("sharded", "sharded_sparse"):
+        sh = create_engine(index, mode=mode, mesh=mesh4)
+        assert_matches_oracle(*sh.search(q, top_k=25),
+                              *ref.search(q, top_k=25))
+    assert isinstance(sh, ShardedSparseEngine) and engine_device_bytes(sh)
+    dryrun_multichip(2, device="cpu")
+    assert distributed.process_info() == (0, 1)
     assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
     print("NO_JAX_OK")
 """)
@@ -202,3 +216,11 @@ def test_session_never_falls_back_to_cpu():
     assert Session("cpu").device == torch.device("cpu")
     with pytest.raises(ValueError):
         Session("meta")
+    # nor does a mesh: with no devices given it takes the cards or raises
+    from bm25_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        assert make_mesh().devices.flat[0].type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh()

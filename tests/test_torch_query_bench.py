@@ -1,8 +1,10 @@
 """The port's query benchmark harness (bench/query_bench.py) against the
 JAX harness, on the CPU, at tests/test_bench_run.py's tiny config: the
-same record keys apart from the ones the port names as omitted or not
-ported, recall 1.0 in every row, a compact headline under 500 bytes, and
-the entry point's last line.
+same record keys apart from the ones the port names as omitted (the
+sharded row's among them), recall 1.0 in every row, a compact headline
+under 500 bytes, the timing helpers (the port's in-process shard-scaling
+curve among them: JAX's runs a script in a subprocess) and the entry
+point's last line.
 """
 
 import json
@@ -64,10 +66,11 @@ def test_record_keys_match_jax(records):
     for got, want in zip(pe["memory_trade"], je["memory_trade"]):
         assert got.keys() == want.keys()
     assert pe["memory_trade"][1]["overhead_target"] == 3.0
-    # every row the JAX record has and the port's lacks is named
-    not_ported = set(pe["not_ported"])
-    assert not_ported == {"sharded", "shard_scaling"}
-    assert set(je) - set(pe) <= not_ported
+    # every row the JAX record has, the port's has
+    assert pe["not_ported"] == {}
+    assert set(je) <= set(pe)
+    assert pe["sharded"].keys() == je["sharded"].keys()
+    assert pe["sharded"]["mesh"] == {"data": 1, "docs": 1}
     # the config fixes max_buckets: the headline asks the model nothing;
     # the long-document row takes the model's layout
     assert "layout" not in pe
@@ -101,7 +104,7 @@ def test_recall_is_exact_in_every_row(records):
     for rec in records:
         extra = rec["extra"]
         rows = [extra["headline"], *extra["secondary"],
-                extra["memory_parity"], extra["longdoc"]]
+                extra["memory_parity"], extra["longdoc"], extra["sharded"]]
         assert [r["recall_vs_reference"] for r in rows] == [1.0] * len(rows)
         assert all(r["device_step_ms"] >= 0 for r in rows)
     # the synthetic-BEIR eval reads the same on both (same corpus, same
@@ -125,7 +128,9 @@ def test_compact_headline_is_small(records):
 
 def test_step_bytes_and_timing_helpers():
     """estimate_step_hbm_bytes sums b1_bytes over the batch's chunks;
-    measure_device_step_ms returns a time for the sparse engine only."""
+    measure_device_step_ms returns a time for the sparse engine only,
+    measure_sharded_step_ms for the sharded one only; the shard-scaling
+    curve (8 queries here) has JAX's keys at S = 1, 2, 4, 8, recall 1.0."""
     from bm25_tpu_torch import create_engine
     from bm25_tpu_torch.models.sparse import b1_bytes
 
@@ -146,6 +151,18 @@ def test_step_bytes_and_timing_helpers():
     dense = create_engine(index, mode="dense", session=cpu)
     assert port_bench.measure_device_step_ms(dense, queries, 10) is None
     assert port_bench.estimate_step_hbm_bytes(dense, 40, queries) is None
+    assert port_bench.measure_sharded_step_ms(eng, queries, 10) is None
+    sharded = create_engine(index, mode="sharded_sparse", session=cpu)
+    assert port_bench.measure_sharded_step_ms(sharded, queries, 10,
+                                              iters=2) >= 0
+    curve = port_bench._measure_shard_scaling(port_bench.BenchConfig(**{
+        **TINY, "num_queries": 8, "shard_scaling_docs": 64}), quiet, cpu)
+    assert curve["k"] == TINY["top_k"]
+    assert [r["shards"] for r in curve["strong"]] == [1, 2, 4, 8]
+    for row in curve["strong"]:
+        assert {"shards", "step_full_ms", "step_local_ms", "merge_share",
+                "recall"} <= set(row)
+        assert row["recall"] == 1.0 and row["step_full_ms"] >= 0
 
 
 def test_model_layout_is_choose_layouts_choice():

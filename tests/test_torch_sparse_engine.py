@@ -313,9 +313,14 @@ def test_unported_options_raise(lucene_index):
                                        hot_tokens="many")
     with pytest.raises(ValueError, match="out of range"):
         eng.search(np.array([[lucene_index.vocab_size]]))
+    # the sharded modes are ported: the port's sharded engines, on a
+    # one-shard mesh of the session's device
     for mode in ("sharded", "sharded_sparse"):
-        with pytest.raises(NotImplementedError):
-            create_engine(lucene_index, mode=mode, session=CPU)
+        sharded = create_engine(lucene_index, mode=mode, session=CPU)
+        assert type(sharded).__name__ == {
+            "sharded": "ShardedEngine",
+            "sharded_sparse": "ShardedSparseEngine"}[mode]
+        assert sharded.mesh.shape == {"data": 1, "docs": 1}
     with pytest.raises(ValueError, match="unknown engine mode"):
         create_engine(lucene_index, mode="nope", session=CPU)
     # auto routes by the dense table's size: sparse past the budget, dense
