@@ -636,8 +636,8 @@ def measure_cold_start(engine, queries: np.ndarray, k: int, batch: int,
       ``cache import`` (the documented deploy flow), whose nvcc seconds
       must read 0.
 
-    ``first_use`` holds each run's ``nvcc_build_s`` and
-    ``library_load_s``.  SparseEngine only; returns None otherwise.
+    ``first_use`` holds each run's ``nvcc_build_s``, ``native_build_s``
+    and ``library_load_s``.  SparseEngine only; returns None otherwise.
     """
     import tarfile
     import tempfile
@@ -812,7 +812,6 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
     from bm25_tpu_torch.models.sparse import SparseEngine
     from bm25_tpu_torch.reference import ReferenceEngine
     from bm25_tpu_torch.runtime.session import get_session
-    from bm25_tpu_torch.text.tokenizer import Tokenizer
 
     cfg = cfg or BenchConfig.from_env()
     session = session or get_session()
@@ -863,16 +862,13 @@ def run(cfg: BenchConfig | None = None, log=print, session=None,
     mem = index_memory_stats(index, engine)
 
     # retrieval quality on the adversarial self-labelled dataset, one row
-    # per engine family.  Its words ("w000123", "xxtypo7") have no suffix
-    # to stem, so the tokenizer without a stemmer (which needs no nltk)
-    # gives the stemmed tokenizer's tokens
+    # per engine family
     hard_ds = synthetic_beir_hard(num_docs=cfg.eval_docs,
                                   num_queries=cfg.eval_queries,
                                   seed=cfg.seed)
     beir = {
         mode: evaluate_dataset(hard_ds, top_k=10, engine_mode=mode, log=log,
-                               session=session,
-                               tokenizer=Tokenizer(stemmer=None))
+                               session=session)
         for mode in ("dense", "sparse")
     }
 

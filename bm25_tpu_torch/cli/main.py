@@ -12,12 +12,6 @@ benchmarks``.  What differs:
   ``checkpoint``, ``warm``, ``serve``) build or restore their engine or
   benchmark on; it raises where CUDA is absent unless ``--device cpu`` is
   given (``cache`` touches no device but to probe its fingerprint);
-* ``eval`` takes ``--stemmer snowball-en|none`` (default ``snowball-en``,
-  the JAX CLI's tokenizer): the Snowball stemmer needs ``nltk``, which a
-  GPU machine may not have.  ``index`` builds with the JAX CLI's default
-  tokenizer, as JAX's does; an index without stemming is built through the
-  library (``build_index(..., tokenizer=Tokenizer(stemmer=None),
-  save_to=...)``), and ``query`` reads the saved tokenizer config;
 * ``bench --suite matmul`` runs the port's ``bench_matmul`` on the device;
   ``bench --suite query`` runs the port's query benchmark harness
   (``bench/query_bench.py::run``, ``BM25_BENCH_*`` overrides) on the
@@ -28,8 +22,9 @@ benchmarks``.  What differs:
   which ``serve --device-checkpoint`` and ``warm --device-checkpoint``
   restore; ``warm`` runs the engine's dispatch family once, which builds
   and loads the kernel libraries the path needs, and ``cache`` inspects,
-  exports and imports the directory of those libraries
-  (``runtime/cache.py``), the port's counterpart of JAX's compile cache.
+  exports and imports the directory of those libraries and of the native
+  text library (``runtime/cache.py``), the port's counterpart of JAX's
+  compile cache.
 """
 
 from __future__ import annotations
@@ -39,21 +34,11 @@ import json
 import sys
 import time
 
-STEMMERS = ("snowball-en", "none")
-
 
 def _session(args):
     from bm25_tpu_torch.runtime.session import Session
 
     return Session(args.device)
-
-
-def _tokenizer(args):
-    """The tokenizer of ``--stemmer``: None (the default ``Tokenizer()``)
-    for snowball-en, else one without a stemmer."""
-    from bm25_tpu_torch.text.tokenizer import Tokenizer
-
-    return None if args.stemmer == "snowball-en" else Tokenizer(stemmer=None)
 
 
 def _read_corpus(path: str) -> list[str]:
@@ -243,7 +228,7 @@ def cmd_eval(args) -> int:
         max_queries=args.max_queries,
         log=lambda *a: print(*a, file=sys.stderr),
         run_file=args.run_file,
-        session=_session(args), tokenizer=_tokenizer(args),
+        session=_session(args),
     )
     print(json.dumps(result))
     return 0
@@ -454,8 +439,6 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--run-file", default=None,
                     help="write results as a TREC run file (trec_eval/"
                          "pytrec_eval interop)")
-    pe.add_argument("--stemmer", default="snowball-en", choices=STEMMERS,
-                    help="none: no stemming (the Snowball stemmer needs nltk)")
     pe.set_defaults(fn=cmd_eval)
 
     pc = sub.add_parser(

@@ -2,9 +2,8 @@
 
 The port's copy of ``bm25_tpu/datasets.py``, function for function.
 ``evaluate_dataset`` builds the port's engine through its own
-``create_engine`` on ``session`` (default: the process's CUDA session), and
-takes an optional ``tokenizer`` (default ``Tokenizer()``, as in JAX; a
-machine without ``nltk`` passes ``Tokenizer(stemmer=None)``).
+``create_engine`` on ``session`` (default: the process's CUDA session),
+with JAX's ``Tokenizer()``.
 
 BASELINE.md's configs name BEIR SciFact/FiQA/NFCorpus and MS MARCO; the
 loaders download nothing: they read the standard BEIR on-disk layout from
@@ -92,7 +91,6 @@ def evaluate_dataset(
     log=print,
     run_file: str | None = None,
     session=None,
-    tokenizer=None,
 ) -> dict:
     """Index ds.docs, run its queries, report recall@k / MRR@10 / nDCG@10
     vs qrels.  ``run_file`` additionally writes a TREC-format run
@@ -111,7 +109,7 @@ def evaluate_dataset(
     from bm25_tpu_torch.runtime.session import get_session
     from bm25_tpu_torch.text.tokenizer import Tokenizer
 
-    tok = tokenizer or Tokenizer()
+    tok = Tokenizer()
     index, stats = build_index(ds.doc_texts, tokenizer=tok)
     log(f"[eval] indexed {stats.num_docs} docs ({stats.docs_per_second:.0f}/s)")
     engine = create_engine(index, mode=engine_mode,

@@ -1,8 +1,9 @@
 """Streaming (chunked) index build for corpora that don't fit as one list.
 
-The port's copy of ``bm25_tpu/index/streaming.py``.  The port has no
-native text library yet: its tokenizer keeps ``use_native`` and ignores
-it, so every chunk tokenizes in Python.
+The port's copy of ``bm25_tpu/index/streaming.py``.  Each chunk
+tokenizes with a chunk-local vocab, so the tokenizer's native path
+(``bm25_tpu_torch/native``) runs on its ASCII documents, and the scoring
+at ``finalize()`` builds the CSC with the native counting sort.
 
 Scale path of the build pipeline (SURVEY.md section 7, step 5): documents
 arrive in batches (file shards, generators, datasets); tokenization runs
@@ -59,7 +60,7 @@ class StreamingIndexBuilder:
         from bm25_tpu_torch.index.merge import remap_vocab
 
         t0 = time.perf_counter()
-        # tokenize with a chunk-local vocab,
+        # tokenize with a chunk-local vocab (lets the native fast path run),
         # then remap chunk-local ids onto the shared streaming vocab (the
         # same remap helper the multi-host shard merge uses); the remap
         # applies to the FLAT stream — one vectorized gather, not one

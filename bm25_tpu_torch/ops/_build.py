@@ -11,17 +11,25 @@ A missing ``nvcc`` or a failed build raises:
 nothing falls back to a plain version.  The compiler's ``-Xptxas -v``
 report (registers, shared memory, spills) is kept beside the library.
 
+``_compile`` is the one build protocol of the kernels and of the native
+text library (``native/_build.py``): an exclusive lock on ``<library>.lock``
+(so of several processes or threads building one library, one compiles and
+the others load its result), the compiler writing to a temporary name, and
+``os.replace`` into place, so nothing ever loads a half-written file.
+
 First-use work is charged to every open phase collector
 (``collect_phases``, read by ``runtime/profiling.py::
-compile_phase_collector``): seconds in nvcc under ``nvcc_build_s``, in
-``ctypes.CDLL`` under ``library_load_s``.  With no collector open nothing
-is timed.
+compile_phase_collector``): seconds in nvcc under ``nvcc_build_s``, in the
+C++ compiler building the native text library (``native/_build.py``) under
+``native_build_s``, in ``ctypes.CDLL`` under ``library_load_s``.  With no
+collector open nothing is timed.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -40,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-PHASES = ("nvcc_build_s", "library_load_s")
+PHASES = ("nvcc_build_s", "native_build_s", "library_load_s")
 _sinks: list[dict] = []  # the open collectors' dicts
 _sinks_lock = threading.Lock()
 
@@ -106,33 +114,61 @@ def library_path(name: str) -> str:
     return os.path.join(build_dir(), f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+@contextlib.contextmanager
+def _file_lock(path: str):
+    """Hold an exclusive ``flock`` on ``path`` (created if missing) for the
+    block; each caller opens its own descriptor, so threads wait on each
+    other as processes do."""
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)  # closing the descriptor drops the lock
+
+
+def _compile(out: str, argv: list[str], sources: list[str], phase: str,
+             what: str, keep_log: bool = False) -> str:
+    """Run ``argv -o <tmp> sources`` and rename the result to ``out``,
+    under ``out``'s lock, unless ``out`` exists once the lock is held;
+    the seconds in the compiler go to ``phase``.  A nonzero exit raises
+    with the compiler's output; ``keep_log`` keeps that output beside the
+    library as ``<name>.log``."""
+    where = os.path.dirname(out)
+    os.makedirs(where, exist_ok=True)
+    with _file_lock(out + ".lock"):
+        if os.path.exists(out):  # another builder finished meanwhile
+            return out
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=where)
+        os.close(fd)
+        cmd = [*argv, "-o", tmp, *sources]
+        try:
+            with _charged(phase):
+                res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(cmd[0])} failed ({res.returncode}) "
+                    f"building {what}:\n{res.stdout}{res.stderr}"
+                )
+            if keep_log:
+                with open(out[:-3] + ".log", "w") as f:
+                    f.write(res.stdout + res.stderr)
+            os.replace(tmp, out)  # atomic: no reader ever sees half
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless the library for the hash of its
     source and the headers exists; returns the library's path."""
-    src = os.path.join(CSRC, f"{name}.cu")
     out = library_path(name)
     if os.path.exists(out):
         return out
-    where = os.path.dirname(out)
-    os.makedirs(where, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=where)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-    try:
-        with _charged("nvcc_build_s"):
-            res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {name}.cu:\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        with open(out[:-3] + ".log", "w") as f:
-            f.write(res.stdout + res.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return _compile(out, [find_nvcc(), *NVCC_FLAGS],
+                    [os.path.join(CSRC, f"{name}.cu")], "nvcc_build_s",
+                    f"{name}.cu", keep_log=True)
 
 
 def build_all(names) -> dict[str, str]:

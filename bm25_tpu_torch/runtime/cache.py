@@ -4,16 +4,18 @@ The port's copy of ``bm25_tpu/runtime/cache.py``.  The JAX package ships
 its persistent XLA compile cache; the port has no compile step of its
 own, and its counterpart is the directory of nvcc-built kernel libraries
 (``ops/_build.py``: ``$BM25_TPU_TORCH_BUILD_DIR``, else
-``bm25_tpu_torch/_build/``).  A fresh serving machine pays nvcc for every
-kernel library the served path loads, tens of seconds, all of it
-avoidable where another host of the same environment already built them.
+``bm25_tpu_torch/_build/``), which also holds the C++-built native text
+library (``native/_build.py``).  A fresh serving machine pays nvcc for
+every kernel library the served path loads, and the C++ compiler for the
+text library, tens of seconds, all of it avoidable where another host of
+the same environment already built them.
 
 - ``bm25-tpu-torch warm`` on a build host fills the directory,
 - ``export_cache`` tars it with an environment manifest,
 - ``import_cache`` on the serving host validates the manifest and
-  unpacks.  A library's file name hashes its sources and the nvcc flags,
-  not the nvcc, driver or card that built it: a foreign archive would
-  load where it should not, so a mismatch is refused with a reason
+  unpacks.  A library's file name hashes its sources and the flags, not
+  the nvcc, C++ compiler, driver or card that built it: a foreign archive
+  would load where it should not, so a mismatch is refused with a reason
   unless ``force``.
 """
 
@@ -27,8 +29,8 @@ import tarfile
 import tempfile
 
 MANIFEST_NAME = "__bm25_cache_manifest__.json"
-FINGERPRINT_KEYS = ("nvcc", "torch", "torch_cuda", "driver", "device_name",
-                    "sm")
+FINGERPRINT_KEYS = ("nvcc", "cxx", "torch", "torch_cuda", "driver",
+                    "device_name", "sm")
 
 
 def resolve_cache_dir(path: str | None = None) -> str:
@@ -46,12 +48,13 @@ def resolve_cache_dir(path: str | None = None) -> str:
 
 
 def _entry_names(cache_dir: str) -> list[str]:
-    """Cache entry files, relative paths, manifest excluded."""
+    """Cache entry files, relative paths, manifest and build locks
+    (``<library>.lock``, ``ops/_build.py::_compile``) excluded."""
     names: list[str] = []
     for root, _dirs, files in os.walk(cache_dir):
         for f in files:
             rel = os.path.relpath(os.path.join(root, f), cache_dir)
-            if rel != MANIFEST_NAME:
+            if rel != MANIFEST_NAME and not rel.endswith(".lock"):
                 names.append(rel)
     return sorted(names)
 
@@ -67,12 +70,14 @@ def _run(cmd: list[str]) -> str | None:
 
 def environment_fingerprint() -> dict:
     """The facts that decide whether the cached libraries fit this host:
-    nvcc's release, ``torch.__version__`` and ``torch.version.cuda``, the
+    nvcc's release, the C++ compiler's ``--version`` line (the native
+    text library's), ``torch.__version__`` and ``torch.version.cuda``, the
     driver's version, the device's name and its ``sm_XY``.  A field that
-    cannot be probed (no nvcc, no GPU) is None, and import-side
-    validation skips it."""
+    cannot be probed (no nvcc, no C++ compiler, no GPU) is None, and
+    import-side validation skips it."""
     import torch
 
+    from bm25_tpu_torch.native import _build as native_build
     from bm25_tpu_torch.ops import _build
 
     fp: dict = dict.fromkeys(FINGERPRINT_KEYS)
@@ -85,6 +90,12 @@ def environment_fingerprint() -> dict:
     m = re.search(r"release (\S+), (V\S+)", out or "")
     if m:
         fp["nvcc"] = f"{m.group(1).rstrip(',')} {m.group(2)}"
+    try:
+        out = _run([native_build.find_cxx(), "--version"])
+    except RuntimeError:
+        out = None
+    if out and out.strip():
+        fp["cxx"] = out.strip().splitlines()[0]
     if torch.cuda.is_available():
         fp["device_name"] = torch.cuda.get_device_name(0)
         major, minor = torch.cuda.get_device_capability(0)
@@ -187,8 +198,8 @@ def import_cache(src: str, path: str | None = None,
     """Unpack an exported archive into the local build directory.
 
     Validates the manifest fingerprint against this host: a library built
-    by another nvcc, for another driver or another sm would load here
-    under the same name, so a mismatch raises (``force=True`` imports
+    by another nvcc or C++ compiler, for another driver or another sm
+    would load here under the same name, so a mismatch raises (``force=True`` imports
     anyway and reports the mismatches).  Fingerprint fields that are
     None on either side are skipped: a host without nvcc or a GPU cannot
     probe them.

@@ -77,7 +77,8 @@ def compile_phase_collector():
     """Collect the seconds of first-use work done inside the with-block.
 
     Yields a dict that accumulates ``nvcc_build_s`` (compiling a kernel
-    library with nvcc, where no library for its source hash exists) and
+    library with nvcc, where no library for its source hash exists),
+    ``native_build_s`` (compiling the native text library) and
     ``library_load_s`` (``ctypes.CDLL`` of a library not loaded before).
     The caller's wall time minus these is execution, host overhead and
     transfers.  Built for the serve warmup breakdown.  Work done by any

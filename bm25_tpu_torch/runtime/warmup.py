@@ -5,8 +5,8 @@ the first dispatch of each compiled shape pays an XLA compile; the port
 runs eagerly and compiles nothing per shape, so what a warm-up pays here
 is first-use work: the nvcc build of each kernel library the path loads
 (where no library for its source hash is in the build directory,
-``ops/_build.py``) and the library's load.  ``warm_engine`` reports both
-per task (``nvcc_build_s``, ``library_load_s``, from
+``ops/_build.py``) and the library's load.  ``warm_engine`` reports them
+per task (``nvcc_build_s``, ``native_build_s``, ``library_load_s``, from
 ``runtime/profiling.py::compile_phase_collector``) beside its wall
 seconds, and ``bm25-tpu-torch warm`` runs it at deploy so that a later
 ``cache export`` ships the built libraries.
@@ -156,7 +156,9 @@ def warm_engine(
     """Run every task through ``engine.search``, timing each dispatch.
 
     Returns the task list with a ``seconds`` field added per task, and
-    the task's first-use work, ``nvcc_build_s`` and ``library_load_s``:
+    the task's first-use work, ``nvcc_build_s``, ``native_build_s`` (the
+    text library's C++ build; a search tokenizes nothing, so 0) and
+    ``library_load_s``:
     a task that built or loaded nothing runs in milliseconds.  Safe to
     re-run — idempotent by construction (results are discarded).
     """

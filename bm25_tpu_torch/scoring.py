@@ -200,6 +200,38 @@ def build_scored_index(
     )
 
 
+def tf_csc_numpy(flat_tokens: np.ndarray, doc_lengths: np.ndarray,
+                 vocab_size: int, dtype=np.float32):
+    """The numpy CSC build: (indptr int64, doc ids int32, tf ``dtype``),
+    postings ascending by doc id in each token column.  The oracle of the
+    native counting sort (``NativeTextPipeline.build_tf_csc``)."""
+    total = len(flat_tokens)
+    num_docs = len(doc_lengths)
+    flat_docs = np.repeat(np.arange(num_docs, dtype=np.int32), doc_lengths)
+    order = np.argsort(flat_tokens, kind="stable")
+    st = flat_tokens[order]
+    sd = flat_docs[order]
+    if total:
+        new_run = np.empty(total, dtype=bool)
+        new_run[0] = True
+        np.logical_or(st[1:] != st[:-1], sd[1:] != sd[:-1], out=new_run[1:])
+        run_starts = np.flatnonzero(new_run)
+        run_ends = np.empty(len(run_starts), dtype=np.int64)
+        run_ends[:-1] = run_starts[1:]
+        run_ends[-1] = total
+        # tf counts are small integers: exact in float32 (< 2^24)
+        tf_vals = (run_ends - run_starts).astype(dtype)
+        col_tok = st[run_starts]
+        row_doc = sd[run_starts]
+    else:
+        tf_vals = np.zeros(0, dtype=dtype)
+        col_tok = np.zeros(0, dtype=np.int32)
+        row_doc = np.zeros(0, dtype=np.int32)
+    indptr = np.zeros(vocab_size + 1, dtype=np.int64)
+    np.cumsum(np.bincount(col_tok, minlength=vocab_size), out=indptr[1:])
+    return indptr, row_doc, tf_vals
+
+
 def build_scored_index_flat(
     flat_tokens: np.ndarray,
     doc_lengths: np.ndarray,
@@ -230,33 +262,23 @@ def build_scored_index_flat(
         else:
             vocab_size = int(flat_tokens.max(initial=-1)) + 1
     # Direct CSC construction (postings ascend by doc id inside each token
-    # column; tf by run-length): numpy stable radix argsort + fancy-gather
-    # + RLE.  The JAX package also has a native C++ counting-sort builder
-    # and pins it to these arrays, so only this path is copied.
+    # column; tf by run-length): the native C++ counting-sort builder (one
+    # histogram + scatter + RLE pass, threaded on multi-core hosts —
+    # native/src/csc_build.cpp).  ``tf_csc_numpy`` is its oracle, pinned
+    # byte-equal in tests/test_torch_native.py, and builds the empty case;
+    # the scoring transform below is shared, so scorer semantics stay
+    # single-sourced.
     if flat_tokens.dtype != np.int32:
         flat_tokens = flat_tokens.astype(np.int32)
-    flat_docs = np.repeat(np.arange(num_docs, dtype=np.int32), doc_lengths)
-    order = np.argsort(flat_tokens, kind="stable")
-    st = flat_tokens[order]
-    sd = flat_docs[order]
     if total:
-        new_run = np.empty(total, dtype=bool)
-        new_run[0] = True
-        np.logical_or(st[1:] != st[:-1], sd[1:] != sd[:-1], out=new_run[1:])
-        run_starts = np.flatnonzero(new_run)
-        run_ends = np.empty(len(run_starts), dtype=np.int64)
-        run_ends[:-1] = run_starts[1:]
-        run_ends[-1] = total
-        # tf counts are small integers: exact in float32 (< 2^24)
-        tf_vals = (run_ends - run_starts).astype(dtype)
-        col_tok = st[run_starts]
-        row_doc = sd[run_starts]
+        from bm25_tpu_torch.native import loader
+
+        indptr, row_doc, tf_vals = loader.get().build_tf_csc(
+            flat_tokens, doc_lengths, vocab_size)
+        tf_vals = tf_vals.astype(dtype, copy=False)
     else:
-        tf_vals = np.zeros(0, dtype=dtype)
-        col_tok = np.zeros(0, dtype=np.int32)
-        row_doc = np.zeros(0, dtype=np.int32)
-    indptr = np.zeros(vocab_size + 1, dtype=np.int64)
-    np.cumsum(np.bincount(col_tok, minlength=vocab_size), out=indptr[1:])
+        indptr, row_doc, tf_vals = tf_csc_numpy(
+            flat_tokens, doc_lengths, vocab_size, dtype)
 
     df = np.diff(indptr)
     avgdl = float(doc_lengths.mean()) if num_docs else 0.0

@@ -19,11 +19,17 @@ treats negative ids as zero-contribution (``reference/bm25_native.py:151``
 drops negative ids; we deliberately do NOT replicate the OOV->id-0 bug of
 ``reference/main.py:247``).
 
-The port's copy of ``bm25_tpu/text/tokenizer.py``: the pure-Python path
-only.  The JAX package's native C++ fast path (``bm25_tpu/native``) is not
-copied: that package pins its native tokens to this Python path byte for
-byte, so both packages tokenize alike.  ``use_native`` is kept so the
-signatures match; the port has no native library yet and ignores it.
+The port's copy of ``bm25_tpu/text/tokenizer.py``.  With ``use_native``
+(the default) the ``"snowball-en"`` stemmer is the port's own C++ Snowball
+stemmer (``bm25_tpu_torch/native``), for queries and every document, and
+a corpus of ASCII documents tokenizes in C++; non-ASCII documents take the
+Python path below, with one shared vocab.  With ``use_native=False`` the
+stemmer is NLTK's ``SnowballStemmer("english")``, the Python oracle, and
+every document takes the Python path.  Both give the same tokens wherever
+both run (``tests/test_torch_native.py`` holds the native stemmer equal to
+NLTK on ASCII and non-ASCII words), so a machine without ``nltk`` builds
+and queries the indexes of one with it.  The native library builds at
+first use and raises where it cannot.
 """
 
 from __future__ import annotations
@@ -52,19 +58,29 @@ _BOOST_RE = re.compile(
 )
 
 
-def _make_stemmer(spec) -> Callable[[str], str] | None:
+SNOWBALL_NAMES = ("snowball", "snowball-en", "english", "porter2")
+
+
+def _make_stemmer(spec, use_native: bool = True
+                  ) -> Callable[[str], str] | None:
     if spec is None:
         return None
     if callable(spec):
         return spec
     if isinstance(spec, str):
         name = spec.lower()
-        if name in ("snowball", "snowball-en", "english", "porter2"):
+        if name in SNOWBALL_NAMES and use_native:
+            from bm25_tpu_torch.native import loader
+
+            loader.get()  # build and load now: a failure raises here
+            return loader.snowball_stem
+        if name in SNOWBALL_NAMES:
             try:
                 from nltk.stem import SnowballStemmer
-            except ImportError as e:  # pragma: no cover - nltk is baked in
+            except ImportError as e:
                 raise RuntimeError(
-                    "nltk is required for the built-in Snowball stemmer"
+                    "nltk is required for the Python Snowball stemmer "
+                    "(use_native=False)"
                 ) from e
             return SnowballStemmer("english").stem
         raise ValueError(f"Unknown stemmer spec {spec!r}")
@@ -110,7 +126,7 @@ class Tokenizer:
 
     def __post_init__(self):
         self._stop = get_stopwords(self.stopwords)
-        self._stem = _make_stemmer(self.stemmer)
+        self._stem = _make_stemmer(self.stemmer, self.use_native)
         self._regex = re.compile(self.token_pattern)
         self._stem_cache = {}
 
@@ -180,6 +196,33 @@ class Tokenizer:
         New terms get ids in first-occurrence order, matching the id-assignment
         style visible in ``reference/animal_index_bm25/vocab.index.json``.
         """
+        if self.use_native and vocab is None and self._is_native_compatible():
+            from bm25_tpu_torch.native import loader
+
+            native = loader.get()
+            # The native pipeline matches the Python path byte-for-byte on
+            # ASCII only: its word classes and case folding do not handle
+            # non-ASCII (unicode punctuation would glue tokens, and 'Über'
+            # would never fold to the query path's 'über').  Route
+            # non-ASCII documents through the Python path, sharing one
+            # vocab, so corpus and query tokenization always agree.
+            # one isascii() pass (it walks every byte of every doc)
+            non_ascii, ascii_idx = [], []
+            for i, t in enumerate(texts):
+                (ascii_idx if t.isascii() else non_ascii).append(i)
+            if not non_ascii:
+                return native.tokenize_corpus(texts, stopwords=self._stop)
+            tc = native.tokenize_corpus(
+                [texts[i] for i in ascii_idx], stopwords=self._stop
+            )
+            vocab = tc.vocab
+            ids: list[np.ndarray] = [None] * len(texts)  # type: ignore[list-item]
+            for pos, i in enumerate(ascii_idx):
+                ids[i] = tc.ids[pos]
+            for i in non_ascii:
+                ids[i] = self._encode_doc(texts[i], vocab)
+            return _remap_first_occurrence(ids, vocab)
+
         if vocab is None:
             vocab = {}
         return TokenizedCorpus(
@@ -197,6 +240,14 @@ class Tokenizer:
                 vocab[w] = tid
             doc[j] = tid
         return doc
+
+    def _is_native_compatible(self) -> bool:
+        return (
+            self.lower
+            and self.token_pattern == TOKEN_PATTERN
+            and isinstance(self.stemmer, str)
+            and self.stemmer.lower() in SNOWBALL_NAMES
+        )
 
     # -- queries -----------------------------------------------------------
 
@@ -293,6 +344,34 @@ class Tokenizer:
                 ids[i, j] = tid
                 wts[i, j] = wt
         return ids, wts
+
+
+def _remap_first_occurrence(
+    ids: list[np.ndarray], vocab: dict[str, int]
+) -> TokenizedCorpus:
+    """Renumber vocab ids to first-occurrence order over the corpus.
+
+    The hybrid native/Python path assigns all ASCII docs' terms before any
+    non-ASCII doc's; this restores the documented contract (ids in
+    first-occurrence order) so saved vocab artifacts stay reproducible
+    regardless of which docs took the native path.  The vocab dict is
+    rebuilt in the new id order too: ``index/merge.py::remap_vocab``
+    (streaming chunks, worker shards) assigns global ids in the dict's
+    iteration order.
+    """
+    flat = np.concatenate(ids) if ids else np.zeros(0, np.int32)
+    if not len(flat):
+        return TokenizedCorpus(ids=ids, vocab=vocab)
+    uniq, first = np.unique(flat, return_index=True)
+    order = uniq[np.argsort(first, kind="stable")]
+    old_to_new = np.empty(len(vocab), dtype=np.int32)
+    old_to_new[order] = np.arange(len(order), dtype=np.int32)
+    new_ids = [old_to_new[doc] if len(doc) else doc for doc in ids]
+    terms = np.empty(len(vocab), dtype=object)
+    for term, tid in vocab.items():
+        terms[old_to_new[tid]] = term
+    new_vocab = {term: i for i, term in enumerate(terms.tolist())}
+    return TokenizedCorpus(ids=new_ids, vocab=new_vocab)
 
 
 def pad_token_lists(rows: Iterable[Sequence[int]], pad_to: int | None = None) -> np.ndarray:

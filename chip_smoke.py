@@ -8,7 +8,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 
 1. environment: the card's name and power limit;
 2. build: every CUDA kernel compiles from ``bm25_tpu_torch/csrc``, one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and the native text library
+   (tokenizer, Snowball stemmer, counting-sort CSC build) from
+   ``bm25_tpu_torch/native/src`` with the C++ compiler beside them;
 3. kernels vs their plain PyTorch twins on the card, at small edge-case
    shapes: B1/B2 (pad rows, pad/OOV ids, ragged Q, a bucket wider than 512
    slots, with and without the hot tier and per-token weights, Q = 8 with
@@ -86,7 +88,8 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    (``torch.profiler``);
 7. library entry: ``Retriever`` over a small corpus with the engine
    ``create_engine`` picks (dense), then ``Retriever.fit`` building the
-   port's engine itself, both against ``ReferenceEngine``;
+   port's engine itself, both against ``ReferenceEngine``, with the
+   default (stemmed) tokenizer;
 8. op library, matmul and the named ops: ``custom("matrix_multiplication",
    ...)`` (B6) with ``algorithm="naive"``, ``"optimized"`` and ``"xla"`` at
    the reference's 1028^3 in f32 and bf16, and ``bench_matmul()`` there
@@ -134,10 +137,9 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    modes, at 1028^3 and 4096^3 (``torch.profiler``);
 11. entry points, on the card: the port's CLI (``info`` and ``query`` with
    term boosts under ``--engine dense`` and ``sparse`` on an index built
-   by ``build_index(..., Tokenizer(stemmer=None), save_to=...)``, ``demo``,
-   ``eval --stemmer none`` on ``tests/data/mini_beir``, ``bench --suite
-   matmul``) against the same commands with ``--device cpu`` (no stemmer:
-   the card's machine has no nltk); ``compat.BM25`` on the 13-doc corpus against the
+   by the CLI's ``index``, ``demo``, ``eval`` on ``tests/data/mini_beir``,
+   ``bench --suite matmul``) against the same commands with ``--device
+   cpu``; ``compat.BM25`` on the 13-doc corpus against the
    oracle; ``compat.BM25v`` over phase 4's 524,288-doc CSC, which must route
    to ``SparseEngine`` (the default layout it builds and its batch ms are
    logged): 512 x 8 queries at k=1000, a weighted batch (also on phase
@@ -159,7 +161,7 @@ Phases (any failure raises and exits nonzero; nothing is caught):
 13. serving (``bm25_tpu_torch/serve.py``), every checked response held to
    ``ReferenceEngine`` under the comparator after its load stopped:
    (a) ``Server`` over phase 4's index (saved with the vocabulary w<i>
-   and a ``Tokenizer(stemmer=None)`` config) under ``engine_mode="auto"``,
+   and the default ``Tokenizer()`` config) under ``engine_mode="auto"``,
    which must route to ``SparseEngine`` (B1), with a 5 ms micro-batch
    window and warm-up (its first-use breakdown logged): 8 client threads
    for 20 s with the serving soak's query mix at top_k 10 (every 50th
@@ -221,7 +223,24 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``_multihost_main`` processes sharing the card over gloo, which must
    print ``MULTIHOST_OK``; (f) ``query --engine sharded_sparse`` equal to
    ``--engine sparse``.  B1, B2 and B3 must launch within the phase, no
-   plain twin.
+   plain twin;
+16. the default text path, stemmed text in and top-k out, with no
+   ``stemmer=None`` anywhere: the native library's compile seconds into
+   an empty build directory; (a) the headline's 524,288 docs as Zipf-word
+   text (``datasets.synthetic_corpus``) through ``Tokenizer()`` (C++), its
+   first 16,384 docs also through the Python path (equal tokens, timed
+   for scale), ``build_scored_index_flat`` with the native CSC and with
+   numpy (byte-equal, both timed), ``create_engine`` at the model's
+   layout (``SparseEngine``, B1) and 512 text queries of 8 words at
+   k=1000 and k=100, the first 64 against ``ReferenceEngine``; (b) 65,536
+   docs of 2-6 English fixture sentences, one in 100 with a non-ASCII
+   word: the hybrid tokens equal to the Python path's on every doc,
+   ``build_index``, ``create_engine`` (B3) and 256 text queries against
+   ``ReferenceEngine``, ``Retriever.fit(texts, session=cuda)``,
+   ``StreamingIndexBuilder()`` in 4 chunks bit-equal to ``build_index``;
+   the CLI's ``index``, ``query`` and ``eval`` on ``tests/data/mini_beir``
+   against ``--device cpu``.  B1 and B3 must launch within the phase; the
+   host seconds are logged beside the card's name and power limit.
 
 After the last phase no module of the JAX package may have been imported.
 The last lines are the kernels' JSON record (each kernel's launches on its
@@ -1694,8 +1713,8 @@ def library_entry(session) -> None:
         "the quick brown fox jumps over the lazy dog",
         "the brown rabbit hops under the tall tree",
     ]
-    tokenizer = Tokenizer(stemmer=None)  # the Snowball stemmer needs nltk
-    small, _ = build_index(corpus, tokenizer=tokenizer)
+    tokenizer = Tokenizer()
+    small, _ = build_index(corpus)
     engine = create_engine(small, hot_tokens=4, session=session)
     if not isinstance(engine, DenseEngine):
         raise AssertionError(f"auto picked {type(engine).__name__}")
@@ -1708,7 +1727,7 @@ def library_entry(session) -> None:
     log(f"[library] Retriever with create_engine's DenseEngine: top docs "
         f"{docs[:, 0].tolist()} scores "
         f"{[round(float(s), 4) for s in scores[:, 0]]} match ReferenceEngine")
-    fitted = Retriever.fit(corpus, tokenizer=tokenizer, session=session)
+    fitted = Retriever.fit(corpus, session=session)
     if not isinstance(fitted.engine, DenseEngine) or \
             fitted.engine.st.device.type != "cuda":
         raise AssertionError(f"Retriever.fit built {type(fitted.engine)}")
@@ -2474,8 +2493,7 @@ def entry_points(torch, session, index) -> None:
     import shutil
     import tempfile
 
-    from bm25_tpu_torch import (ReferenceEngine, SparseEngine, Tokenizer,
-                                build_index, create_engine)
+    from bm25_tpu_torch import ReferenceEngine, SparseEngine, create_engine
     from bm25_tpu_torch.bench import BenchConfig, make_queries
     from bm25_tpu_torch.compat import BM25, BM25v
     from bm25_tpu_torch.datasets import synthetic_corpus
@@ -2488,15 +2506,15 @@ def entry_points(torch, session, index) -> None:
     os.makedirs(scratch, exist_ok=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=scratch)
     try:
-        # the index is built through the library: the CLI's index command
-        # stems, as JAX's does, and the card's machine has no nltk; query
-        # reads the saved tokenizer config
+        # the CLI's index command, with its default (stemmed) tokenizer;
+        # query reads the saved tokenizer config
         idx = os.path.join(work, "idx")
-        _, stats = build_index(
-            synthetic_corpus(4000, vocab=3000, avg_len=24, seed=0),
-            tokenizer=Tokenizer(stemmer=None), save_to=idx)
-        log(f"[cli] build_index(..., Tokenizer(stemmer=None), save_to=...): "
-            f"{stats.num_docs} docs, vocab {stats.vocab_size}")
+        corpus = os.path.join(work, "docs.txt")
+        with open(corpus, "w") as f:
+            f.write("\n".join(synthetic_corpus(4000, vocab=3000, avg_len=24,
+                                               seed=0)))
+        built = cli(["index", corpus, "-o", idx])
+        log(f"[cli] index: {built.strip()}")
         info = json.loads(cli(["info", idx]))
         if info["num_docs"] != 4000:
             raise AssertionError(f"info: {info}")
@@ -2519,10 +2537,8 @@ def entry_points(torch, session, index) -> None:
         log("[cli] demo equal to --device cpu: "
             + " | ".join(demo.splitlines()[:2]))
         data = os.path.join(HERE, "tests", "data", "mini_beir")
-        ev = json.loads(cli(["--device", "cuda", "eval", data, "--stemmer",
-                             "none"]))
-        ev_cpu = json.loads(cli(["--device", "cpu", "eval", data,
-                                 "--stemmer", "none"]))
+        ev = json.loads(cli(["--device", "cuda", "eval", data]))
+        ev_cpu = json.loads(cli(["--device", "cpu", "eval", data]))
         if ev != ev_cpu:
             raise AssertionError(f"eval {ev} != --device cpu {ev_cpu}")
         log(f"[cli] eval mini_beir equal to --device cpu: {json.dumps(ev)}")
@@ -2875,14 +2891,14 @@ def search_server(torch, session, index, work, harness_p50) -> float:
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
-    tok = Tokenizer(stemmer=None)
+    tok = Tokenizer()
     vocab = {f"w{i}": i for i in range(index.vocab_size)}
     idx_dir = os.path.join(work, "search_idx")
     t0 = time.perf_counter()
     save_index(idx_dir, dataclasses.replace(index, vocab=vocab))
     save_tokenizer_config(idx_dir, tok)
-    log(f"[serve] (a) phase 4's index saved with the vocabulary w<i> and a "
-        f"Tokenizer(stemmer=None) config in {time.perf_counter() - t0:.1f} s")
+    log(f"[serve] (a) phase 4's index saved with the vocabulary w<i> and the "
+        f"default Tokenizer() config in {time.perf_counter() - t0:.1f} s")
     reset(ops.launches, ops.plain_calls, gr.launches, gr.plain_calls)
     t0 = time.perf_counter()
     srv = Server(idx_dir, port=0, engine_mode="auto", batch_window_ms=5.0,
@@ -3018,7 +3034,7 @@ def updatable_server(torch, session, work) -> None:
     from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
     ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
-    tok = Tokenizer(stemmer=None)
+    tok = Tokenizer()
     rng = np.random.default_rng(0)
     cum = np.cumsum(_zipf_probs(UPD_VOCAB))
     lengths = np.maximum(4, rng.poisson(32, UPD_DOCS))
@@ -3295,7 +3311,6 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
     from bm25_tpu_torch import (DenseEngine, ReferenceEngine, SparseEngine,
                                 Tokenizer)
     from bm25_tpu_torch.bench import make_queries, make_synthetic_index
-    from bm25_tpu_torch.index.io import save_tokenizer_config
     from bm25_tpu_torch.models.sparse import best_layout, layout_candidates
     from bm25_tpu_torch.ops import _build
     from bm25_tpu_torch.ops import gather_rows as gr
@@ -3396,7 +3411,7 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
     load.stop()
     if load.retries:
         raise AssertionError("503s with no reload running")
-    n = oracle_check(ref, Tokenizer(stemmer=None), vocab, load.kept,
+    n = oracle_check(ref, Tokenizer(), vocab, load.kept,
                      "(restart) load")
     code, h, _ = http(srv.port, "/healthz?deep=1")
     if code != 200 or h["status"] != "ok":
@@ -3409,29 +3424,9 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
         raise AssertionError("the restored server did not launch B1, or "
                              "ran a plain twin")
     srv.shutdown()
-    # with no index dir a restored server takes the default Tokenizer(),
-    # whose Snowball stemmer needs nltk, as in the JAX package; where nltk
-    # is missing (the card's machine) the reload target is a dir holding
-    # only the tokenizer's config, which has no index to reload either
-    try:
-        import nltk  # noqa: F401
-        bare_dir = None
-    except ImportError:
-        try:
-            Server(None, port=0, device_checkpoint=ck,
-                   engine_kwargs={"session": session})
-        except RuntimeError as e:
-            if "nltk" not in str(e):
-                raise
-            log(f"[restart] Server(None, device_checkpoint=...) without "
-                f"nltk: RuntimeError ({e})")
-        else:
-            raise AssertionError("the default Tokenizer() built without "
-                                 "nltk")
-        bare_dir = os.path.join(work, "tokenizer_only")
-        os.makedirs(bare_dir)
-        save_tokenizer_config(bare_dir, Tokenizer(stemmer=None))
-    bare = Server(bare_dir, port=0, device_checkpoint=ck,
+    # with no index dir a restored server takes the default Tokenizer()
+    # (the native Snowball stemmer) and has no index to reload
+    bare = Server(None, port=0, device_checkpoint=ck,
                   engine_kwargs={"session": session})
     bare.start_background()
     code, body, _ = http(bare.port, "/reload", {})
@@ -3445,10 +3440,9 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
         refused = str(e)
     else:
         raise AssertionError("updatable=True beside a checkpoint started")
-    log(f"[restart] a restored server with "
-        f"{'no index dir' if bare_dir is None else 'a tokenizer-only dir'}"
-        f" answers /reload with 400 ({body['error']!r}); updatable=True "
-        f"with a checkpoint raises ValueError ({refused!r})")
+    log(f"[restart] a restored server with no index dir (the default "
+        f"Tokenizer()) answers /reload with 400 ({body['error']!r}); "
+        f"updatable=True with a checkpoint raises ValueError ({refused!r})")
     del srv, bare
     torch.cuda.empty_cache()
 
@@ -3554,7 +3548,7 @@ def sharded(torch, session, index, cfg) -> None:
     import tempfile
 
     from bm25_tpu_torch import (DenseEngine, ReferenceEngine, ShardedEngine,
-                                ShardedSparseEngine, SparseEngine, Tokenizer,
+                                ShardedSparseEngine, SparseEngine,
                                 build_index)
     from bm25_tpu_torch.bench import (BenchConfig, make_queries,
                                       make_synthetic_index)
@@ -3786,7 +3780,7 @@ def sharded(torch, session, index, cfg) -> None:
     try:
         idx = os.path.join(work, "idx")
         build_index(synthetic_corpus(4000, vocab=3000, avg_len=24, seed=0),
-                    tokenizer=Tokenizer(stemmer=None), save_to=idx)
+                    save_to=idx)
         texts = ["w000007^2.5 w000120 w001500", "w000017 w000002",
                  "w000300^0.5 w000044 w002999 w000001"]
         out = {engine: cli(["--device", card.type, "query", idx, *texts,
@@ -3812,10 +3806,287 @@ def sharded(torch, session, index, cfg) -> None:
                              "B3, or ran a plain twin")
 
 
+TEXT_CHECKED = 64  # queries of corpus (a) held to ReferenceEngine
+FIXTURE_DOCS = 65536  # corpus (b)
+FIXTURE_QUERIES = 256
+PY_SAMPLE_DOCS = 16384  # the Python path's sample, for scale
+NON_ASCII_WORDS = ("café", "naïve", "Über", "straße", "résumé", "l’homme",
+                   "façade", "smörgåsbord", "Ελλάδα", "coöperate")
+
+
+def fixture_corpus(n: int, seed: int) -> tuple[list[str], list[str]]:
+    """Corpus (b): each document 2-6 sentences of
+    ``tests/data/english_fixture.txt`` drawn with replacement; one document
+    in 100 carries a word of ``NON_ASCII_WORDS``.  Returns (docs, the
+    fixture's sentences)."""
+    with open(os.path.join(HERE, "tests", "data", "english_fixture.txt"),
+              encoding="utf-8") as f:
+        lines = [line for line in f.read().splitlines() if line.strip()]
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(2, 7, n)
+    picks = rng.integers(0, len(lines), int(counts.sum()))
+    docs, pos = [], 0
+    for i, c in enumerate(counts):
+        doc = " ".join(lines[j] for j in picks[pos: pos + c])
+        pos += c
+        if i % 100 == 0:
+            words = doc.split(" ")
+            words.insert(int(rng.integers(0, len(words) + 1)),
+                         NON_ASCII_WORDS[(i // 100) % len(NON_ASCII_WORDS)])
+            doc = " ".join(words)
+        docs.append(doc)
+    return docs, lines
+
+
+def fixture_queries(lines: list[str], n: int, seed: int) -> list[str]:
+    """3-6 words of one fixture sentence a query; every 8th also carries a
+    non-ASCII word."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        words = lines[int(rng.integers(len(lines)))].split()
+        q = [words[j] for j in rng.integers(0, len(words),
+                                            int(rng.integers(3, 7)))]
+        if i % 8 == 0:
+            q.append(NON_ASCII_WORDS[(i // 8) % len(NON_ASCII_WORDS)])
+        out.append(" ".join(q))
+    return out
+
+
+def same_index(a, b, what: str) -> None:
+    """Two ScoredIndexes equal field for field, arrays byte for byte."""
+    for name in ("indptr", "indices", "data", "doc_lengths",
+                 "token_offsets"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or x.tobytes() != y.tobytes())):
+            raise AssertionError(f"{what}: {name} differs")
+    if a.vocab != b.vocab or a.num_docs != b.num_docs:
+        raise AssertionError(f"{what}: vocab or doc count differs")
+
+
+def text_path(torch, session) -> None:
+    """Phase 16: the default text path on the card, stemmed text in, top-k
+    out, with no ``stemmer=None`` anywhere: the port's native tokenizer,
+    Snowball stemmer and counting-sort CSC build (host C++) in front of
+    B1 and B3."""
+    from bm25_tpu_torch import (ReferenceEngine, Retriever, SparseEngine,
+                                StreamingIndexBuilder, Tokenizer,
+                                build_index, create_engine)
+    from bm25_tpu_torch.bench import BenchConfig, make_queries
+    from bm25_tpu_torch.datasets import synthetic_corpus
+    from bm25_tpu_torch.native import _build as native_build
+    from bm25_tpu_torch.native import loader
+    from bm25_tpu_torch.ops import _build
+    from bm25_tpu_torch.ops import gather_rows as gr
+    from bm25_tpu_torch.scoring import build_scored_index_flat, tf_csc_numpy
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    ops = importlib.import_module("bm25_tpu_torch.ops.ell_score")
+    reset(ops.launches, gr.launches)
+    scratch = os.path.join(HERE, "_scratch")
+    os.makedirs(scratch, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_text_", dir=scratch)
+    host = {}
+    try:
+        # the library's compile alone, into an empty build directory
+        saved = os.environ.get(_build.BUILD_DIR_ENV)
+        os.environ[_build.BUILD_DIR_ENV] = os.path.join(work, "build")
+        try:
+            with _build.collect_phases() as ph:
+                fresh = native_build.build()
+        finally:
+            if saved is None:
+                del os.environ[_build.BUILD_DIR_ENV]
+            else:
+                os.environ[_build.BUILD_DIR_ENV] = saved
+        host["compile_s"] = ph["native_build_s"]
+        log(f"[text] native library compiled from bm25_tpu_torch/native/src "
+            f"into an empty build dir in {host['compile_s']:.2f} s "
+            f"({os.path.basename(fresh)}, {native_build.find_cxx()}); "
+            f"loaded: {os.path.relpath(loader.get().path, HERE)}")
+
+        # (a) the headline's corpus as text
+        cfg = BenchConfig()
+        t0 = time.perf_counter()
+        texts = synthetic_corpus(SPARSE_DOCS, vocab=cfg.vocab,
+                                 avg_len=cfg.avg_len, seed=0)
+        log(f"[text] (a) {len(texts)} docs of Zipf words made in "
+            f"{time.perf_counter() - t0:.1f} s")
+        tok = Tokenizer()
+        t0 = time.perf_counter()
+        tc = tok.tokenize_corpus(texts)
+        host["a_tok_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = tok.tokenize_corpus(texts[:PY_SAMPLE_DOCS], vocab={})
+        host["a_py_s"] = time.perf_counter() - t0
+        nat = tok.tokenize_corpus(texts[:PY_SAMPLE_DOCS])
+        if py.vocab != nat.vocab or not all(
+                np.array_equal(x, y) for x, y in zip(py.ids, nat.ids)):
+            raise AssertionError("(a) native tokens differ from the Python "
+                                 "path's")
+        flat = np.concatenate(tc.ids)
+        lengths = tc.doc_lengths
+        csc = {}
+        for name, fn in (("numpy", tf_csc_numpy),
+                         ("native", loader.get().build_tf_csc)):
+            t0 = time.perf_counter()
+            csc[name] = fn(flat, lengths, len(tc.vocab))
+            host[f"a_csc_{name}_s"] = time.perf_counter() - t0
+        for part, x, y in zip(("indptr", "doc ids", "tf"), csc["native"],
+                              csc["numpy"]):
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                raise AssertionError(f"(a) native CSC: {part} differs from "
+                                     "the numpy oracle's")
+        t0 = time.perf_counter()
+        index = build_scored_index_flat(flat, lengths,
+                                        vocab_size=len(tc.vocab),
+                                        vocab=tc.vocab)
+        host["a_index_s"] = time.perf_counter() - t0
+        log(f"[text] (a) Tokenizer().tokenize_corpus: {len(flat)} tokens, "
+            f"vocab {len(tc.vocab)}, {host['a_tok_s']:.2f} s "
+            f"({len(texts) / host['a_tok_s']:.0f} docs/s, native); the "
+            f"Python path (native stemmer) on the first {PY_SAMPLE_DOCS} "
+            f"docs {host['a_py_s']:.2f} s "
+            f"({PY_SAMPLE_DOCS / host['a_py_s']:.0f} docs/s), its tokens "
+            f"equal")
+        log(f"[text] (a) the CSC of {index.nnz} postings: native counting "
+            f"sort {host['a_csc_native_s']:.2f} s, numpy oracle "
+            f"{host['a_csc_numpy_s']:.2f} s, byte-equal; "
+            f"build_scored_index_flat (native CSC, scoring included) "
+            f"{host['a_index_s']:.2f} s")
+        del csc, py, nat
+        t0 = time.perf_counter()
+        engine = create_engine(index, session=session)
+        torch.cuda.synchronize()
+        if not isinstance(engine, SparseEngine):
+            raise AssertionError(f"(a) auto built {type(engine).__name__}")
+        widths = [b["tokT"].shape[0] for b in engine.buckets if "tokT" in b]
+        log(f"[text] (a) create_engine: SparseEngine in "
+            f"{time.perf_counter() - t0:.1f} s at the model's layout: "
+            f"hot_h={engine.hot_h}, buckets of widths {widths}")
+        words = np.array([f"w{i:06d}" for i in range(cfg.vocab)])
+        qtexts = [" ".join(words[row])
+                  for row in make_queries(cfg)[: cfg.batch]]
+        q = tok.tokenize_queries(qtexts, index.vocab)
+        if q.shape != (cfg.batch, cfg.query_len):
+            raise AssertionError(f"(a) query matrix {q.shape}")
+        ref = ReferenceEngine.from_scored_index(index)
+        sub = slice(0, TEXT_CHECKED)
+        for k in (cfg.top_k, cfg.top_k2):
+            t0 = time.perf_counter()
+            docs, scores = engine.search(q, top_k=k)
+            ms_ = (time.perf_counter() - t0) * 1e3
+            if docs.shape != (cfg.batch, k) or not np.isfinite(scores).all():
+                raise AssertionError(f"(a) k={k}: bad result {docs.shape}")
+            assert_matches_oracle(docs[sub], scores[sub],
+                                  *ref.search(q[sub], top_k=k))
+            log(f"[text] (a) {cfg.batch} text queries of {cfg.query_len} "
+                f"words at k={k}: {ms_:.1f} ms (first call), first "
+                f"{TEXT_CHECKED} match ReferenceEngine")
+        del engine, ref, index, tc, texts, flat
+        torch.cuda.empty_cache()
+
+        # (b) English sentences, one doc in 100 non-ASCII
+        docs_b, lines = fixture_corpus(FIXTURE_DOCS, seed=0)
+        t0 = time.perf_counter()
+        tb = tok.tokenize_corpus(docs_b)
+        host["b_tok_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py_b = tok.tokenize_corpus(docs_b[:PY_SAMPLE_DOCS], vocab={})
+        host["b_py_s"] = time.perf_counter() - t0
+        py_rest = tok.tokenize_corpus(docs_b, vocab={})
+        if py_rest.vocab != tb.vocab or not all(
+                np.array_equal(x, y) for x, y in zip(py_rest.ids, tb.ids)):
+            raise AssertionError("(b) hybrid native tokens differ from the "
+                                 "Python path's")
+        non_ascii = sum(not d.isascii() for d in docs_b)
+        log(f"[text] (b) {FIXTURE_DOCS} docs of fixture sentences "
+            f"({non_ascii} non-ASCII): Tokenizer().tokenize_corpus "
+            f"{host['b_tok_s']:.2f} s ({FIXTURE_DOCS / host['b_tok_s']:.0f} "
+            f"docs/s, native with the non-ASCII docs in Python), vocab "
+            f"{len(tb.vocab)}; the Python path on the first "
+            f"{PY_SAMPLE_DOCS} docs {host['b_py_s']:.2f} s "
+            f"({PY_SAMPLE_DOCS / host['b_py_s']:.0f} docs/s); on all "
+            f"{FIXTURE_DOCS} docs its vocab and ids equal the native ones")
+        del py_b, py_rest
+        for w in NON_ASCII_WORDS:
+            if tok.words(w)[0] not in tb.vocab:
+                raise AssertionError(f"(b) {w!r} missing from the vocab")
+        t0 = time.perf_counter()
+        index_b, stats = build_index(docs_b)
+        build_b_s = time.perf_counter() - t0
+        engine_b = create_engine(index_b, session=session)
+        ref_b = ReferenceEngine.from_scored_index(index_b)
+        qb = fixture_queries(lines, FIXTURE_QUERIES, seed=1)
+        ids_b = tok.tokenize_queries(qb, index_b.vocab)
+        for k in (10, 100):
+            assert_matches_oracle(*engine_b.search(ids_b, top_k=k),
+                                  *ref_b.search(ids_b, top_k=k))
+        log(f"[text] (b) build_index: {stats.num_docs} docs, vocab "
+            f"{stats.vocab_size}, {stats.nnz} postings in {build_b_s:.2f} s; "
+            f"create_engine: {type(engine_b).__name__}; {len(qb)} text "
+            f"queries at k=10 and k=100 match ReferenceEngine")
+        del engine_b
+        fitted = Retriever.fit(docs_b, session=session)
+        got = fitted.retrieve(qb, k=10)
+        assert_matches_oracle(*got, *ref_b.search(ids_b, top_k=10))
+        log(f"[text] (b) Retriever.fit(texts, session=cuda): "
+            f"{type(fitted.engine).__name__} on "
+            f"{fitted.engine.session.device}, {len(qb)} text queries match "
+            f"ReferenceEngine")
+        del fitted
+        t0 = time.perf_counter()
+        sb = StreamingIndexBuilder()
+        step = -(-FIXTURE_DOCS // 4)
+        for i in range(0, FIXTURE_DOCS, step):
+            sb.add(docs_b[i: i + step])
+        streamed = sb.finalize()[0]
+        same_index(streamed, index_b, "(b) StreamingIndexBuilder")
+        log(f"[text] (b) StreamingIndexBuilder() in 4 chunks: bit-equal to "
+            f"build_index ({time.perf_counter() - t0:.2f} s)")
+        del streamed, sb, ref_b, index_b
+        torch.cuda.empty_cache()
+
+        # the CLI's index, query and eval on tests/data/mini_beir
+        data = os.path.join(HERE, "tests", "data", "mini_beir")
+        idx = os.path.join(work, "mini_idx")
+        cli(["index", os.path.join(data, "corpus.jsonl"), "-o", idx])
+        args = ["query", idx, "Solar panels^2 and inverters",
+                "rooftop irradiance watts", "photovoltaic grids", "-k", "10"]
+        for engine_mode in ("dense", "sparse"):
+            a = [*args, "--engine", engine_mode]
+            same_ranking(query_results(cli(["--device", "cuda", *a])),
+                         query_results(cli(["--device", "cpu", *a])),
+                         f"(cli) query --engine {engine_mode}")
+        ev = json.loads(cli(["--device", "cuda", "eval", data]))
+        ev_cpu = json.loads(cli(["--device", "cpu", "eval", data]))
+        if ev != ev_cpu:
+            raise AssertionError(f"eval {ev} != --device cpu {ev_cpu}")
+        log(f"[text] CLI index / query (dense, sparse) / eval on mini_beir "
+            f"with the default tokenizer equal to --device cpu: "
+            f"{json.dumps(ev)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {**ops.launches, **gr.launches}
+    log(f"[text] kernel launches over this phase {launches}")
+    if not (launches["ell_score_fused"] and launches["gather_add_rows"]):
+        raise AssertionError("the text path did not run B1 and B3")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log("[text] host seconds on the card's machine (" + smi + "): "
+        + json.dumps({k: round(v, 3) for k, v in host.items()}))
+
+
 def drive(torch, dev) -> dict:
-    """Phases 2-15 on device ``dev``; returns the kernels' record."""
+    """Phases 2-16 on device ``dev``; returns the kernels' record."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from bm25_tpu_torch import Session
     from bm25_tpu_torch.bench import BenchConfig
+    from bm25_tpu_torch.native import _build as native_build
     from bm25_tpu_torch.ops import _build
     from bm25_tpu_torch.ops import gather_rows as gr
     from bm25_tpu_torch.ops import topk as tk
@@ -3827,11 +4098,16 @@ def drive(torch, dev) -> dict:
 
     with Phase("2. build"):
         t0 = time.perf_counter()
-        libs = _build.build_all(["ell_score", "gather_rows", "topk",
-                                 "matmul", "super_row_gather",
-                                 "matmul_schedules"])
+        with _build.collect_phases() as ph, ThreadPoolExecutor(1) as pool:
+            text_lib = pool.submit(native_build.build)
+            libs = _build.build_all(["ell_score", "gather_rows", "topk",
+                                     "matmul", "super_row_gather",
+                                     "matmul_schedules"])
+            text_lib = text_lib.result()
         log(f"[build] {len(libs)} libraries in "
-            f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+            f"{time.perf_counter() - t0:.1f} s (parallel nvcc), and the "
+            f"native text library {os.path.relpath(text_lib, HERE)} beside "
+            f"them ({ph['native_build_s']:.1f} s of C++ compile)")
         for name, path in libs.items():
             log(f"[build] {os.path.relpath(path, HERE)}")
             with open(path[:-3] + ".log") as f:
@@ -3896,6 +4172,10 @@ def drive(torch, dev) -> dict:
     torch.cuda.empty_cache()
     with Phase("15. sharded engines"):
         sharded(torch, session, index, BenchConfig())
+    del index
+    torch.cuda.empty_cache()
+    with Phase("16. the default text path"):
+        text_path(torch, session)
 
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

@@ -222,3 +222,86 @@ def test_build_dir_follows_the_environment(tmp_path, monkeypatch):
         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip() == str(imported / os.path.basename(lib))
+
+
+def test_native_library_travels_with_the_cache(tmp_path, monkeypatch):
+    """The native text library lies in the build directory beside the
+    kernels, so ``cache export`` / ``import`` carry it; the fingerprint
+    names the C++ compiler, and an archive from another compiler is
+    refused; a fresh process pointed at the imported directory loads the
+    library without a compiler."""
+    from bm25_tpu_torch.native import _build as native_build
+    from bm25_tpu_torch.native import loader
+
+    with open(loader.get().path, "rb") as f:  # the library, built once
+        so = f.read()
+    built = tmp_path / "built"
+    built.mkdir()
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(built))
+    lib = native_build.library_path()
+    assert os.path.dirname(lib) == str(built)
+    (built / os.path.basename(lib)).write_bytes(so)
+    (built / "libtopk-0123456789abcdef.so").write_bytes(b"kernel")
+    archive = str(tmp_path / "c.tar.gz")
+    out = cc.export_cache(archive)
+    assert out["entries"] == 2
+    cxx = out["manifest"]["fingerprint"]["cxx"]
+    assert cxx and cxx == subprocess.run(
+        [native_build.find_cxx(), "--version"], capture_output=True,
+        text=True).stdout.splitlines()[0]
+
+    doctored = str(tmp_path / "doctored.tar.gz")
+    _doctor(archive, doctored, cxx="clang version 99.0.0")
+    with pytest.raises(ValueError, match="cxx: archive='clang"):
+        cc.import_cache(doctored, path=str(tmp_path / "refused"))
+
+    imported = tmp_path / "imported"
+    assert main(["cache", "import", archive, "--dir", str(imported)]) == 0
+    assert sorted(os.listdir(imported)) == sorted(os.listdir(built))
+    env = {**os.environ, _build.BUILD_DIR_ENV: str(imported),
+           "CXX": str(tmp_path / "no-such-compiler"), "PYTHONPATH": REPO}
+    res = subprocess.run(
+        [sys.executable, "-c", "from bm25_tpu_torch.native import loader; "
+         "p = loader.get(); print(p.path, p.stem('Running'))"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.split() == [str(imported / os.path.basename(lib)),
+                                  "run"]
+
+
+FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: counts its runs, takes a while, writes its -o target
+echo run >> "$(dirname "$0")/runs"
+sleep 0.3
+while [ "$#" -gt 0 ]; do
+  if [ "$1" = "-o" ]; then printf 'lib' > "$2"; fi
+  shift
+done
+echo "ptxas info: 0 bytes spill stores"
+"""
+
+
+def test_concurrent_kernel_builds_compile_once(tmp_path, monkeypatch):
+    """Threads that build one kernel library at once share the build
+    protocol of the native library (``_build._compile``): one compiler
+    run under the library's lock, one file renamed into place, its log
+    beside it, and no lock among the cache's entries."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(nvcc))
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "build"))
+    with _build.collect_phases() as ph, ThreadPoolExecutor(4) as pool:
+        paths = list(pool.map(_build.build, ["topk"] * 4))
+    assert len(set(paths)) == 1 and paths[0] == _build.library_path("topk")
+    assert (tmp_path / "bin" / "runs").read_text().splitlines() == ["run"]
+    assert ph["nvcc_build_s"] >= 0.3
+    with open(paths[0], "rb") as f:
+        assert f.read() == b"lib"
+    name = os.path.basename(paths[0])
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [name, name + ".lock", name[:-3] + ".log"])
+    assert cc.cache_info()["entries"] == 2

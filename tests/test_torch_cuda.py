@@ -1612,8 +1612,9 @@ def _rows(results):
 
 @pytest.fixture
 def served_index(tmp_path):
-    """A 20,000-doc Zipf index saved with the vocabulary w<i> and a
-    Tokenizer(stemmer=None) config (the card's machine has no nltk)."""
+    """A 20,000-doc Zipf index saved with the vocabulary w<i> and the
+    default tokenizer's config (its native Snowball stemmer needs no
+    nltk)."""
     import dataclasses
 
     from bm25_tpu_torch import Tokenizer
@@ -1623,7 +1624,7 @@ def served_index(tmp_path):
     index = dataclasses.replace(
         index, vocab={f"w{i}": i for i in range(index.vocab_size)})
     save_index(str(tmp_path / "idx"), index)
-    save_tokenizer_config(str(tmp_path / "idx"), Tokenizer(stemmer=None))
+    save_tokenizer_config(str(tmp_path / "idx"), Tokenizer())
     return str(tmp_path / "idx"), index
 
 
@@ -1707,7 +1708,7 @@ def test_cuda_updatable_cycle_against_the_oracle(cuda_device, tmp_path,
     rng = np.random.default_rng(1)
     texts = [" ".join(f"w{t}" for t in rng.integers(0, 300, rng.integers(
         3, 20))) for _ in range(3000)]
-    tok = Tokenizer(stemmer=None)
+    tok = Tokenizer()
     d = str(tmp_path / "idx")
     index, _ = build_index(texts, tokenizer=tok, save_to=d)
     srv = Server(d, port=0, engine_mode=mode, updatable=True,

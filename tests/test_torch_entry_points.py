@@ -110,13 +110,29 @@ def test_eval_metrics_equal_jax(capsys, extra):
     assert got["num_queries"] == 16
 
 
-def test_eval_without_stemmer_and_run_file(tmp_path, capsys):
-    run_file = tmp_path / "run.trec"
-    out = json.loads(run(main, ["--device", "cpu", "eval", MINI_BEIR,
-                                "--stemmer", "none", "--run-file",
-                                str(run_file)], capsys))
-    assert out["run_file"] == str(run_file) and run_file.stat().st_size
-    assert 0 < out["mrr@10"] <= 1
+def test_eval_run_file_with_the_default_tokenizer(tmp_path, capsys):
+    """``--run-file`` with the default (stemmed) tokenizer: the metrics and
+    the TREC run equal JAX's, byte for byte."""
+    out = {}
+    for name, cli, dev in (("port", main, ["--device", "cpu"]),
+                           ("jax", jax_main, [])):
+        run_file = tmp_path / f"{name}.trec"
+        out[name] = json.loads(run(cli, [*dev, "eval", MINI_BEIR,
+                                         "--run-file", str(run_file)],
+                                   capsys))
+        assert out[name].pop("run_file") == str(run_file)
+    assert out["port"] == out["jax"] and 0 < out["port"]["mrr@10"] <= 1
+    assert (tmp_path / "port.trec").read_bytes() == \
+        (tmp_path / "jax.trec").read_bytes()
+    assert (tmp_path / "port.trec").stat().st_size
+
+
+def test_eval_takes_the_jax_cli_options_only(capsys):
+    """``eval`` has no ``--stemmer``, nor has JAX's: both CLIs reject it."""
+    for cli in (main, jax_main):
+        with pytest.raises(SystemExit):
+            cli(["eval", MINI_BEIR, "--stemmer", "none"])
+    assert "--stemmer" in capsys.readouterr().err
 
 
 def test_index_takes_the_jax_cli_options_only(tmp_path, animal_corpus,

@@ -18,7 +18,7 @@ PKG = os.path.join(REPO, "bm25_tpu_torch")
 BLOCKED_RUN = textwrap.dedent("""
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "bm25_tpu")
+    BLOCKED = ("jax", "jaxlib", "bm25_tpu", "nltk")
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -89,7 +89,7 @@ BLOCKED_RUN = textwrap.dedent("""
     assert fn(*args)[1].shape == (4, 8)
     assert gather_rows.plain_calls["gather_add_rows"] > 0
     texts = ["a cat likes to purr", "the dog barks", "fish swim in water"]
-    r = Retriever.fit(texts, tokenizer=Tokenizer(stemmer=None), session=cpu)
+    r = Retriever.fit(texts, session=cpu)
     assert isinstance(r.engine, DenseEngine) and engine_device_bytes(r.engine)
     docs, _ = r.retrieve(["cat purr", "dog"], k=2)
     assert docs[:, 0].tolist() == [0, 1]
@@ -106,15 +106,14 @@ BLOCKED_RUN = textwrap.dedent("""
     assert bm25.get_top_n(["dog"], texts, n=1)[0][1] == "the dog barks"
     ds = synthetic_beir_dataset(num_docs=200, num_queries=4, vocab=500,
                                 avg_len=10)
-    assert evaluate_dataset(ds, top_k=5, log=len, session=cpu,
-                            tokenizer=Tokenizer(stemmer=None))["num_queries"]
+    assert evaluate_dataset(ds, top_k=5, log=len, session=cpu)["num_queries"]
     import json, os, tempfile, urllib.request
     from bm25_tpu_torch import Server, build_index
     from bm25_tpu_torch.index.updates import UpdatableRetriever
     from bm25_tpu_torch.runtime.health import device_probe, engine_probe
     from bm25_tpu_torch.runtime.profiling import compile_phase_collector
     with tempfile.TemporaryDirectory() as d:
-        build_index(texts, tokenizer=Tokenizer(stemmer=None), save_to=d)
+        build_index(texts, save_to=d)
         srv = Server(d, port=0, engine_kwargs={"session": cpu},
                      updatable=True, warmup_top_k=2)
         srv.start_background()
@@ -133,9 +132,8 @@ BLOCKED_RUN = textwrap.dedent("""
     assert engine_probe(engine).ok
     with compile_phase_collector() as phases:
         pass
-    assert set(phases) == {"nvcc_build_s", "library_load_s"}
-    u = UpdatableRetriever.fit(texts, tokenizer=Tokenizer(stemmer=None),
-                               engine_kwargs={"session": cpu})
+    assert set(phases) == {"nvcc_build_s", "native_build_s", "library_load_s"}
+    u = UpdatableRetriever.fit(texts, engine_kwargs={"session": cpu})
     u.add_documents(["a cat chases the dog"])
     assert u.retrieve(["chases"], k=1)[0][0, 0] == 3
     from bm25_tpu_torch import (StreamingIndexBuilder, load_device_checkpoint,
@@ -156,9 +154,25 @@ BLOCKED_RUN = textwrap.dedent("""
     assert environment_fingerprint()["torch"] == torch.__version__
     assert len(warm_engine(back, top_ks=(3,), batch_sizes=(1,),
                            routed_batch=8)) == 2
-    sb = StreamingIndexBuilder(tokenizer=Tokenizer(stemmer=None))
+    sb = StreamingIndexBuilder()
     sb.add(texts)
-    assert sb.finalize()[0].num_docs == 3
+    streamed = sb.finalize()[0]
+    assert streamed.num_docs == 3
+    built, _ = build_index(texts)
+    assert streamed.vocab == built.vocab
+    assert np.array_equal(streamed.data, built.data)
+    # the default text path without nltk: the port's native stemmer and
+    # library, built under the port's build directory
+    from bm25_tpu_torch.native import loader
+    from bm25_tpu_torch.ops import _build
+    tok = Tokenizer()
+    assert tok.words("Running felines purr") == ["run", "felin", "purr"]
+    assert tok.tokenize_corpus(["Über cafés", "cats"]).vocab == {
+        "über": 0, "café": 1, "cat": 2}
+    lib = loader.get().path
+    assert os.path.dirname(lib) == _build.build_dir()
+    assert os.path.basename(lib).startswith("libbm25text-")
+    assert not lib.startswith(os.path.join(os.getcwd(), "bm25_tpu") + os.sep)
     import bm25_tpu_torch.parallel
     from bm25_tpu_torch import ShardedEngine, ShardedSparseEngine
     from bm25_tpu_torch.entry import dryrun_multichip

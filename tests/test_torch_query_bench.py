@@ -96,7 +96,8 @@ def test_cold_start_row(records):
     assert all(cold[key] > 0 for key in keys)
     assert set(cold["first_use"]) == {"cold", "warm", "cache_import"}
     for phases in cold["first_use"].values():
-        assert phases == {"nvcc_build_s": 0.0, "library_load_s": 0.0}
+        assert phases == {"nvcc_build_s": 0.0, "native_build_s": 0.0,
+                          "library_load_s": 0.0}
     assert cold["upload_init_warm_s"] == port["extra"]["upload_init_s"]
 
 

@@ -83,7 +83,8 @@ def test_compile_phase_collector_keys_and_zero_without_builds():
     with profiling.compile_phase_collector() as phases:
         DenseEngine.from_scored_index(_index(), session=CPU).search(
             np.zeros((1, 8), np.int32), top_k=3)
-    assert phases == {"nvcc_build_s": 0.0, "library_load_s": 0.0}
+    assert phases == {"nvcc_build_s": 0.0, "native_build_s": 0.0,
+                      "library_load_s": 0.0}
 
 
 def test_compile_phase_collector_charges_first_use(monkeypatch, tmp_path):

@@ -399,6 +399,16 @@ def test_auto_compaction_counted_before_it_is_published(tmp_path_factory,
         record()
 
     srv.metrics.record_compaction = counting
+    # the fold waits until the poller has read the grown delta, so a
+    # poller slower than the 0.05 s policy tick cannot miss it
+    grown_read = threading.Event()
+    compact = srv.compact
+
+    def compact_once_read(*a, **kw):
+        grown_read.wait(timeout=30)
+        return compact(*a, **kw)
+
+    srv.compact = compact_once_read
     srv.start_background()
     seen, stop = [], threading.Event()
 
@@ -408,6 +418,8 @@ def test_auto_compaction_counted_before_it_is_published(tmp_path_factory,
             if "updates" in h:
                 seen.append((h["updates"]["delta_docs"],
                              h["metrics"]["compactions"]))
+                if seen[-1][0] == 3:
+                    grown_read.set()
 
     poller = threading.Thread(target=poll)
     try:
@@ -1038,9 +1050,10 @@ def test_server_warmup(tmp_path_factory, animal_corpus, capsys):
         assert "warmup (top_k=3)" in capsys.readouterr().out
         bd = srv.last_warmup_breakdown
         assert bd is not None and bd["wall_s"] >= 0
-        assert set(bd) == {"wall_s", "nvcc_build_s", "library_load_s",
-                           "other_s"}
+        assert set(bd) == {"wall_s", "nvcc_build_s", "native_build_s",
+                           "library_load_s", "other_s"}
         assert bd["nvcc_build_s"] == bd["library_load_s"] == 0.0  # CPU
+        assert bd["native_build_s"] == 0.0  # the warm-up tokenizes nothing
         srv.start_background()
         out = _post(srv, {"queries": ["a cat that purrs"], "top_k": 3})
         assert out["results"][0][0]["doc"] == 0

@@ -24,7 +24,7 @@ from bm25_tpu_torch.runtime.warmup import (_query_matrix, default_plan,
                                            warm_engine)
 
 CPU = Session("cpu")
-PHASES = ("nvcc_build_s", "library_load_s")
+PHASES = ("nvcc_build_s", "native_build_s", "library_load_s")
 
 
 @pytest.fixture(scope="module")
