@@ -33,9 +33,25 @@ and, per corpus and k, the layout the model picks beside the fastest
 measured one.
 
 Run on the card: ``python -m bm25_tpu_torch.bench.layout_sweep --sweep
---sel-grid --out chiprun_out/layout_sweep.jsonl``; then on any host:
-``python -m bm25_tpu_torch.bench.layout_sweep --fit
-chiprun_out/layout_sweep.jsonl``.
+--sel-grid --out sweep.jsonl``; then on any host: ``python -m
+bm25_tpu_torch.bench.layout_sweep --fit sweep.jsonl``.  The sweep's
+engines do not route (``route_cold=False``): the layout model prices
+unrouted batches.
+
+``--route-sweep`` times routed steps for the cold-width routing's chunk
+DP (``models.sparse._chunk_bounds_dp``): ``SparseEngine`` on the corpus
+at ``--route-h`` hot tokens and 2 buckets, one chunk at each height of
+``ROUTE_HEIGHTS`` (32-512) and cold width of ``ROUTE_COLD`` (2-64), at
+k=1000 and 100 (the device step over ``--iters`` steps, CUDA events, as
+the harness times it).  Each row's ids are drawn from the benchmark's
+Zipf query distribution until it holds that many cold ids, so the full
+ids carry the hot ids such a query has.  ``--fit-route FILE [FILE
+...]`` (host only) fits ``ms = u * (rows * (c0_k + 2 T + 2) + fixed)``
+by least squares (one u and one fixed, a c0 a k) and prints
+``CHUNK_C0_UNITS`` and ``CHUNK_FIXED_UNITS`` in the DP's scan units, each
+file's own fit beside the joint one (run the sweep twice, into two
+files, to see the constants hold from pass to pass), and the measured
+against modelled grid.
 """
 
 from __future__ import annotations
@@ -59,6 +75,8 @@ SEL_Q = 512
 PRIMER = "spin_kernel"  # the kernel of torch.cuda._sleep
 B1_KERNELS = {"scan": "ell_scan_kernel", "hot": "ell_hot_kernel",
               "table": "ell_table_kernel"}
+ROUTE_HEIGHTS = (32, 64, 128, 256, 512)
+ROUTE_COLD = (2, 4, 8, 16, 32, 64)
 
 
 def card(session) -> str:
@@ -180,10 +198,11 @@ def sweep(args, session, out) -> None:
                               if "tokT" in b],
                    "build_s": round(build_s, 2), "q": len(queries),
                    "t": queries.shape[1], "card": smi}
-            padded = engine.plan_chunks(queries)
+            engine.route_cold = False  # the model prices unrouted batches
+            plan = engine.plan_chunks(queries)[1]
             for k in args.ks:
                 step = ms.make_sparse_query_step(k, engine.hot_h)
-                chunks = [session.put(p) for _cq, p, _w in padded]
+                chunks = [session.put(c.padded) for c in plan]
 
                 def call():
                     for ids in chunks:
@@ -262,6 +281,137 @@ def sel_grid(args, session, out) -> None:
         torch.cuda.empty_cache()
 
 
+def routed_rows(index, hot_table: np.ndarray, q: int, t_cold: int,
+                seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(q, T) full ids and (q, t_cold) cold ids: each row drawn from the
+    benchmark's Zipf query distribution until it holds ``t_cold`` cold
+    ids (or 512 ids), the full row every id drawn."""
+    from bm25_tpu_torch.bench.query_bench import _zipf_probs
+
+    rng = np.random.default_rng(seed)
+    cum = np.cumsum(_zipf_probs(index.vocab_size))
+    rows, colds = [], []
+    for _ in range(q):
+        drawn = np.clip(np.searchsorted(cum, rng.random(512)), 0,
+                        index.vocab_size - 1).astype(np.int32)
+        cold = np.flatnonzero(hot_table[drawn] < 0)
+        end = cold[t_cold - 1] + 1 if len(cold) >= t_cold else len(drawn)
+        rows.append(drawn[:end])
+        colds.append(drawn[cold[cold < end]])
+    t = max(len(r) for r in rows)
+    full = np.full((q, t), -1, np.int32)
+    cold_ids = np.full((q, t_cold), -1, np.int32)
+    for i, (r, c) in enumerate(zip(rows, colds)):
+        full[i, : len(r)] = r
+        cold_ids[i, : len(c)] = c
+    return full, cold_ids
+
+
+def route_sweep(args, session, out) -> None:
+    """Routed steps at every chunk height and cold width (module
+    docstring)."""
+    from bm25_tpu_torch.bench.query_bench import _time_step_chunk
+    from bm25_tpu_torch.models import sparse as ms
+    from bm25_tpu_torch.utils.padding import next_pow2_at_least
+
+    smi = card(session)
+    _cfg, index, _queries = _corpus(args.corpus)
+    h = args.route_h
+    engine = ms.SparseEngine.from_scored_index(
+        index, session=session, hot_tokens=h,
+        hot_budget_bytes=max(h, 1) * index.num_docs * 4, max_buckets=2)
+    hot = engine.hot_table_host
+    for t_cold in ROUTE_COLD:
+        full, cold = routed_rows(index, hot, max(ROUTE_HEIGHTS), t_cold,
+                                 seed=t_cold)
+        width = next_pow2_at_least(max(full.shape[1], 8))
+        full = np.pad(full, ((0, 0), (0, width - full.shape[1])),
+                      constant_values=-1)
+        for q in ROUTE_HEIGHTS:
+            ids, cold_ids = session.put(full[:q]), session.put(cold[:q])
+            for k in args.ks:
+                step = engine.query_step(k)
+                step_ms = _time_step_chunk(engine, step, ids, args.iters,
+                                           cold_ids)
+                rec = {"route": True, "corpus": args.corpus,
+                       "num_docs": index.num_docs, "h": engine.hot_h,
+                       "buckets": len(engine.buckets), "height": q,
+                       "cold_width": t_cold, "full_width": width, "k": k,
+                       "ms": step_ms, "card": smi}
+                print(json.dumps(rec), file=out, flush=True)
+                print(f"[route] q={q} T_c={t_cold} k={k}: {step_ms:.4f} ms",
+                      file=sys.stderr, flush=True)
+
+
+def _route_lines(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f
+                if line.startswith("{") and '"route": true' in line]
+
+
+def fit_route(files: list[str]) -> dict:
+    """The DP's costs from ``--route-sweep`` lines (module docstring):
+    ``{"CHUNK_C0_UNITS": {k: c0}, "CHUNK_FIXED_UNITS": f, "unit_ms": u,
+    "rows": [...], "cards": [...]}``, every file's readings fitted at
+    once."""
+    recs = [r for path in files for r in _route_lines(path)]
+    ks = sorted({r["k"] for r in recs})
+    # ms = a * rows (2 T + 2) + sum_k b_k rows [k] + c
+    cols = [np.array([r["height"] * (2 * r["cold_width"] + 2)
+                      for r in recs], float)]
+    cols += [np.array([r["height"] * (r["k"] == k) for r in recs], float)
+             for k in ks]
+    cols.append(np.ones(len(recs)))
+    x, *_ = np.linalg.lstsq(np.stack(cols, axis=1),
+                            np.array([r["ms"] for r in recs]), rcond=None)
+    unit = float(x[0])
+    return {"CHUNK_C0_UNITS": {k: float(x[1 + i] / unit)
+                               for i, k in enumerate(ks)},
+            "CHUNK_FIXED_UNITS": float(x[-1] / unit), "unit_ms": unit,
+            "rows": recs, "cards": sorted({r["card"] for r in recs})}
+
+
+def _route_constants(fitted: dict) -> str:
+    return json.dumps({k: fitted[k] for k in (
+        "CHUNK_C0_UNITS", "CHUNK_FIXED_UNITS", "unit_ms")})
+
+
+def report_route(files: list[str]) -> None:
+    """Each file's fit alone (how stable the constants are from pass to
+    pass), the fit of all of them, and a grid a k: each chunk height and
+    cold width's readings, one a file, over the joint fit's model ms."""
+    fitted = fit_route(files)
+    print(f"cards: {fitted['cards']}")
+    if len(files) > 1:
+        for path in files:
+            print(f"{path} alone: {_route_constants(fit_route([path]))}")
+    print(f"all: {_route_constants(fitted)}")
+    u, c0, fixed = (fitted["unit_ms"], fitted["CHUNK_C0_UNITS"],
+                    fitted["CHUNK_FIXED_UNITS"])
+    cell: dict = {}
+    for r in fitted["rows"]:
+        cell.setdefault((r["k"], r["height"], r["cold_width"]),
+                        []).append(r["ms"])
+    errs = [abs(u * (r["height"] * (c0[r["k"]] + 2 * r["cold_width"] + 2)
+                     + fixed) - r["ms"]) / r["ms"] for r in fitted["rows"]]
+    widths = sorted({w for _, _, w in cell})
+    for k in sorted({k for k, _, _ in cell}, reverse=True):
+        print(f"\nk={k}: measured ms (a reading a file) / model ms")
+        print("| height | " + " | ".join(f"T_c={w}" for w in widths) + " |")
+        print("|---" * (len(widths) + 1) + "|")
+        for q in sorted({q for kk, q, _ in cell if kk == k}):
+            row = []
+            for w in widths:
+                got = cell.get((k, q, w))
+                model = u * (q * (c0[k] + 2 * w + 2) + fixed)
+                row.append("-" if got is None else
+                           ", ".join(f"{x:.3f}" for x in got)
+                           + f" / {model:.3f}")
+            print(f"| {q} | " + " | ".join(row) + " |")
+    print(f"\nerror over {len(errs)} readings: median "
+          f"{np.median(errs):.3f}, max {max(errs):.3f}")
+
+
 def _lstsq(cols: list[np.ndarray], y: np.ndarray) -> np.ndarray:
     """Non-negative least squares for two or fewer columns: the plain
     solution, or the best one-column fit where it goes negative."""
@@ -289,7 +439,8 @@ def fit(files: list[str]) -> dict:
                 if not line.startswith("{"):
                     continue
                 rec = json.loads(line)
-                (grid if rec.get("sel_grid") else rows).append(rec)
+                if not rec.get("route"):
+                    (grid if rec.get("sel_grid") else rows).append(rec)
     from bm25_tpu_torch.ops.ell_score import table_geometry
     from bm25_tpu_torch.utils.padding import cdiv
 
@@ -402,6 +553,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; cpu for a dry run "
                          "of --sweep without kernel times)")
+    ap.add_argument("--route-sweep", action="store_true")
+    ap.add_argument("--route-h", type=int, default=1024,
+                    help="hot tokens of the --route-sweep engine")
+    ap.add_argument("--fit-route", nargs="+", metavar="FILE")
     ap.add_argument("--fit", nargs="+", metavar="FILE")
     ap.add_argument("--check", nargs="+", metavar="FILE",
                     help="the --fit report at H100Costs' constants as they "
@@ -409,6 +564,9 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.fit:
         report(fit(args.fit))
+        return 0
+    if args.fit_route:
+        report_route(args.fit_route)
         return 0
     if args.check:
         from bm25_tpu_torch.models.sparse import H100Costs
@@ -427,6 +585,8 @@ def main(argv=None) -> int:
             sel_grid(args, session, out)
         if args.sweep:
             sweep(args, session, out)
+        if args.route_sweep:
+            route_sweep(args, session, out)
     finally:
         if out is not sys.stdout:
             out.close()

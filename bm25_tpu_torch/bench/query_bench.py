@@ -294,7 +294,7 @@ def _measure_longdoc(cfg: BenchConfig, queries: np.ndarray, log,
         f"widths={widths} hot_h={engine.hot_h} "
         f"(build {build_s:.1f}s, up {upload_s:.1f}s)")
 
-    plan = engine.plan_chunks(queries.astype(np.int32))
+    plan = engine.plan_chunks(queries.astype(np.int32), k=k)
     step_ms = measure_device_step_ms(engine, queries, k, plan=plan,
                                      batch=cfg.batch)
     nb = min(cfg.baseline_queries, len(queries))
@@ -315,6 +315,8 @@ def _measure_longdoc(cfg: BenchConfig, queries: np.ndarray, log,
         "overhead_ratio": mem.as_dict().get("overhead_ratio"),
         "upload_init_s": round(upload_s, 1),
         "layout": layout,
+        # one batch's planned chunks: the routed ones carry a cold width
+        "chunks": routed_chunks(plan),
     }
     log(f"[bench] longdoc: k={k} device_step={row['device_step_ms']}ms "
         f"recall@{k}={recall:.4f} slot_tiled={row['slot_tiled']}")
@@ -365,15 +367,15 @@ def _time_enqueued(enqueue, device: torch.device, iters: int) -> float:
     return max((tn - t1) / (iters - 1), 0.0) * 1e3
 
 
-def _time_step_chunk(engine, step, ids, iters: int) -> float:
-    """Device ms of one SparseEngine step on one chunk of ids
-    (``_time_enqueued``)."""
+def _time_step_chunk(engine, step, ids, iters: int, cold=None) -> float:
+    """Device ms of one SparseEngine step on one chunk of ids (and its
+    cold ids where the chunk is routed) (``_time_enqueued``)."""
 
     def enqueue(n):
         acc = torch.zeros((), dtype=torch.float32, device=ids.device)
         for _ in range(n):
             out = step(ids, engine.buckets, engine.offsets, engine.hot_table,
-                       tail=engine._tail)
+                       tail=engine._tail, cold_ids=cold)
             leaf = out[0] if isinstance(out, tuple) else out
             acc = acc + leaf.float().amax()
         return acc
@@ -386,50 +388,62 @@ def measure_device_step_ms(engine, queries: np.ndarray, k: int,
                            batch: int = 512) -> float | None:
     """On-device step time of the production step over the batch's chunk
     plan: each distinct chunk shape is timed once (``_time_step_chunk``),
-    and the plan's total is normalized per ``batch`` queries.
-    SparseEngine only (the bench engine)."""
-    from bm25_tpu_torch.models.sparse import (SparseEngine, _score_sdt,
-                                              make_sparse_query_step)
+    and the plan's total is normalized per ``batch`` queries (routed
+    plans cut chunks of several heights and cold widths).  SparseEngine
+    only (the bench engine)."""
+    from bm25_tpu_torch.models.sparse import SparseEngine
 
     if not isinstance(engine, SparseEngine):
         return None
     if plan is None:
-        plan = engine.plan_chunks(queries.astype(np.int32))
-    # the production step's configuration: the engine's score dtype
-    step = make_sparse_query_step(min(k, engine.num_docs), engine.hot_h,
-                                  score_dtype=_score_sdt(engine.score_dtype))
+        plan = engine.plan_chunks(queries.astype(np.int32), k=k)
+    _, chunks = plan
+    # the production step's configuration: score dtype, union selection
+    step = engine.query_step(min(k, engine.num_docs))
+    put = engine.session.put
     per_config: dict[tuple, float] = {}
     times = []
-    for _cq, padded, _w in plan:
-        if padded.shape not in per_config:
-            per_config[padded.shape] = _time_step_chunk(
-                engine, step, engine.session.put(padded), iters)
-        times.append(per_config[padded.shape])
+    for c in chunks:
+        key = (c.padded.shape,
+               None if c.cold_padded is None else c.cold_padded.shape)
+        if key not in per_config:
+            per_config[key] = _time_step_chunk(
+                engine, step, put(c.padded), iters,
+                None if c.cold_padded is None else put(c.cold_padded))
+        times.append(per_config[key])
     if not times:
         return None
-    total_q = sum(c[0] for c in plan)
+    total_q = sum(c.cq for c in chunks)
     return float(sum(times) * batch / max(total_q, 1))
 
 
-def estimate_step_hbm_bytes(engine, q: int,
-                            queries: np.ndarray) -> int | None:
+def routed_chunks(plan) -> list[dict]:
+    """Each planned chunk's rows, padded height and cold width (None
+    where the chunk is not routed), for the record."""
+    return [{"rows": c.cq, "height": c.padded.shape[0],
+             "cold_width": (None if c.cold_padded is None
+                            else c.cold_padded.shape[1])}
+            for c in plan[1]]
+
+
+def estimate_step_hbm_bytes(engine, q: int, plan) -> int | None:
     """The least bytes one SparseEngine step moves for a batch of ``q``
-    of these queries (taken in order, repeated where fewer): kernel B1's
-    on every bucket and chunk, counted from the batch's ids
-    (``models.sparse.b1_bytes``, the count chip_smoke.py bounds B1 with):
-    the slots' tokens, a value a matching slot, the used hot rows, each
-    (Q, rows) base written once, the group maxima."""
+    queries: kernel B1's on every bucket and chunk of ``plan`` (the
+    ``plan_chunks`` result that ``measure_device_step_ms`` times), counted
+    from its ids (``models.sparse.b1_bytes``, the count chip_smoke.py
+    bounds B1 with): the slots' tokens, a value a matching slot, the used
+    hot rows, each (Q, rows) base written once, the group maxima; scaled
+    to ``q`` queries as ``measure_device_step_ms`` scales its time."""
     from bm25_tpu_torch.models.sparse import SparseEngine, b1_bytes
 
     if not isinstance(engine, SparseEngine):
         return None
-    queries = np.asarray(queries, np.int32)
-    batch = np.resize(queries, (q, queries.shape[1]))
+    put = lambda x: None if x is None else engine.session.put(x)  # noqa
     total = 0
-    for _cq, padded, _w in engine.plan_chunks(batch):
-        total += sum(b.scan + b.epilogue
-                     for b in b1_bytes(engine, engine.session.put(padded)))
-    return total
+    for c in plan[1]:
+        total += sum(b.scan + b.epilogue for b in b1_bytes(
+            engine, put(c.padded), cold_ids=put(c.cold_padded)))
+    return total * q // max(sum(c.cq for c in plan[1]), 1)
 
 
 def measure_sharded_step_ms(engine, queries: np.ndarray, k: int,
@@ -571,8 +585,6 @@ def first_step_seconds(work: str, k: int, device: str) -> dict:
     and library loads in the build directory of this process).  The
     child side of ``measure_cold_start``."""
     from bm25_tpu_torch.index.device_checkpoint import load_device_checkpoint
-    from bm25_tpu_torch.models.sparse import (_score_sdt,
-                                              make_sparse_query_step)
     from bm25_tpu_torch.runtime.profiling import compile_phase_collector
     from bm25_tpu_torch.runtime.session import Session
 
@@ -580,16 +592,16 @@ def first_step_seconds(work: str, k: int, device: str) -> dict:
     engine = load_device_checkpoint(os.path.join(work, "engine"),
                                     session=session)
     queries = np.load(os.path.join(work, "queries.npy"))
-    _cq, padded, _w = engine.plan_chunks(queries)[0]
-    ids = session.put(padded)
+    chunk = engine.plan_chunks(queries, k=k)[1][0]
+    ids = session.put(chunk.padded)
+    cold = None if chunk.cold_padded is None else session.put(
+        chunk.cold_padded)
     _sync(session)
     t0 = time.perf_counter()
     with compile_phase_collector() as phases:
-        step = make_sparse_query_step(
-            min(k, engine.num_docs), engine.hot_h,
-            score_dtype=_score_sdt(engine.score_dtype))
+        step = engine.query_step(min(k, engine.num_docs))
         step(ids, engine.buckets, engine.offsets, engine.hot_table,
-             tail=engine._tail)
+             tail=engine._tail, cold_ids=cold)
         _sync(session)
     return {"seconds": time.perf_counter() - t0, **phases}
 
@@ -779,14 +791,16 @@ def _measure_k(cfg, index, engine, queries, k: int, log, ref=None) -> dict:
         row["qps_rankings_only"] = round(qps_ids, 1)
     plan = None
     if hasattr(engine, "plan_chunks"):
-        plan = engine.plan_chunks(queries.astype(np.int32))
+        plan = engine.plan_chunks(queries.astype(np.int32), k=k)
     step_ms = measure_device_step_ms(engine, queries, k, plan=plan,
                                      batch=cfg.batch)
+    if plan is not None:
+        row["chunks"] = routed_chunks(plan)
     if step_ms is not None:
         row["device_step_ms"] = round(step_ms, 2)
         # step_ms is normalized to cfg.batch queries: the byte count is
         # for a batch of as many
-        model_bytes = estimate_step_hbm_bytes(engine, cfg.batch, queries)
+        model_bytes = estimate_step_hbm_bytes(engine, cfg.batch, plan)
         if model_bytes and step_ms > 0 and \
                 engine.session.device.type == "cuda":
             rate = model_bytes / (step_ms / 1e3)

@@ -30,9 +30,10 @@ counts; its cost terms (``H100Costs``) were fitted on the card.  This
 engine serves queries, weighted or not and of any width, with f32 or
 bf16-rounded returned scores (``score_dtype``), a doc mask folded into
 B1's pad-row mask, long-query dedup (``maybe_dedup``), rankings-only
-search (``search_ids``) and a pipelined large-batch search
-(``search_pipelined``); cold-width routing and union selection are
-ROADMAP items.
+search (``search_ids``), a pipelined large-batch search
+(``search_pipelined``), JAX's cold-width routing with its DP chunk
+planner (``route_cold``, ``plan_query_dispatch``; the DP's costs fitted
+on the card) and JAX's union selection (``union_select``).
 ``prepare_doc_mask`` (the JAX module's mask upload) lives here beside the
 other copied helpers; ``DenseEngine`` uses it too.
 """
@@ -55,8 +56,9 @@ from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, NEG_INF,
                                           ell_score, ell_score_fused,
                                           hot_plan, max_hot_tokens,
                                           scan_table, table_geometry)
-from bm25_tpu_torch.ops.topk import (DOC_SENTINEL, select_top_k,
-                                     top_k_tree_with_maxes)
+from bm25_tpu_torch.ops.topk import (DOC_SENTINEL, gather_group_candidates,
+                                     select_top_k, top_k_tree_with_maxes,
+                                     union_group_select)
 from bm25_tpu_torch.runtime.session import Session, get_session
 from bm25_tpu_torch.utils.counts import split_bf16, weighted_counts
 
@@ -838,13 +840,11 @@ def tail_candidates(tail: dict, ids: torch.Tensor, w, mask):
     return is_cand, cand_docs, tot, gpos
 
 
-def bucket_top_k(b: dict, ids: torch.Tensor, k: int, hot_counts=None,
-                 hot_lo=None, w=None, mask=None, plan=None, table=None):
-    """One bucket's base and its top k, ``(scores (Q, kk), positions (Q,
-    kk), base (Q, rows))`` with ``kk = min(k, rows)``: B1 over the bucket
-    (``plan`` and ``table`` made once a chunk by the caller), then the
-    tournament tree over the kernel's group maxima, or one stable sort
-    where the bucket is narrow.
+def bucket_base(b: dict, ids: torch.Tensor, hot_counts=None, hot_lo=None,
+                w=None, mask=None, plan=None, table=None):
+    """One bucket's masked (Q, rows) base and its (Q, rows / 8) group
+    maxima: B1 over the bucket (``plan`` and ``table`` made once a chunk
+    by the caller).
 
     Shared by the single-device step and each shard of the sharded step
     (``parallel/sharded_engine.py``), as JAX shares
@@ -858,18 +858,22 @@ def bucket_top_k(b: dict, ids: torch.Tensor, k: int, hot_counts=None,
     if mask is not None:
         elig = mask[did.clamp(min=0).long()] & (did >= 0)
         did = torch.where(elig, did, -1)
-    base, gmax = ell_score_fused(
+    return ell_score_fused(
         ids, b.get("tokT"), b.get("valT"), did, hot_counts, b.get("hotT"),
         b.get("hotLo"), weights=w, hot_counts_lo=hot_lo, plan=plan,
         table=table,
     )
-    rows = did.shape[0]
+
+
+def bucket_select(base: torch.Tensor, gmax: torch.Tensor, k: int):
+    """A bucket's top ``min(k, rows)``, ``(scores, positions)``: the
+    tournament tree over B1's group maxima, or one stable sort where the
+    bucket is narrow."""
+    rows = base.shape[1]
     kk = min(k, rows)
     if rows > max(2 * kk, 4096) and gmax.shape[1] >= kk:
-        s, pos = top_k_tree_with_maxes(base, gmax, kk, branch=GROUP)
-    else:
-        s, pos = select_top_k(base, kk)
-    return s, pos, base
+        return top_k_tree_with_maxes(base, gmax, kk, branch=GROUP)
+    return select_top_k(base, kk)
 
 
 def two_key_merge(cs: torch.Tensor, ci: torch.Tensor, k: int):
@@ -884,25 +888,101 @@ def two_key_merge(cs: torch.Tensor, ci: torch.Tensor, k: int):
     return -neg[:, :kk], torch.gather(ci, 1, order[:, :kk])
 
 
+def union_applies(union_select, buckets: list, k: int, mask=None,
+                  tail=None) -> bool:
+    """Whether union selection runs (JAX's rule): asked for, no doc mask
+    (a masked group max breaks the strict-gap check), no tail tier, more
+    than one bucket and more than k + 1 groups over all of them."""
+    return bool(
+        union_select and mask is None and tail is None and len(buckets) > 1
+        and sum(b["doc_ids"].shape[0] for b in buckets) // GROUP > k + 1)
+
+
+def union_top_k(buckets: list, bases: list, gmaxes: list, k: int,
+                union_select):
+    """JAX's union path: one group tournament over every bucket's group
+    maxima (``ops/topk.py::union_group_select``), then one (score desc,
+    doc asc) merge of the won groups' rows -> ``(scores, docs)``.
+
+    Exact when the tournament's flag holds (the (k+1)-th group max of
+    every query strictly below the k-th); where it does not (a tie across
+    the k boundary, e.g. an all-tied corpus) the result is the per-bucket
+    path's, selected from the same bases.  ``union_select="unsafe"``
+    skips the check.  JAX picks with ``lax.cond`` on the device flag;
+    here the flag is read once a chunk and one path runs (computing both
+    and picking by ``torch.where``, with no host read, was slower on the
+    card: PERF.md section 5).
+    """
+    gpos, ok = union_group_select(gmaxes, k)
+    dids = [b["doc_ids"] for b in buckets]
+
+    def fast():
+        return two_key_merge(*gather_group_candidates(bases, dids, gpos,
+                                                      GROUP), k)
+
+    def per_bucket():
+        cand = [bucket_select(base, gmax, k)
+                for base, gmax in zip(bases, gmaxes)]
+        return two_key_merge(torch.cat([s for s, _ in cand], dim=1),
+                             torch.cat([d[p] for d, (_, p)
+                                        in zip(dids, cand)], dim=1), k)
+
+    if union_select == "unsafe":
+        return fast()
+    return fast() if bool(ok) else per_bucket()
+
+
+def buckets_top_k(buckets: list, ids: torch.Tensor, k: int,
+                  hot_counts=None, hot_lo=None, w=None, mask=None,
+                  plan=None, table=None, union_select=False):
+    """The top k over every bucket, ``(scores (Q, kk), docs (Q, kk))``
+    with ``kk = min(k, rows)``: each bucket's base by B1 and its own top
+    k, freed before the next bucket, then one two-key merge; or, where
+    ``union_applies``, every base first and ``union_top_k``.  The
+    single-device step without a tail tier and each shard of the sharded
+    step run it."""
+    args = (hot_counts, hot_lo, w, mask, plan, table)
+    if union_applies(union_select, buckets, k, mask):
+        bases, gmaxes = zip(*(bucket_base(b, ids, *args) for b in buckets))
+        return union_top_k(buckets, list(bases), list(gmaxes), k,
+                           union_select)
+    cand_s, cand_i = [], []
+    for b in buckets:
+        s, pos = bucket_select(*bucket_base(b, ids, *args), k)
+        cand_s.append(s)
+        cand_i.append(b["doc_ids"][pos])
+    return two_key_merge(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
+                         k)
+
+
 def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
-                           score_dtype=None):
+                           score_dtype=None, union_select=False):
     """The query step over the hot, ELL and tail tiers.
 
-    ``step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None)
-    -> (scores (Q, k), docs (Q, k) int32)``, or the docs alone with
-    ``ids_only`` (the scores never leave the device); ``buckets`` are
-    dicts of ``doc_ids (rows,)`` and, where present, ``tokT``/``valT`` (L,
-    rows) and ``hotT``/``hotLo`` (H, rows).  ``w`` (Q, T) f32 weights each
-    query token: its offset, its hot count, its ELL matches and its tail
-    postings.  ``mask`` ((num_docs,) bool on the device, True = eligible)
-    restricts the result to a doc subset: slots left when fewer than k
-    docs are eligible come back as doc -1 / score 0.  ``tail`` is the
-    tail tier's arrays (``docs``, ``vals``, ``toks``, ``rows``, ``gpos``)
-    or None.  ``score_dtype`` (a torch dtype or None for f32) is the type
-    the returned scores are rounded to.
+    ``step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None,
+    cold_ids=None, w_cold=None) -> (scores (Q, k), docs (Q, k) int32)``,
+    or the docs alone with ``ids_only`` (the scores never leave the
+    device); ``buckets`` are dicts of ``doc_ids (rows,)`` and, where
+    present, ``tokT``/``valT`` (L, rows) and ``hotT``/``hotLo`` (H,
+    rows).  ``w`` (Q, T) f32 weights each query token: its offset, its
+    hot count, its ELL matches and its tail postings.  ``mask``
+    ((num_docs,) bool on the device, True = eligible) restricts the
+    result to a doc subset: slots left when fewer than k docs are
+    eligible come back as doc -1 / score 0.  ``tail`` is the tail tier's
+    arrays (``docs``, ``vals``, ``toks``, ``rows``, ``gpos``) or None.
+    ``score_dtype`` (a torch dtype or None for f32) is the type the
+    returned scores are rounded to.
+
+    ``cold_ids`` (Q, T_c) (and ``w_cold``) hold only each query's cold
+    (non-hot) ids, as cold-width routing plans them: the offsets and the
+    hot counts read the full ids, the scan tables, B1's scan and the tail
+    tier the cold ids (hot postings are in neither the ELL nor the tail,
+    so a hot id there could never match).  ``union_select`` runs JAX's
+    union path where ``union_applies`` (``union_top_k``).
     """
 
-    def step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None):
+    def step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None,
+             cold_ids=None, w_cold=None):
         valid = ids >= 0
         safe = torch.where(valid, ids, 0).long()
         zero = torch.zeros((), dtype=offsets.dtype, device=offsets.device)
@@ -915,41 +995,20 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
         if hot_h:
             hot_counts, hot_lo = hot_counts_for(ids, hot_table, hot_h, w)
             plan = hot_plan(hot_counts, hot_lo)  # once for every bucket
+        if cold_ids is not None:
+            # from here on only the cold ids matter
+            ids, w = cold_ids, w_cold
+            if w is not None:
+                w = torch.where(ids >= 0, w.float(), zero)
         # the card's scan tables, once for every bucket (the CPU twins
         # read none)
         table = scan_table(ids, w) if ids.is_cuda else None
-        if tail is not None:
-            is_cand, cand_docs, cand_tail, gpos = tail_candidates(
-                tail, ids, w, mask)
-            cand_base = torch.zeros_like(cand_tail)
-
-        cand_s, cand_i = [], []
-        r0 = 0
-        for b in buckets:
-            did = b["doc_ids"]
-            rows_b = did.shape[0]
-            s, pos, base = bucket_top_k(b, ids, k, hot_counts, hot_lo, w,
-                                        mask, plan, table)
-            if tail is not None:
-                # each tail candidate's base (its ELL and hot sums), from
-                # the bucket that holds its doc
-                rel = gpos - r0
-                in_b = (rel >= 0) & (rel < rows_b) & is_cand
-                look = torch.gather(base, 1,
-                                    torch.where(in_b, rel, 0).long())
-                cand_base = cand_base + torch.where(in_b, look, 0.0)
-            r0 += rows_b
-            del base  # free this bucket's tile before the next
-            cand_s.append(s)
-            cand_i.append(did[pos])
-
-        if tail is not None:
-            ms, docs = _merge_with_tail(
-                cand_s, cand_i, cand_docs,
-                torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
+        if tail is None:
+            ms, docs = buckets_top_k(buckets, ids, k, hot_counts, hot_lo, w,
+                                     mask, plan, table, union_select)
         else:
-            ms, docs = two_key_merge(torch.cat(cand_s, dim=1),
-                                     torch.cat(cand_i, dim=1), k)
+            ms, docs = _tail_step(buckets, tail, ids, k, hot_counts, hot_lo,
+                                  w, mask, plan, table)
         if mask is not None:
             # slots beyond the eligible count become doc -1 / score 0 on
             # the device, so every fetch (ids only, bf16) stays uniform;
@@ -967,6 +1026,33 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
         return scores, docs
 
     return step
+
+
+def _tail_step(buckets, tail, ids, k, hot_counts, hot_lo, w, mask, plan,
+               table):
+    """The buckets' top k merged with the tail tier's exact candidates:
+    each tail candidate's base (its ELL and hot sums) is looked up in the
+    bucket that holds its doc, before that bucket's base is freed."""
+    is_cand, cand_docs, cand_tail, gpos = tail_candidates(tail, ids, w, mask)
+    cand_base = torch.zeros_like(cand_tail)
+    cand_s, cand_i = [], []
+    r0 = 0
+    for b in buckets:
+        base, gmax = bucket_base(b, ids, hot_counts, hot_lo, w, mask, plan,
+                                 table)
+        rows_b = base.shape[1]
+        rel = gpos - r0
+        in_b = (rel >= 0) & (rel < rows_b) & is_cand
+        look = torch.gather(base, 1, torch.where(in_b, rel, 0).long())
+        cand_base = cand_base + torch.where(in_b, look, 0.0)
+        r0 += rows_b
+        s, pos = bucket_select(base, gmax, k)
+        del base, gmax  # free this bucket's tile before the next
+        cand_s.append(s)
+        cand_i.append(b["doc_ids"][pos])
+    return _merge_with_tail(
+        cand_s, cand_i, cand_docs,
+        torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
 
 
 def _merge_with_tail(cand_s, cand_i, cand_docs, totals, k: int):
@@ -999,14 +1085,17 @@ class B1Bytes(NamedTuple):
 
 
 def b1_bytes(engine: "SparseEngine", ids: torch.Tensor,
-             w: torch.Tensor | None = None) -> list[B1Bytes]:
+             w: torch.Tensor | None = None,
+             cold_ids: torch.Tensor | None = None,
+             w_cold: torch.Tensor | None = None) -> list[B1Bytes]:
     """The least bytes B1 moves for one chunk of (Q, T) int32 ids (and
     optional weights) on the engine's device, one entry a bucket: each
     input read once and each output written once, counted from these ids
     (a slot's value is read only where its token is some query's cold id,
     a hot row only where some query counts its token).  The base never
-    makes a trip between the scan and the hot epilogue.  Reads the used
-    hot-token count back to the host."""
+    makes a trip between the scan and the hot epilogue.  A routed chunk
+    passes its cold ids (and weights), which the scan reads in place of
+    ``ids``.  Reads the used hot-token count back to the host."""
     q = ids.shape[0]
     valid = ids >= 0
     safe = torch.where(valid, ids, 0).long()
@@ -1018,6 +1107,8 @@ def b1_bytes(engine: "SparseEngine", ids: torch.Tensor,
         used = int(plan.n_used.item())
         counts = sum(_nbytes(c) for c in (plan.counts, plan.counts_lo)
                      if c is not None)
+    if cold_ids is not None:
+        ids, w = cold_ids, w_cold
     query_bytes = _nbytes(ids) + (0 if w is None else _nbytes(w))
     out = []
     for b in engine.buckets:
@@ -1119,31 +1210,213 @@ def dedup_query_rows(queries: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return ids_u, counts
 
 
-def plan_query_dispatch(queries: np.ndarray, max_q: int,
-                        weights: np.ndarray | None = None, q_align: int = 8,
-                        ) -> list[tuple[int, np.ndarray, np.ndarray | None]]:
-    """Cut a batch into ``max_q``-row chunks: ``(cq, padded_ids,
-    padded_weights)`` with rows padded to ``q_align`` and width to a power
-    of two >= 8 (-1 id pads, 0 weight pads; weights None if not given).
+def compact_rows(
+    ids: np.ndarray, keep: np.ndarray, w: np.ndarray | None = None,
+    min_width: int = 1,
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Left-compact the kept entries of each row; -1 pads (0 pad weights)."""
+    cnt = keep.sum(axis=1)
+    t_c = max(int(cnt.max(initial=0)), min_width)
+    pos = np.cumsum(keep, axis=1) - 1
+    rows = np.broadcast_to(np.arange(len(ids))[:, None], ids.shape)
+    out = np.full((len(ids), t_c), -1, dtype=np.int32)
+    out[rows[keep], pos[keep]] = ids[keep]
+    if w is None:
+        return out, None
+    wout = np.zeros((len(ids), t_c), dtype=np.float32)
+    wout[rows[keep], pos[keep]] = w[keep]
+    return out, wout
 
-    The JAX planner's path without cold-width routing.
+
+# The chunk DP's costs on the card, in the scan units of _chunk_bounds_dp
+# (a padded row of cold width T costs c0 + 2 T + 2 units, a chunk
+# ``fixed`` more).  Fitted on an NVIDIA H100 80GB HBM3 at a 700.00 W power
+# limit by ``bench/layout_sweep.py --route-sweep --iters 50``, run twice
+# (routed steps of the query benchmark's 524,288-doc corpus at h=1024 and
+# 2 buckets, chunk heights 32-512, cold widths 2-64, k = 100 and 1000),
+# and ``--fit-route`` over both passes: the per-row cost that does not
+# depend on the width, at k = 100 and 1000, and the cost of a chunk of no
+# rows.  A scan unit came to 9.126e-5 ms, a chunk to 1.44 ms (each pass
+# alone: 1.38 and 1.50 ms; the host's launches bound small chunks); the
+# fit's median error 11.4% over 120 steps (PERF.md section 5).
+CHUNK_C0_UNITS = {100: 88.56, 1000: 126.0}
+CHUNK_FIXED_UNITS = 15807.8
+
+
+def chunk_c0_units(k: int | None) -> float:
+    """The chunk-packing DP's width-independent per-row cost, in scan
+    units: log-linear in k between the card's fits at k = 100 and 1000
+    (``CHUNK_C0_UNITS``), their mean without a k.  Shared by the
+    single-device and sharded planners, as in JAX."""
+    (k0, c0), (k1, c1) = sorted(CHUNK_C0_UNITS.items())
+    if k is None:
+        return (c0 + c1) / 2
+    return float(np.interp(np.log(max(k, 1)), [np.log(k0), np.log(k1)],
+                           [c0, c1]))
+
+
+def _routed_q_pad(cq: int, max_q: int, q_align: int) -> int:
+    """Pow2-quantized chunk height that never exceeds the max_q budget."""
+    floor = min(32, max_q)
+    padded = next_multiple(next_pow2_at_least(max(cq, floor)), q_align)
+    if padded > next_multiple(max_q, q_align):
+        padded = next_multiple(cq, q_align)
+    return padded
+
+
+def _chunk_bounds_dp(
+    cls: np.ndarray, max_q: int, q_align: int, c0_units: float,
+    fixed_units: float,
+) -> list[int]:
+    """Optimal chunk cut points over width-sorted rows (JAX's DP).
+
+    ``cls`` is the pow2 cold-width class per row, ascending.  Chunks take
+    pow2 sizes (32..max_q, q_align-rounded); a chunk's width is its widest
+    row's class.  Modelled cost per chunk = ``padded_rows * (c0_units +
+    2*T + 2) + fixed_units`` in scan units (``CHUNK_C0_UNITS``,
+    ``CHUNK_FIXED_UNITS``).  O(n * sizes) on the host.
+    """
+    n = len(cls)
+    sizes = [s for s in (512, 256, 128, 64, 32) if s <= max_q]
+    if not sizes:
+        # a score-buffer budget below 32 rows stays authoritative:
+        # padding above max_q would exceed the memory it bounds
+        sizes = [max(8, max_q)]
+    best = np.full(n + 1, np.inf)
+    best[n] = 0.0
+    nxt = np.zeros(n + 1, dtype=np.int64)
+    for i in range(n - 1, -1, -1):
+        for s in sizes:
+            j = min(i + s, n)
+            padded = _routed_q_pad(j - i, max_q, q_align)
+            t = int(cls[j - 1])  # rows sorted: widest is last
+            c = padded * (c0_units + 2 * t + 2) + fixed_units + best[j]
+            if c < best[i]:
+                best[i] = c
+                nxt[i] = j
+    bounds = [0]
+    while bounds[-1] < n:
+        bounds.append(int(nxt[bounds[-1]]))
+    return bounds
+
+
+class Chunk(NamedTuple):
+    """One planned dispatch: ``cq`` real rows, the padded (Q_pad, T_pad)
+    ids and weights (None unweighted), and under cold-width routing the
+    (Q_pad, T_c) cold ids and weights (else None)."""
+
+    cq: int
+    padded: np.ndarray
+    wpadded: np.ndarray | None
+    cold_padded: np.ndarray | None
+    wc_padded: np.ndarray | None
+
+
+def plan_query_dispatch(
+    queries: np.ndarray,
+    weights: np.ndarray | None,
+    *,
+    hot_table_host: np.ndarray | None,
+    hot_h: int,
+    has_scan: bool,
+    route: bool | str,
+    route_min_queries: int,
+    max_q: int,
+    q_align: int = 8,
+    c0_units: float | None = None,
+    fixed_units: float | None = None,
+):
+    """The dispatch planner of both sparse engines (JAX's).
+
+    Applies cold-width routing (strip hot ids, sort rows by cold count)
+    when enabled, then cuts the batch into chunks of at most ``max_q``
+    rows padded to ``q_align``; each chunk carries its own narrowest cold
+    width.  ``route`` True forces routing, False disables it, and
+    ``"auto"`` routes where a hot tier and a scan or tail tier coexist,
+    the queries are wider than one id and the batch has at least
+    ``route_min_queries`` rows.  Routed rows are cut by ``_chunk_bounds_dp``
+    at the costs ``c0_units`` (default ``chunk_c0_units(None)``) and
+    ``fixed_units`` (default ``CHUNK_FIXED_UNITS``); unrouted ones into
+    ``max_q``-row slices.  Returns
+    ``(perm, chunks)``: ``perm`` is the routing permutation (or None) and
+    each chunk a ``Chunk`` ``(cq, padded_ids, padded_weights,
+    cold_padded, wc_padded)``.
     """
     queries = queries.astype(np.int32)
+    if c0_units is None:
+        c0_units = chunk_c0_units(None)
+    if fixed_units is None:
+        fixed_units = CHUNK_FIXED_UNITS
+    split = (
+        hot_h > 0 and has_scan
+        and hot_table_host is not None
+        and (route is True or (
+            route == "auto"
+            and queries.shape[1] > 1
+            and len(queries) >= route_min_queries
+        ))
+    )
+    perm = cold_mask = None
+    bounds = None
+    if split:
+        valid = queries >= 0
+        hr = hot_table_host[np.where(valid, queries, 0)]
+        cold_mask = valid & (hr < 0)
+        counts = cold_mask.sum(axis=1)
+        perm = np.argsort(counts, kind="stable")
+        queries = queries[perm]
+        cold_mask = cold_mask[perm]
+        counts = counts[perm]
+        if weights is not None:
+            weights = weights[perm]
+        # chunk the sorted rows by a small DP over pow2 chunk sizes that
+        # balances running rows at their narrowest cold width against
+        # padding waste and the fixed cost of a chunk; fixed-size cuts are
+        # inside its search space
+        cls = 1 << np.ceil(np.log2(np.maximum(counts, 2))).astype(np.int64)
+        bounds = _chunk_bounds_dp(cls, max_q, q_align, c0_units, fixed_units)
     q_real, t_real = queries.shape
-    t_pad = next_pow2_at_least(max(t_real, 8))
+    if bounds is None:
+        bounds = list(range(0, q_real, max_q)) + [q_real]
     chunks = []
-    for i in range(0, q_real, max_q):
-        chunk = queries[i : i + max_q]
+    for i, j in zip(bounds[:-1], bounds[1:]):
+        chunk = queries[i : j]
         cq = len(chunk)
-        q_pad = next_multiple(cq, q_align)
+        if split:
+            # routed chunk heights are powers of two (>= 32, within the
+            # budget), so that width-boundary cuts give few shapes
+            q_pad = _routed_q_pad(cq, max_q, q_align)
+        else:
+            q_pad = next_multiple(cq, q_align)
+        t_pad = next_pow2_at_least(max(t_real, 8))
         padded = np.full((q_pad, t_pad), -1, dtype=np.int32)
         padded[:cq, :t_real] = chunk
         wpadded = None
         if weights is not None:
             wpadded = np.zeros((q_pad, t_pad), dtype=np.float32)
-            wpadded[:cq, :t_real] = weights[i : i + max_q]
-        chunks.append((cq, padded, wpadded))
-    return chunks
+            wpadded[:cq, :t_real] = weights[i : j]
+        cold_padded = wc_padded = None
+        if split:
+            cold_ids, wc = compact_rows(
+                chunk, cold_mask[i : j],
+                None if weights is None else weights[i : j],
+            )
+            # at least 2 wide: a row with no cold id keeps a -1 pad
+            t_pad_c = next_pow2_at_least(max(cold_ids.shape[1], 2))
+            cold_padded = np.full((q_pad, t_pad_c), -1, dtype=np.int32)
+            cold_padded[:cq, : cold_ids.shape[1]] = cold_ids
+            if wc is not None:
+                wc_padded = np.zeros((q_pad, t_pad_c), dtype=np.float32)
+                wc_padded[:cq, : wc.shape[1]] = wc
+        chunks.append(Chunk(cq, padded, wpadded, cold_padded, wc_padded))
+    return perm, chunks
+
+
+def unpermute(perm: np.ndarray | None, rows: np.ndarray) -> np.ndarray:
+    """Rows of a routed batch back in the caller's order."""
+    if perm is None:
+        return rows
+    return rows[np.argsort(perm, kind="stable")]
 
 
 # ---------------------------------------------------------------------------
@@ -1183,6 +1456,22 @@ class SparseEngine:
     tail_rows: torch.Tensor | None = None  # (V+1, C) int32 row ids, -1 pad
     tail_gpos: torch.Tensor | None = None  # (D,) int32 doc -> bucket position
     tail_cap: int = 0  # max DF routed to the tail tier
+    # most queries a dispatched chunk (the score-buffer budget may cut it)
+    chunk_queries: int = CHUNK_QUERIES
+    # cold-width routing: hot ids leave the scan's and the tail's ids (the
+    # hot epilogue counts them) and queries sort by their count of cold
+    # ids, so that most chunks scan a narrow T_c.  "auto" engages where a
+    # hot tier and a scan or tail tier coexist and the batch has at least
+    # route_min_queries rows (JAX's rule); True forces it, False disables
+    route_cold: bool | str = "auto"
+    route_min_queries: int = 32
+    # host copy of hot_table, for the routing split (token id -> hot rank)
+    hot_table_host: np.ndarray | None = None
+    # union selection: one group tournament over every bucket's group
+    # maxima in place of a top k a bucket, exact (a tie across the k
+    # boundary falls back to the per-bucket path, read once a chunk);
+    # "unsafe" skips that check.  Off by default, as in JAX
+    union_select: bool | str = False
 
     @classmethod
     def from_scored_index(
@@ -1335,6 +1624,7 @@ class SparseEngine:
             buckets=dev_buckets,
             offsets=session.put(off_host),
             hot_table=session.put(hot_table),
+            hot_table_host=hot_table,
             hot_h=h,
             num_docs=index.num_docs,
             vocab_size=v,
@@ -1405,10 +1695,12 @@ class SparseEngine:
         if tail and sorted(tail) != sorted(_TAIL_KEYS):
             raise ValueError(f"a tail tier needs all of {_TAIL_KEYS}, got "
                              f"{sorted(tail)}")
+        hot_table = session.put(arrays["hot_table"]).to(torch.int32)
         engine = cls(
             buckets=[buckets[i] for i in range(len(buckets))],
             offsets=session.put(arrays["offsets"]).float(),
-            hot_table=session.put(arrays["hot_table"]).to(torch.int32),
+            hot_table=hot_table,
+            hot_table_host=Session.get(hot_table),
             hot_h=hot_h,
             num_docs=num_docs,
             vocab_size=vocab_size,
@@ -1439,28 +1731,55 @@ class SparseEngine:
                 "gpos": self.tail_gpos}
 
     def plan_chunks(self, queries: np.ndarray,
-                    weights: np.ndarray | None = None):
-        """Chunks small enough that one bucket's (Q, rows) f32 base tile
-        and the tail tier's (Q, T*C*P) gather and sort transients fit the
-        score-buffer budget, at most CHUNK_QUERIES rows:
-        ``(cq, padded_ids, padded_weights or None)``."""
-        bytes_per_q = 4 * max(b["doc_ids"].shape[0] for b in self.buckets)
+                    weights: np.ndarray | None = None,
+                    has_scan: bool | None = None, k: int | None = None):
+        """Plan the dispatches of a query batch (``plan_query_dispatch``):
+        ``(perm, chunks)``, ``perm`` the cold-width routing permutation
+        of the rows (or None) and each chunk ``(cq, padded_ids,
+        padded_weights, cold_padded, wc_padded)``.  A chunk holds at most
+        ``chunk_queries`` rows, and few enough that its (Q, rows) f32
+        base tiles and the tail tier's (Q, T*C*P) gather and sort
+        transients fit the score-buffer budget: one bucket's tile on the
+        per-bucket path, every bucket's under union selection (all bases
+        are live at its selection).  ``k`` prices the routed DP's rows
+        (``chunk_c0_units``).  Shared by the search paths and the
+        benchmark's device-step timing."""
+        if has_scan is None:
+            has_scan = self.tail_docs is not None or any(
+                "tokT" in b for b in self.buckets)
+        rows = [b["doc_ids"].shape[0] for b in self.buckets]
+        if self.union_select and self.tail_docs is None and len(rows) > 1:
+            bytes_per_q = 4 * sum(rows)
+        else:
+            bytes_per_q = 4 * max(rows)
         if self.tail_docs is not None:
             c = self.tail_rows.shape[1]
             p = self.tail_docs.shape[1]
             t_pad = next_pow2_at_least(max(queries.shape[1], 8))
             bytes_per_q += 8 * t_pad * c * p * 4
         max_q = max(8, (self.score_buffer_budget // bytes_per_q) // 8 * 8)
-        return plan_query_dispatch(queries, min(max_q, CHUNK_QUERIES),
-                                   weights)
+        return plan_query_dispatch(
+            queries, weights, hot_table_host=self.hot_table_host,
+            hot_h=self.hot_h, has_scan=has_scan, route=self.route_cold,
+            route_min_queries=self.route_min_queries,
+            max_q=min(max_q, self.chunk_queries), c0_units=chunk_c0_units(k))
 
-    def _query_chunk(self, padded: np.ndarray, wpadded, k: int,
-                     ids_only: bool = False, dmask=None):
-        step = make_sparse_query_step(k, self.hot_h, ids_only=ids_only,
-                                      score_dtype=_score_sdt(self.score_dtype))
-        w = None if wpadded is None else self.session.put_async(wpadded)
-        return step(self.session.put_async(padded), self.buckets,
-                    self.offsets, self.hot_table, w, dmask, self._tail)
+    def query_step(self, k: int, ids_only: bool = False):
+        """The engine's query step at top ``k`` (``make_sparse_query_step``
+        with its score dtype and union selection)."""
+        return make_sparse_query_step(
+            k, self.hot_h, ids_only=ids_only,
+            score_dtype=_score_sdt(self.score_dtype),
+            union_select=self.union_select)
+
+    def _query_chunk(self, chunk: Chunk, k: int, ids_only: bool = False,
+                     dmask=None):
+        put = self.session.put_async
+        opt = lambda x: None if x is None else put(x)  # noqa: E731
+        return self.query_step(k, ids_only)(
+            put(chunk.padded), self.buckets, self.offsets, self.hot_table,
+            opt(chunk.wpadded), dmask, self._tail, opt(chunk.cold_padded),
+            opt(chunk.wc_padded))
 
     def search(self, queries: np.ndarray, top_k: int = 100,
                weights: np.ndarray | None = None,
@@ -1513,28 +1832,31 @@ class SparseEngine:
         """Plan and enqueue one batch with no host sync: each chunk's
         results start their copy into pinned host memory, and one event
         recorded after the last marks them all fetched.  Returns
-        ``(futures, event)`` for ``_collect_batch``."""
+        ``(perm, futures, event)`` for ``_collect_batch``."""
         queries, weights = maybe_dedup(queries, weights, self.dedup_queries,
                                        self.dedup_min_width)
+        perm, chunks = self.plan_chunks(queries, weights, k=k)
         futures = []
-        for cq, padded, wpadded in self.plan_chunks(queries, weights):
-            res = self._query_chunk(padded, wpadded, k, ids_only, dmask)
+        for chunk in chunks:
+            res = self._query_chunk(chunk, k, ids_only, dmask)
             res = (res,) if ids_only else res
-            futures.append((cq, [self.session.fetch_async(x) for x in res]))
-        return futures, self.session.record_event()
+            futures.append((chunk.cq,
+                            [self.session.fetch_async(x) for x in res]))
+        return perm, futures, self.session.record_event()
 
     @staticmethod
-    def _collect_batch(futures, event, ids_only: bool):
-        """Wait for one dispatched batch's event and assemble its results:
-        ``(docs, scores)``, scores None with ``ids_only``."""
+    def _collect_batch(perm, futures, event, ids_only: bool):
+        """Wait for one dispatched batch's event and assemble its results
+        in the caller's row order: ``(docs, scores)``, scores None with
+        ``ids_only``."""
         if event is not None:
             event.synchronize()
-        docs = np.concatenate([Session.get(res[-1])[:cq]
-                               for cq, res in futures])
+        docs = unpermute(perm, np.concatenate(
+            [Session.get(res[-1])[:cq] for cq, res in futures]))
         if ids_only:
             return docs, None
-        return docs, np.concatenate([Session.get(res[0])[:cq]
-                                     for cq, res in futures])
+        return docs, unpermute(perm, np.concatenate(
+            [Session.get(res[0])[:cq] for cq, res in futures]))
 
     def _search_impl(self, queries, top_k: int, weights, ids_only: bool,
                      doc_mask):

@@ -1,14 +1,19 @@
 """Multi-process end-to-end worker.
 
 ``python -m bm25_tpu_torch.parallel._multihost_main <pid> <nproc> <port>
-[shards_per_proc] [--device cpu]`` joins a ``torch.distributed`` group
-over localhost (gloo where the ranks share a card or run on the CPU, NCCL
-where each has a card of its own), builds both doc-sharded engines over a
-mesh whose doc axis spans every process (each rank holding only its own
-``shards_per_proc`` shards, default 2, on its device: the card unless
-``--device`` says otherwise), runs one query batch through each, and on
-process 0 checks the results against the host oracle, printing
-``MULTIHOST_OK`` on success.
+[shards_per_proc] [--device cpu] [--checkpoint PATH]`` joins a
+``torch.distributed`` group over localhost (gloo where the ranks share a
+card or run on the CPU, NCCL where each has a card of its own), builds
+both doc-sharded engines over a mesh whose doc axis spans every process
+(each rank holding only its own ``shards_per_proc`` shards, default 2,
+on its device: the card unless ``--device`` says otherwise), runs one
+query batch through each, and on process 0 checks the results against
+the host oracle, printing ``MULTIHOST_OK`` on success.  With
+``--checkpoint PATH`` (a path every process can reach) each engine also
+makes a device-checkpoint round: every process saves its own shards
+(``PATH.<engine>``, and ``PATH.<engine>.p<pid>`` for pid > 0), loads
+them back onto the same mesh, and the loaded engine must give the same
+results bit for bit (``CHECKPOINT_OK`` on process 0).
 
 Every process holds the full host index (as each host would after a
 shared-filesystem load) and uploads only its shards; the top-k merge
@@ -31,6 +36,7 @@ def main(argv=None) -> int:
     ap.add_argument("port", type=int)
     ap.add_argument("shards_per_proc", type=int, nargs="?", default=2)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--checkpoint", default=None)
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -85,9 +91,13 @@ def _run(args, device: torch.device, backend: str) -> int:
 
     q = np.array([[0, 3, 7, -1], [5, 5, -1, -1]], dtype=np.int32)
     results = {}
+    restored = True
     for cls in (ShardedSparseEngine, ShardedEngine):
         eng = cls.from_scored_index(idx, mesh=mesh)
         results[cls.__name__] = eng.search(q, top_k=5)
+        if args.checkpoint:
+            restored &= _round_trip(eng, f"{args.checkpoint}.{cls.__name__}",
+                                    mesh, q, results[cls.__name__], pid)
 
     if pid != 0:
         return 0
@@ -104,7 +114,27 @@ def _run(args, device: torch.device, backend: str) -> int:
                 np.asarray(b)[strict].tolist())
         print(f"[p0] {name} docs={docs.tolist()}", flush=True)
     print("MULTIHOST_OK" if ok else "MULTIHOST_MISMATCH", flush=True)
+    if args.checkpoint:
+        print("CHECKPOINT_OK" if restored else "CHECKPOINT_MISMATCH",
+              flush=True)
+        ok &= restored
     return 0 if ok else 1
+
+
+def _round_trip(engine, path: str, mesh, q, want, pid: int) -> bool:
+    """Save this process's shards, load them onto ``mesh``: the loaded
+    engine's results must equal ``want`` bit for bit."""
+    from bm25_tpu_torch.index.device_checkpoint import (
+        load_device_checkpoint, save_device_checkpoint)
+
+    save_device_checkpoint(path, engine)
+    loaded = load_device_checkpoint(path, mesh=mesh)
+    docs, scores = loaded.search(q, top_k=5)
+    same = bool(np.array_equal(docs, want[0])
+                and np.array_equal(scores, want[1]))
+    print(f"[p{pid}] {type(engine).__name__} checkpoint round trip: "
+          f"{'bit-equal' if same else 'DIFFERENT'}", flush=True)
+    return same
 
 
 if __name__ == "__main__":

@@ -22,7 +22,14 @@ its device's current stream (shards on one card share it); a copy to the
 merge device is ordered by events on both devices' current streams
 (torch's cross-device copy), so nothing on the step's path waits on the
 host except the ``k_local`` trim's exactness flag, read once a chunk
-where the trim engages.
+where the trim engages, and union selection's, read once a shard and
+chunk where ``union_select`` is on.
+
+``ShardedSparseEngine`` plans its chunks with the single-device engine's
+planner (``models/sparse.py::plan_query_dispatch``): cold-width routing
+sorts a batch's rows by their count of cold ids, each routed chunk's
+cold ids go to every device of a data row beside its full ids, and the
+results come back in the caller's order.
 """
 
 from __future__ import annotations
@@ -129,33 +136,39 @@ def _put(x: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 class QueryShards(NamedTuple):
     """One chunk's padded queries on the mesh: data row r's slice of the
-    (Q, T) ids (and weights) on each distinct device of the row."""
+    (Q, T) ids (and weights), and of a routed chunk's (Q, T_c) cold ids
+    (and weights), on each distinct device of the row."""
 
     padded: np.ndarray  # (Q, T) int32 host ids, -1 pads
     wpadded: np.ndarray | None  # (Q, T) float32 host weights
     ids: list[dict]  # [row] -> {device: (Q / rows, T) int32}
     w: list[dict] | None  # [row] -> {device: (Q / rows, T) float32}
+    cold: list[dict] | None = None  # [row] -> {device: (Q / rows, T_c)}
+    wc: list[dict] | None = None  # [row] -> {device: (Q / rows, T_c)}
 
 
 def put_queries(mesh: Mesh, padded: np.ndarray,
-                wpadded: np.ndarray | None = None) -> QueryShards:
-    """Split a padded chunk over the data axis and upload each row's slice
-    once to each distinct device of the row (pinned, not waiting)."""
+                wpadded: np.ndarray | None = None,
+                cold_padded: np.ndarray | None = None,
+                wc_padded: np.ndarray | None = None) -> QueryShards:
+    """Split a padded chunk (and its cold ids and weights, where routed)
+    over the data axis and upload each row's slice once to each distinct
+    device of the row (pinned, not waiting)."""
     rows = mesh.devices.shape[0]
     q_r = padded.shape[0] // rows
-    ids, ws = [], []
-    for r in range(rows):
-        sl = slice(r * q_r, (r + 1) * q_r)
-        ids_r, w_r = {}, {}
-        for dev in dict.fromkeys(mesh.devices[r]):
-            session = Session(dev)
-            ids_r[dev] = session.put_async(padded[sl])
-            if wpadded is not None:
-                w_r[dev] = session.put_async(wpadded[sl])
-        ids.append(ids_r)
-        ws.append(w_r)
-    return QueryShards(padded, wpadded, ids, ws if wpadded is not None
-                       else None)
+
+    def split(host):
+        if host is None:
+            return None
+        out = []
+        for r in range(rows):
+            sl = host[r * q_r:(r + 1) * q_r]
+            out.append({dev: Session(dev).put_async(sl)
+                        for dev in dict.fromkeys(mesh.devices[r])})
+        return out
+
+    return QueryShards(padded, wpadded, split(padded), split(wpadded),
+                       split(cold_padded), split(wc_padded))
 
 
 def _to_merge(mesh: Mesh, r: int, parts: list[torch.Tensor]) -> torch.Tensor:
@@ -453,27 +466,22 @@ class _DeviceInputs(NamedTuple):
     mask: torch.Tensor | None
 
 
-def shard_candidates(buckets: list[dict], inp: _DeviceInputs, k: int):
-    """One shard's local top k: each bucket's top k through the
-    single-device step's per-bucket body (``models.sparse.bucket_top_k``),
-    then a two-key merge (score desc, doc asc) across the buckets, whose
-    rows interleave doc ids."""
-    from bm25_tpu_torch.models.sparse import bucket_top_k, two_key_merge
+def shard_candidates(buckets: list[dict], inp: _DeviceInputs, k: int,
+                     union_select=False):
+    """One shard's local top k: the single-device step's selection over
+    its buckets (``models.sparse.buckets_top_k``: each bucket's top k and
+    a two-key merge, score desc and doc asc, across the buckets, whose
+    rows interleave doc ids; or union selection)."""
+    from bm25_tpu_torch.models.sparse import buckets_top_k
 
-    cand_s, cand_i = [], []
-    for b in buckets:
-        s, pos = bucket_top_k(b, inp.ids, k, inp.hot_counts, inp.hot_lo,
-                              inp.w, inp.mask, inp.plan, inp.table)[:2]
-        cand_s.append(s)
-        cand_i.append(b["doc_ids"][pos])
-    return two_key_merge(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
-                         k)
+    return buckets_top_k(buckets, inp.ids, k, inp.hot_counts, inp.hot_lo,
+                         inp.w, inp.mask, inp.plan, inp.table, union_select)
 
 
 def make_sharded_ell_step(mesh: Mesh, k: int, hot_h: int, buckets: list,
                           score_dtype=None, ids_only: bool = False,
                           k_local: int | None = None,
-                          local_only: bool = False):
+                          local_only: bool = False, union_select=False):
     """Doc-sharded multi-bucket ELL scoring + gathered top-k merge:
     ``step(hot_table, queries, mask=None)`` -> one result a data row on
     the row's first device: ``(scores (q_r, k), docs (q_r, k) int32)``,
@@ -486,9 +494,11 @@ def make_sharded_ell_step(mesh: Mesh, k: int, hot_h: int, buckets: list,
     bool eligibility mask, which each shard reads by its own global doc
     ids (bucket rows interleave them).  Each shard runs the single-device
     step's bucket body on its row slice of every bucket
-    (``shard_candidates``); the hot counts, B1's plan and the scan tables
-    are made once a device.  The shards' candidates merge by two keys on
-    the row's first device.  ``k_local`` trims each shard's candidates to
+    (``shard_candidates``, with ``union_select``); the hot counts, B1's
+    plan and the scan tables are made once a device, the hot counts from
+    the full ids and the tables from a routed chunk's cold ids.  The
+    shards' candidates merge by two keys on the row's first device.
+    ``k_local`` trims each shard's candidates to
     its top ``k_local`` before the merge, with the exactness check and
     full-width fallback of JAX's step; ``local_only`` stops after the
     shards' local top k (an instrumentation cut: the merge costs
@@ -514,6 +524,11 @@ def make_sharded_ell_step(mesh: Mesh, k: int, hot_h: int, buckets: list,
             hot_counts, hot_lo = hot_counts_for(ids, hot_table.on(r, j),
                                                 hot_h, w)
             plan = hot_plan(hot_counts, hot_lo)
+        if queries.cold is not None:
+            # cold-width routing: the scan reads only the cold ids
+            ids = queries.cold[r][dev]
+            w = None if queries.wc is None else torch.where(
+                ids >= 0, queries.wc[r][dev].float(), 0.0)
         # the card's scan tables (the CPU twins read none)
         table = scan_table(ids, w) if ids.is_cuda else None
         return _DeviceInputs(ids, w, hot_counts, hot_lo, plan, table,
@@ -551,7 +566,7 @@ def make_sharded_ell_step(mesh: Mesh, k: int, hot_h: int, buckets: list,
                 local = [{key: t.on(r, j) for key, t in b.items()}
                          for b in buckets]
                 cand.append(shard_candidates(
-                    local, inputs[mesh.devices[r, j]], k))
+                    local, inputs[mesh.devices[r, j]], k, union_select))
             if local_only:
                 outs.append(cand)
                 continue
@@ -580,7 +595,8 @@ class ShardedSparseEngine:
     The single-device ``SparseEngine``'s hot and ELL tiers (length-
     bucketed ELL postings scored by B1, a dense hot-token pair built by
     B2), with every bucket's row axis split over the mesh's doc axis and
-    the two-stage top-k merge on each data row's first device.
+    the two-stage top-k merge on each data row's first device; its
+    planner, cold-width routing and union selection too.
     """
 
     buckets: list  # dicts of MeshTensor: doc_ids, [tokT, valT, hotT, hotLo]
@@ -598,12 +614,13 @@ class ShardedSparseEngine:
     # long-query dedup: the single-device engine's policy
     dedup_queries: bool | str = "auto"
     dedup_min_width: int = 16
-    # JAX's cold-width routing fields, kept with their defaults: the port
-    # does not route (ROADMAP.md: cold-width routing in both engines), and
-    # the results are the same either way
+    # cold-width routing: the single-device engine's fields and planner
     route_cold: bool | str = "auto"
     route_min_queries: int = 32
     hot_table_host: np.ndarray | None = None
+    # union selection in each shard, as in the single-device engine (JAX's
+    # sharded engine has no such option)
+    union_select: bool | str = False
     # "bfloat16": the merged scores are rounded to bf16 on the device
     # (selection stays f32) before the host adds the offsets
     score_dtype: str = "float32"
@@ -744,13 +761,14 @@ class ShardedSparseEngine:
 
     def _max_chunk(self) -> int:
         """Queries per chunk: one shard's (Q / n_data, rows_local) f32
-        tile of its widest bucket within the budget, in multiples of 8, at
-        most ``chunk_queries`` (the single-device engine's rule for B1)."""
+        tile of its widest bucket (of every bucket under union selection)
+        within the budget, in multiples of 8, at most ``chunk_queries``
+        (the single-device engine's rule for B1)."""
         n_doc = self.mesh.shape[DOC_AXIS]
         n_data = self.mesh.shape[DATA_AXIS]
-        max_rows = max(
-            b["doc_ids"].shape[0] // n_doc for b in self.buckets
-        )
+        rows = [b["doc_ids"].shape[0] // n_doc for b in self.buckets]
+        max_rows = (sum(rows) if self.union_select and len(rows) > 1
+                    else max(rows))
         # queries split over the data axis: each shard's tile holds only
         # q/n_data rows, so the budget buys n_data x more global rows
         max_q = max(
@@ -779,11 +797,13 @@ class ShardedSparseEngine:
                               doc_mask=doc_mask)
 
     def _plan(self, queries, weights, k: int):
-        """Dedup + chunk planning: ``(cq, padded, wpadded)`` chunks, the
-        one source that ``_dispatch_batch`` and ``bench_step_fn`` share.
-        Rows pad to ``8 * n_data`` so that every data row gets the same
-        slice."""
-        from bm25_tpu_torch.models.sparse import (maybe_dedup,
+        """Dedup + cold-width routing + chunk planning through the
+        single-device engine's planner: ``(perm, chunks)``, the one source
+        that ``_dispatch_batch`` and ``bench_step_fn`` share.  Rows pad to
+        ``8 * n_data`` (JAX's ``q_align``) so that every data row gets the
+        same slice."""
+        from bm25_tpu_torch.models.sparse import (chunk_c0_units,
+                                                  maybe_dedup,
                                                   plan_query_dispatch)
 
         queries, weights = maybe_dedup(
@@ -791,8 +811,12 @@ class ShardedSparseEngine:
         )
         align = 8 * self.mesh.shape[DATA_AXIS]
         return plan_query_dispatch(
-            queries, next_multiple(self._max_chunk(), align), weights,
-            q_align=align)
+            queries, weights, hot_table_host=self.hot_table_host,
+            hot_h=self.hot_h,
+            has_scan=any("tokT" in b for b in self.buckets),
+            route=self.route_cold, route_min_queries=self.route_min_queries,
+            max_q=next_multiple(self._max_chunk(), align), q_align=align,
+            c0_units=chunk_c0_units(k))
 
     def _k_local(self, k: int):
         if self.k_local == "auto":
@@ -809,7 +833,7 @@ class ShardedSparseEngine:
             self.mesh, k, self.hot_h, self.buckets,
             score_dtype=None if ids_only else _score_sdt(self.score_dtype),
             ids_only=ids_only, k_local=self._k_local(k),
-            local_only=local_only,
+            local_only=local_only, union_select=self.union_select,
         )
 
     def bench_step_fn(self, queries: np.ndarray, top_k: int,
@@ -818,15 +842,15 @@ class ShardedSparseEngine:
         planned chunk (unmasked, scores and ids): ``(fn, args,
         n_chunks)``; ``fn(*args)`` enqueues one step and returns its
         device results without a fetch.  Planning (dedup included) goes
-        through ``_plan``, so the timed chunk is the production chunk;
-        ``args[1].padded`` is its padded (Q, T) ids.  ``local_only`` stops
-        after the shards' local top k (``make_sharded_ell_step``)."""
+        through ``_plan``, so the timed chunk is the production chunk (a
+        routed one where the batch routes); ``args[1].padded`` is its
+        padded (Q, T) ids.  ``local_only`` stops after the shards' local
+        top k (``make_sharded_ell_step``)."""
         queries, _ = validate_query_batch(queries, self.vocab_size, None)
         k = min(top_k, self.num_docs)
-        chunks = self._plan(queries, None, k)
-        _cq, padded, wpadded = chunks[0]
+        _perm, chunks = self._plan(queries, None, k)
         fn = self._step_fn(k, ids_only=False, local_only=local_only)
-        return (fn, (self.hot_table, put_queries(self.mesh, padded, wpadded)),
+        return (fn, (self.hot_table, put_queries(self.mesh, *chunks[0][1:])),
                 len(chunks))
 
     def _prepare_doc_mask(self, doc_mask):
@@ -846,16 +870,18 @@ class ShardedSparseEngine:
         """Plan and enqueue one batch with no host sync (outside the
         k_local trim's flag): each chunk's results start their copy into
         pinned host memory, and one event a device recorded after the last
-        marks them fetched.  Returns ``(futures, events)``."""
-        chunks = self._plan(queries, weights, k)
-        weighted = bool(chunks) and chunks[0][2] is not None
+        marks them fetched.  Returns ``(perm, futures, events)``, ``perm``
+        the routing permutation of the rows (or None)."""
+        perm, chunks = self._plan(queries, weights, k)
+        weighted = bool(chunks) and chunks[0].wpadded is not None
         if not ids_only and self._offsets_host is None:
             self._offsets_host = self.offsets.numpy()
         step = self._step_fn(k, ids_only)
         futures = []
-        for cq, padded, wpadded in chunks:
+        for cq, padded, wpadded, cold, wc in chunks:
             outs = step(self.hot_table,
-                        put_queries(self.mesh, padded, wpadded), dmask)
+                        put_queries(self.mesh, padded, wpadded, cold, wc),
+                        dmask)
             qoff = None
             if not ids_only:
                 # token offsets are doc-independent: added on the host in
@@ -868,16 +894,19 @@ class ShardedSparseEngine:
                     valid, off[np.where(valid, padded[:cq], 0)], 0.0
                 ) * wv).sum(1)
             futures.append(_fetch(cq, qoff, outs, ids_only))
-        return futures, _record_events(self.mesh)
+        return perm, futures, _record_events(self.mesh)
 
     @staticmethod
-    def _collect_batch(futures, events, ids_only: bool, masked: bool):
+    def _collect_batch(perm, futures, events, ids_only: bool, masked: bool):
         """Wait for one dispatched batch's events and assemble its
-        results: the docs, or ``(docs, scores)``."""
+        results in the caller's row order: the docs, or ``(docs,
+        scores)``."""
+        from bm25_tpu_torch.models.sparse import unpermute
+
         _wait(events)
         docs = [_rows(f.docs)[: f.cq] for f in futures]
         if ids_only:
-            return np.concatenate(docs)
+            return unpermute(perm, np.concatenate(docs))
         out = []
         for f, d in zip(futures, docs):
             s = (_rows(f.scores).astype(np.float32)[: f.cq]
@@ -887,7 +916,8 @@ class ShardedSparseEngine:
                 # restore their score-0 contract
                 s[d == -1] = 0.0
             out.append(s)
-        return np.concatenate(docs), np.concatenate(out)
+        return (unpermute(perm, np.concatenate(docs)),
+                unpermute(perm, np.concatenate(out)))
 
     def _dispatch(self, queries, top_k, weights, ids_only: bool,
                   doc_mask=None):
@@ -981,9 +1011,8 @@ def dryrun_sharded_step(n_devices: int, device=None) -> None:
     docs_c, scores_c = engine.search(queries, top_k=7)
     np.testing.assert_allclose(scores_c, os_, rtol=1e-5, atol=1e-6)
 
-    # the doc-sharded ELL path over the same mesh: weighted + chunked,
-    # plus rankings-only (route_cold is set as JAX's dry run sets it; the
-    # port does not route)
+    # the doc-sharded ELL path over the same mesh: weighted, routed and
+    # chunked, plus rankings-only
     sp = ShardedSparseEngine.from_scored_index(index, mesh=mesh, hot_tokens=4)
     sp.route_cold = True
     sp.chunk_queries = 8 * data

@@ -12,10 +12,11 @@ seconds, and ``bm25-tpu-torch warm`` runs it at deploy so that a later
 ``cache export`` ships the built libraries.
 
 ``warm_engine`` drives the public dispatch path (``engine.search``), so
-exactly the paths traffic would run are the ones warmed.  The port's
-``SparseEngine`` has no cold-width routing (no ``hot_table_host`` or
-``route_cold``), so its plan is the unrouted family: what JAX plans for
-an engine built with ``route_cold=False``.
+exactly the paths traffic would run are the ones warmed.  The plan is
+JAX's: a sparse engine that routes (a hot tier beside a scan tier,
+``route_cold`` on) warms its routed family, every chunk height the DP can
+cut (32 up to the routed batch) at each cold-width class; one built with
+``route_cold=False`` warms the unrouted family.
 """
 
 from __future__ import annotations

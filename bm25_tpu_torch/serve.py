@@ -691,17 +691,22 @@ class BM25RequestHandler(BaseHTTPRequestHandler):
         else:
             self._send(404, {"error": "not found"})
 
+    def _discard_body(self) -> None:
+        """Read and drop the request body.  Every answer given before the
+        body is read calls this first: closing a socket that still holds
+        unread bytes resets the connection, and the client may then never
+        read the answer (a 503 in a drop-mode reload window, a 400)."""
+        remaining = int(self.headers.get("Content-Length", 0))
+        while remaining > 0:
+            chunk = self.rfile.read(min(remaining, 1 << 16))
+            if not chunk:
+                break
+            remaining -= len(chunk)
+
     def _read_body(self) -> dict:
         length = int(self.headers.get("Content-Length", 0))
         if length > self.limits.max_body_bytes:
-            # consume the body so the client can read our 400 instead of
-            # hitting a connection reset mid-send
-            remaining = length
-            while remaining > 0:
-                chunk = self.rfile.read(min(remaining, 1 << 16))
-                if not chunk:
-                    break
-                remaining -= len(chunk)
+            self._discard_body()
             raise ValueError(
                 f"request body {length} bytes exceeds the cap of "
                 f"{self.limits.max_body_bytes}"
@@ -724,6 +729,7 @@ class BM25RequestHandler(BaseHTTPRequestHandler):
             self._do_explain()
             return
         if self.path != "/search":
+            self._discard_body()
             self._send(404, {"error": "not found"})
             return
         srv = self.server_ref
@@ -783,6 +789,7 @@ class BM25RequestHandler(BaseHTTPRequestHandler):
         rt = self.runtime  # one snapshot: engine+vocab+corpus stay coherent
         if rt.engine is None:
             # a mode="drop" reload is rebuilding the engine
+            self._discard_body()
             self._send(503, {"error": "index reloading; retry shortly"})
             return
         try:
@@ -953,6 +960,9 @@ class BM25RequestHandler(BaseHTTPRequestHandler):
     def _do_update(self):
         """POST /add | /delete | /compact — live index mutation."""
         rt = self.runtime
+        if (self.server_ref is None or rt.engine is None
+                or not (rt.stats or {}).get("updatable")):
+            self._discard_body()
         if self.server_ref is None:
             self._send(500, {"error": "updates unavailable"})
             return
@@ -1029,6 +1039,7 @@ class BM25RequestHandler(BaseHTTPRequestHandler):
 
     def _do_reload(self):
         if self.server_ref is None:
+            self._discard_body()
             self._send(500, {"error": "reload unavailable"})
             return
         try:
@@ -1329,7 +1340,8 @@ class Server:
         No ScoredIndex load, no ELL/hot rebuild — the vocab rides in the
         checkpoint metadata.  The engine lands on the device of the
         ``session`` in ``engine_kwargs`` (the default CUDA session
-        without one).  ``index_dir`` (optional) only supplies the corpus
+        without one); a sharded engine's on ``make_mesh()``, or that
+        session's CPU.  ``index_dir`` (optional) only supplies the corpus
         texts for response bodies and a /reload target.
         """
         from bm25_tpu_torch.index.device_checkpoint import (

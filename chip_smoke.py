@@ -50,7 +50,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    cold posting) pairs counted; the scan
    again on a fan-out batch whose queries share their cold ids, and B1 on
    a chunk of 8 queries, the small-batch path; the chunk's scan tables
-   against the twin's); last, masked batches at k=1000 and k=100 (a random
+   against the twin's), on the batch's unrouted chunk; B1 on routed
+   chunks of cold widths 2, 4 and 64 against its twin; cold-width
+   routing (``route_cold="auto"``, which routes these batches) against
+   ``route_cold=False`` at 512 x 8 and 512 x 64 and k=1000 and k=100,
+   both against the oracle and each other, with the plan's chunks and
+   each device step in turns; last, masked batches at k=1000 and k=100 (a random
    mask, and one leaving 500 docs eligible, a whole group of 8 eligible
    beside a dropped one) against the oracle, the shortfall doc -1 / score
    0 exactly, and 512 queries of 64 Zipf tokens at k=1000 with dedup off,
@@ -67,6 +72,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ELL and tail all hold postings, the tail's count logged) at 512 x 8
    and k=1000, plain, weighted and masked, against ``ReferenceEngine``,
    and its device step;
+4c. union selection at the layout model's layout (its hot tier, 2
+   buckets) and at 4 buckets, 512 x 8 at k=1000: bit-equal to the
+   per-bucket path, the device steps of per-bucket, union reading its
+   flag, union by ``torch.where`` and union unchecked in turns; an
+   all-tied corpus over two buckets, where the fallback must return doc
+   ids 0..9;
 5. dense main path: ``create_engine(mode="auto")`` over the 131,072-doc
    corpus must pick ``DenseEngine`` (a 17.2 GB f32 table); 512 x 8 queries
    at k=1000 and k=100, plus a weighted batch and a half-masked batch,
@@ -152,8 +163,10 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    trade (the ELL-only parity engine, ``overhead_target=3.0`` and the
    headline), the 65,536-doc long-document corpus at the model's layout
    (buckets wider than 512 slots; where the model's layout has none, the
-   explicit no-hot 2-bucket layout is checked against the oracle too) and
-   the synthetic-BEIR eval (dense and sparse); every row's recall
+   explicit no-hot 2-bucket layout is checked against the oracle too;
+   its engine keeps a hot tier, so its batches must be routed, as its
+   record's chunks say) and the synthetic-BEIR eval (dense and sparse);
+   every row's recall
    against ``ReferenceEngine`` must read 1.0, and B1, the tables, B3 and
    (where some engine of the run has a hot tier) B2 must have launched,
    no plain twin run; the ``cold_start`` row runs three fresh processes
@@ -215,15 +228,21 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    ``search_ids``, a masked batch, bf16 scores and ``search_pipelined``
    over 2,048 queries; (b) on (1, 4) and (2, 2) meshes over the one card
    and on (1, 4) at hot_tokens=1024, where B2 must build each shard's hot
-   pair; each with its build seconds, each shard's bytes, its step, its
-   ``local_only`` step (the merge is the difference) and the card's busy
-   ms in a step, beside ``SparseEngine``'s step; (c) ``ShardedEngine`` on
-   (1, 1) and (1, 4) over 131,072 docs, bit-equal to ``DenseEngine``; (d)
-   a k_local trim, exact, and the fallback on planted ties; (e) two
-   ``_multihost_main`` processes sharing the card over gloo, which must
-   print ``MULTIHOST_OK``; (f) ``query --engine sharded_sparse`` equal to
-   ``--engine sparse``.  B1, B2 and B3 must launch within the phase, no
-   plain twin;
+   pair (its batches routed, its routed chunks logged); each with its
+   build seconds, each shard's bytes, its step, its ``local_only`` step
+   (the merge is the difference) and the card's busy ms in a step,
+   beside ``SparseEngine``'s step; (g) the device checkpoint of that
+   (1, 4) hot_tokens=1024 engine and of a (1, 4) ``ShardedEngine`` over
+   16,384 docs: saved, loaded (two B2 launches a shard's hot bucket) and
+   restored in place, every piece and the results bit-equal, a 2-shard
+   mesh refused, with save, load and restore seconds beside the build;
+   (c) ``ShardedEngine`` on (1, 1) and (1, 4) over 131,072 docs,
+   bit-equal to ``DenseEngine``; (d) a k_local trim, exact, and the
+   fallback on planted ties; (e) two ``_multihost_main`` processes
+   sharing the card over gloo, which must print ``MULTIHOST_OK`` and
+   save and load their own shards of both engines (``CHECKPOINT_OK``);
+   (f) ``query --engine sharded_sparse`` equal to ``--engine sparse``.
+   B1, B2 and B3 must launch within the phase, no plain twin;
 16. the default text path, stemmed text in and top-k out, with no
    ``stemmer=None`` anywhere: the native library's compile seconds into
    an empty build directory; (a) the headline's 524,288 docs as Zipf-word
@@ -1001,8 +1020,11 @@ def sparse_main(torch, dev, cfg, ops, session, record):
 
     # each kernel vs its twin at the main path's shapes: B1 on every
     # bucket (its ms is the batch's total) as its scan and its hot
-    # epilogue, the scan's tables once a chunk, B2 on bucket 0's hot ELL
-    chunk = engine.plan_chunks(queries)[0][1]
+    # epilogue, the scan's tables once a chunk, B2 on bucket 0's hot ELL;
+    # on the batch's unrouted chunk (the routed ones: routed_vs_unrouted)
+    engine.route_cold = False
+    chunk = engine.plan_chunks(queries)[1][0].padded
+    engine.route_cold = "auto"
     ids = session.put(chunk)
     hc, _ = hot_counts_for(ids, engine.hot_table, engine.hot_h)
     plan = hot_plan(hc)  # once per chunk, as the query step makes it
@@ -1184,9 +1206,222 @@ def sparse_main(torch, dev, cfg, ops, session, record):
                                         b2_ms, b2_plain_ms, b2_bound)
     record["ell_table"] = kernel_record(launches["ell_table"], 0.0, table_ms,
                                         table_plain_ms, bound(table_bytes))
+    routed_b1(torch, ops, engine, index)
+    routed_vs_unrouted(torch, engine, ref, cfg)
     masked_and_dedup(torch, engine, ref, cfg)
     pipeline_busy(torch, engine, cfg)
     return index, timings
+
+
+def routed_b1(torch, ops, engine, index) -> None:
+    """Phase 4: B1 on routed chunks against its twin, on every bucket: 256
+    queries of Zipf ids holding 2, 4 and 64 cold ids each (the scan reads
+    the (Q, T_c) cold ids, the hot epilogue the counts of the full ids),
+    the ELL-only base bit-equal, the fused base and maxima within 2e-5 x
+    the row's largest |score|."""
+    from bm25_tpu_torch.bench.layout_sweep import routed_rows
+    from bm25_tpu_torch.models.sparse import hot_counts_for
+    from bm25_tpu_torch.utils.padding import next_pow2_at_least
+
+    session = engine.session
+    errs = {}
+    for t_c in (2, 4, 64):
+        full, cold = routed_rows(index, engine.hot_table_host, 256, t_c,
+                                 seed=100 + t_c)
+        width = next_pow2_at_least(max(full.shape[1], 8))
+        full = np.pad(full, ((0, 0), (0, width - full.shape[1])),
+                      constant_values=-1)
+        ids, cids = session.put(full), session.put(cold)
+        hc, hlo = hot_counts_for(ids, engine.hot_table, engine.hot_h)
+        plan, table = ops.hot_plan(hc, hlo), ops.scan_table(cids)
+        err = 0.0
+        for i, b in enumerate(engine.buckets):
+            args = (cids, b["tokT"], b["valT"], b["doc_ids"])
+            compare(torch, ops.ell_score_fused(*args, table=table)[0],
+                    ops.ell_score_fused_plain(*args)[0], True,
+                    f"routed B1 ELL-only base, T_c={t_c}, bucket {i}")
+            hot = (hc, b["hotT"], b["hotLo"])
+            err = max([err] + [compare(torch, x, y, False,
+                                       f"routed B1 {n}, T_c={t_c}, bucket {i}")
+                               for n, x, y in zip(
+                                   ("base", "gmax"),
+                                   ops.ell_score_fused(
+                                       *args, *hot, hot_counts_lo=hlo,
+                                       plan=plan, table=table),
+                                   ops.ell_score_fused_plain(
+                                       *args, *hot, hot_counts_lo=hlo))])
+        errs[t_c] = (tuple(full.shape), table.qp, err)
+    log("[routing] B1 on routed chunks (cold ids T_c, full ids T) against "
+        "its twin on every bucket, the ELL-only base bit-equal: " + "; ".join(
+            f"T_c={t}: full ids {shape}, {qp} queries a table, max_abs_err "
+            f"{e:.3e}" for t, (shape, qp, e) in errs.items()))
+
+
+def plan_step_ms(torch, engine, plan, k: int, step=None,
+                 iters: int = 10) -> float:
+    """Device ms of the step over every chunk of ``plan`` (weights and
+    cold ids included), back to back on the same inputs (CUDA events,
+    ``query_bench._time_enqueued``)."""
+    from bm25_tpu_torch.bench.query_bench import _time_enqueued
+
+    step = step or engine.query_step(k)
+    put = engine.session.put
+    args = [tuple(None if x is None else put(x) for x in c[1:])
+            for c in plan[1]]
+
+    def enqueue(n):
+        acc = torch.zeros((), device=engine.session.device)
+        for _ in range(n):
+            for ids, w, cold, wc in args:
+                s, _ = step(ids, engine.buckets, engine.offsets,
+                            engine.hot_table, w, None, engine._tail, cold,
+                            wc)
+                acc = acc + s.amax()
+        return acc
+
+    return _time_enqueued(enqueue, engine.session.device, iters)
+
+
+def within_chunk_mates(got, want, what: str) -> float:
+    """Two runs of one batch whose chunks differ (routed and not): ids
+    equal under the comparator, scores within 2e-5 x max(1, the row's
+    largest |score|): the hot sums' order follows a query's chunk-mates
+    (ROADMAP.md section C 5).  Returns the largest |difference|."""
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    assert_matches_oracle(*got, *want)
+    scale = np.maximum(1.0, np.abs(want[1]).max(axis=1, keepdims=True))
+    diff = np.abs(got[1] - want[1])
+    if not (diff <= 2e-5 * scale).all():
+        raise AssertionError(f"{what}: scores differ by {diff.max():.3e}")
+    return float(diff.max())
+
+
+def routed_vs_unrouted(torch, engine, ref, cfg) -> None:
+    """Phase 4: cold-width routing at the explicit h=1024 / 2-bucket
+    layout, where JAX's "auto" rule engages: 512 x 8 and 512 x 64 Zipf
+    queries at k=1000 and k=100, routed (``route_cold="auto"``) and not
+    (False), each against ``ReferenceEngine`` (first 64 queries) and
+    against each other (``within_chunk_mates``), with the plan's chunks,
+    the host ms of the plan alone (``plan_chunks``, median of 5: the
+    routed plan runs JAX's chunk DP a row at a time), the device step of
+    the whole batch (``plan_step_ms``) and the wall ms of ``search``
+    (median of 5: the host's plan included) in turns: routed, unrouted,
+    unrouted, routed."""
+    from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.models.sparse import maybe_dedup
+    from bm25_tpu_torch.utils.parity import assert_matches_oracle
+
+    sub = slice(0, CHECKED_QUERIES)
+    for t in (8, 64):
+        q = make_queries(dataclasses.replace(cfg, query_len=t,
+                                             num_queries=cfg.batch))
+        qd, wd = maybe_dedup(q, None, engine.dedup_queries,
+                             engine.dedup_min_width)
+        for k in (cfg.top_k, cfg.top_k2):
+            want = ref.search(q[sub], top_k=k)
+            res, plans, plan_ms, ms, wall = {}, {}, {}, {}, {}
+            for route in ("auto", False, False, "auto"):
+                engine.route_cold = route
+                if route not in res:
+                    res[route] = engine.search(q, top_k=k)
+                    assert_matches_oracle(res[route][0][sub],
+                                          res[route][1][sub], *want)
+                    plans[route] = engine.plan_chunks(qd, wd, k=k)
+                    plan_ms[route] = wall_ms(
+                        lambda: engine.plan_chunks(qd, wd, k=k))
+                ms.setdefault(route, []).append(
+                    plan_step_ms(torch, engine, plans[route], k))
+                wall.setdefault(route, []).append(wall_ms(
+                    lambda: engine.search(q, top_k=k)))
+            engine.route_cold = "auto"
+            if plans["auto"][0] is None:
+                raise AssertionError(f"{t}-token batch at k={k}: 'auto' "
+                                     "did not route")
+            diff = within_chunk_mates(res["auto"], res[False],
+                                      f"routed vs unrouted, T={t}, k={k}")
+            chunks = [(c.cq, c.padded.shape[0], c.cold_padded.shape[1])
+                      for c in plans["auto"][1]]
+            log(f"[routing] {len(q)} x {t} queries (planned {qd.shape[1]} "
+                f"wide{', dedup weights' if wd is not None else ''}), k={k}: "
+                f"routed {len(chunks)} chunks (rows, height, cold width) "
+                f"{chunks}, plan {plan_ms['auto']:.3f} ms, device step "
+                f"{', '.join(f'{x:.4f}' for x in ms['auto'])} ms, search "
+                f"wall {', '.join(f'{x:.3f}' for x in wall['auto'])} ms; "
+                f"unrouted {len(plans[False][1])} chunks, plan "
+                f"{plan_ms[False]:.3f} ms, step "
+                f"{', '.join(f'{x:.4f}' for x in ms[False])} ms, wall "
+                f"{', '.join(f'{x:.3f}' for x in wall[False])} ms; both match "
+                f"ReferenceEngine (first {CHECKED_QUERIES}), each other "
+                f"within {diff:.3e}")
+
+
+def union_selection(torch, session, index, cfg) -> None:
+    """Phase 4c: union selection (``union_select=True``) against the
+    per-bucket path on phase 4's corpus at the model's layout for k=1000
+    (``choose_layout``: its hot tier and 2 buckets) and at 4 buckets, 512
+    x 8 queries at k=1000: ids and scores bit-equal, the device step of
+    the per-bucket path, of union reading its exactness flag once a chunk
+    (the engine's) and of union unchecked (``"unsafe"``), in turns; then
+    an all-tied corpus over two buckets, where the flag must trip and the
+    fallback give doc ids 0..9."""
+    from bm25_tpu_torch import SparseEngine
+    from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.models.sparse import (choose_layout,
+                                              make_sparse_query_step,
+                                              union_applies)
+    from bm25_tpu_torch.scoring import build_scored_index
+
+    queries = make_queries(cfg)[: cfg.batch]
+    k = cfg.top_k
+    layout = choose_layout(index, k, device=session.device)
+    h = layout["hot_tokens"]
+    for buckets in (layout["max_buckets"], 4):
+        t0 = time.perf_counter()
+        engine = SparseEngine.from_scored_index(
+            index, session=session, hot_tokens=h,
+            hot_budget_bytes=max(h, 1) * index.num_docs * 4,
+            max_buckets=buckets)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if not union_applies(True, engine.buckets, k):
+            raise AssertionError(f"{buckets} buckets: union does not apply")
+        per = engine.search(queries, top_k=k)
+        engine.union_select = True
+        uni = engine.search(queries, top_k=k)
+        if not (np.array_equal(uni[0], per[0])
+                and np.array_equal(uni[1], per[1])):
+            raise AssertionError(f"{buckets} buckets: union differs from "
+                                 "the per-bucket path")
+        plan = engine.plan_chunks(queries, k=k)
+        steps = {"per-bucket": make_sparse_query_step(k, engine.hot_h),
+                 "union (flag read)": engine.query_step(k),
+                 "union unchecked": make_sparse_query_step(
+                     k, engine.hot_h, union_select="unsafe")}
+        ms = {}
+        for name in (*steps, *reversed(steps)):
+            ms.setdefault(name, []).append(
+                plan_step_ms(torch, engine, plan, k, steps[name]))
+        log(f"[union] h={engine.hot_h}, {len(engine.buckets)} buckets "
+            f"(built in {build_s:.2f} s), {len(queries)} x "
+            f"{queries.shape[1]} queries at k={k} in {len(plan[1])} chunks: "
+            "union's ids and scores equal the per-bucket path's bit for "
+            "bit; device step ms, in turns: " + "; ".join(
+                f"{n} {', '.join(f'{x:.4f}' for x in v)}"
+                for n, v in ms.items()))
+        del engine
+        torch.cuda.empty_cache()
+    tied = build_scored_index([np.array([0, 1], np.int32)] * 2048,
+                              vocab_size=4)
+    engine = SparseEngine.from_scored_index(tied, session=session,
+                                            max_buckets=2)
+    engine.union_select = True
+    d, s = engine.search(np.array([[0, 1]], np.int32), top_k=10)
+    if len(engine.buckets) != 2 or not np.array_equal(d[0], np.arange(10)) \
+            or len(set(s[0].tolist())) != 1:
+        raise AssertionError(f"the tied union fallback returned {d[0]}")
+    log("[union] all-tied corpus over 2 buckets: the flag trips, the "
+        "fallback returns doc ids 0..9, every score equal")
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -2676,6 +2911,18 @@ def harness(torch, session, index, timings) -> dict:
     log(f"[harness] recall_vs_reference 1.0 in every row {sorted(recall)}; "
         f"longdoc bucket widths {extra['longdoc']['bucket_widths']} "
         f"(slot-tiled: {extra['longdoc']['slot_tiled']})")
+    # cold-width routing: the long-document row's engine keeps a hot tier
+    # beside its scan tier, so "auto" routes its batches
+    ld = extra["longdoc"]
+    if not ld["chunks"] or any(c["cold_width"] is None
+                               for c in ld["chunks"]):
+        raise AssertionError(f"the long-document row was not routed: "
+                             f"{ld['chunks']}")
+    log(f"[harness] longdoc (model h={ld['layout']['hot_tokens']}) routed: "
+        f"{len(ld['chunks'])} chunks (rows, height, cold width) "
+        f"{[tuple(c.values()) for c in ld['chunks']]}"
+        f"; headline (h={extra['hot_tokens']}) chunks "
+        f"{[tuple(c.values()) for c in extra['headline']['chunks']]}")
     if not extra["longdoc"]["slot_tiled"]:
         longdoc_slot_tiled(torch, session)
     return result
@@ -3531,6 +3778,90 @@ def sharded_vs_single(got, want, what: str) -> float:
     return float(diff.max())
 
 
+def mesh_pieces(engine) -> dict:
+    """Every (field, row, shard) piece of a sharded engine."""
+    fields = ({"st": engine.st, "offsets": engine.offsets}
+              if not hasattr(engine, "buckets") else
+              {"offsets": engine.offsets, "hot_table": engine.hot_table,
+               **{f"buckets.{i}.{k}": t for i, b in enumerate(engine.buckets)
+                  for k, t in b.items()}})
+    return {(key, r, j): t.on(r, j) for key, t in fields.items()
+            for r in range(engine.mesh.devices.shape[0])
+            for j in range(engine.mesh.local_docs)}
+
+
+def sharded_checkpoint(torch, ops, engine, build_s, batch, ks, work,
+                       what: str) -> None:
+    """Phase 15 (g): save a sharded engine's device checkpoint, load it on
+    the engine's mesh (each shard's hot pair rebuilt by two B2 launches)
+    and restore it in place: every piece bit-equal to the engine it was
+    saved from, the results at each k bit-equal, ``hot_table_host`` the
+    restored table's; a mesh of another doc axis refused; save, load and
+    restore seconds beside the build's."""
+    from bm25_tpu_torch import load_device_checkpoint, save_device_checkpoint
+    from bm25_tpu_torch.index.device_checkpoint import (
+        restore_device_checkpoint)
+    from bm25_tpu_torch.parallel import make_mesh
+
+    def same(a, b, when):
+        got, want = mesh_pieces(a), mesh_pieces(b)
+        if sorted(got) != sorted(want) or not all(
+                got[key].dtype == want[key].dtype
+                and torch.equal(got[key], want[key]) for key in want):
+            raise AssertionError(f"{what}: {when} pieces differ")
+
+    path = os.path.join(work, "ck")
+    t0 = time.perf_counter()
+    save_device_checkpoint(path, engine)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(work, f))
+               for f in os.listdir(work) if f.startswith("ck"))
+    b2 = ops.launches["ell_score"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_device_checkpoint(path, mesh=engine.mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    b2 = ops.launches["ell_score"] - b2
+    hot = sum("hotT" in b for b in getattr(engine, "buckets", []))
+    shards = engine.mesh.local_docs
+    if b2 != 2 * hot * shards:
+        raise AssertionError(f"{what}: B2 ran {b2} times on load, not "
+                             f"twice a shard's hot bucket ({hot} x {shards})")
+    same(loaded, engine, "loaded")
+    for k in ks:
+        got, want = loaded.search(batch, top_k=k), engine.search(batch,
+                                                                 top_k=k)
+        if not (np.array_equal(got[0], want[0])
+                and np.array_equal(got[1], want[1])):
+            raise AssertionError(f"{what}: the loaded engine's results "
+                                 f"differ at k={k}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restore_device_checkpoint(path, loaded)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same(loaded, engine, "restored")
+    if hot and not np.array_equal(loaded.hot_table_host,
+                                  loaded.hot_table.numpy()):
+        raise AssertionError(f"{what}: hot_table_host is not the table")
+    card = engine.mesh.devices[0, 0]
+    try:
+        load_device_checkpoint(path, mesh=make_mesh(2, devices=[card] * 2))
+    except ValueError as e:
+        if "doc shards but the restore mesh has 2" not in str(e):
+            raise
+    else:
+        raise AssertionError(f"{what}: a 2-shard mesh was not refused")
+    log(f"[sharded] {what}: checkpoint of {size} B saved in {save_s:.2f} s; "
+        f"loaded in {load_s:.2f} s (built in {build_s:.2f} s; B2 launches "
+        f"{b2} = 2 x {hot} hot buckets x {shards} shards), restored in "
+        f"place in {restore_s:.2f} s: every piece and the results at k={ks} "
+        "bit-equal to the saved engine; a 2-shard mesh refused")
+    del loaded
+    torch.cuda.empty_cache()
+
+
 def sharded(torch, session, index, cfg) -> None:
     """Phase 15: the doc-sharded engines on the card.  (a) a
     ``ShardedSparseEngine`` on ``make_mesh()`` (the (1, 1) mesh), (b) on
@@ -3541,8 +3872,12 @@ def sharded(torch, session, index, cfg) -> None:
     busy ms in it) beside the single engine's; (c) ``ShardedEngine`` over 131,072 docs on (1, 1) and (1, 4)
     against ``DenseEngine``; (d) a forced k_local trim, exact, and its
     fallback on planted ties; (e) two ``_multihost_main`` processes on the
-    card over gloo; (f) the CLI's ``query --engine sharded_sparse`` equal
-    to ``--engine sparse``.  B1, B2 and B3 must launch, no plain twin."""
+    card over gloo, each saving and loading its shards; (f) the CLI's
+    ``query --engine sharded_sparse`` equal to ``--engine sparse``; (g)
+    the device checkpoints of the (1, 4) engine at hot_tokens=1024 (which
+    routes its batches) and of a (1, 4) ``ShardedEngine`` over 16,384 docs
+    (``sharded_checkpoint``).  B1, B2 and B3 must launch, no plain
+    twin."""
     import shutil
     import socket
     import tempfile
@@ -3612,7 +3947,7 @@ def sharded(torch, session, index, cfg) -> None:
             f"{'; '.join(steps)}; {cfg.batch} queries at k={ks} match "
             f"ReferenceEngine (first {CHECKED_QUERIES}) and the "
             f"SparseEngine's ids, scores within {worst:.3e}")
-        return eng
+        return eng, build_s
 
     # (a) the (1, 1) mesh of make_mesh() at the model's layout (h from the
     # cost model, 2 buckets), beside the single-device engine's
@@ -3624,7 +3959,7 @@ def sharded(torch, session, index, cfg) -> None:
     log(f"[sharded] SparseEngine at the model's layout built in "
         f"{single_s:.2f} s (hot_h={single.hot_h}, {len(single.buckets)} "
         "buckets)")
-    eng = sparse_case("(a) make_mesh()", mesh, layout, single)
+    eng, _ = sparse_case("(a) make_mesh()", mesh, layout, single)
     # the meshes below take the same layout, whatever their row alignment
     layout = {"max_buckets": MAX_BUCKETS, "hot_tokens": single.hot_h,
               "hot_budget_bytes": 1 << 40}
@@ -3660,12 +3995,12 @@ def sharded(torch, session, index, cfg) -> None:
 
     # (b) four doc shards, and 2 x 2, over the one card, then (1, 4) at
     # the explicit hot tier: B2 builds each shard's hot pair
-    e14 = sparse_case("(b) (1, 4)", make_mesh(4, devices=[card] * 4),
-                      layout, single)
+    e14, _ = sparse_case("(b) (1, 4)", make_mesh(4, devices=[card] * 4),
+                         layout, single)
     del e14
-    e22 = sparse_case("(b) (2, 2)", make_mesh(4, data=2,
-                                              devices=[card] * 4),
-                      layout, single)
+    e22, _ = sparse_case("(b) (2, 2)", make_mesh(4, data=2,
+                                                 devices=[card] * 4),
+                         layout, single)
     del e22, single
     torch.cuda.empty_cache()
     hot = {"hot_tokens": HOT_TOKENS,
@@ -3673,14 +4008,45 @@ def sharded(torch, session, index, cfg) -> None:
            "max_buckets": MAX_BUCKETS}
     single, single_s = build(SparseEngine, index, session=session, **hot)
     b2 = ops.launches["ell_score"]
-    e14 = sparse_case("(b) (1, 4) hot_tokens=1024",
-                      make_mesh(4, devices=[card] * 4), hot, single)
+    e14, e14_s = sparse_case("(b) (1, 4) hot_tokens=1024",
+                             make_mesh(4, devices=[card] * 4), hot, single)
     b2 = ops.launches["ell_score"] - b2
     if b2 != 4 * len(e14.buckets):
         raise AssertionError(f"B2 ran {b2} times, not once a shard and "
                              "bucket")
     log(f"[sharded] (b) B2 built each shard's hot pair: {b2} launches for 4 "
         f"shards x {len(e14.buckets)} buckets")
+    for k in ks:
+        perm, chunks = e14._plan(batch, None, k)
+        if perm is None:
+            raise AssertionError(f"(b) (1, 4) hot_tokens=1024 at k={k}: "
+                                 "'auto' did not route")
+        shapes = [(c.cq, c.padded.shape[0], c.cold_padded.shape[1])
+                  for c in chunks]
+        log(f"[sharded] (b) (1, 4) hot_tokens=1024 k={k} routed (the "
+            f"ReferenceEngine check above): chunks (rows, height, cold "
+            f"width) {shapes}")
+
+    # (g) device checkpoints: the (1, 4) engine at h=1024 saved, loaded
+    # and restored; a (1, 4) ShardedEngine over 16,384 docs
+    ck_work = tempfile.mkdtemp(prefix="chip_smoke_ck_",
+                               dir=os.path.join(HERE, "_scratch"))
+    try:
+        sharded_checkpoint(torch, ops, e14, e14_s, batch, ks, ck_work,
+                           "(g) (1, 4) hot_tokens=1024")
+        d16 = make_synthetic_index(BenchConfig(num_docs=16384))
+        se, se_s = build(ShardedEngine, d16,
+                         mesh=make_mesh(4, devices=[card] * 4))
+        b3 = gr.launches["gather_add_rows"]
+        sharded_checkpoint(torch, ops, se, se_s,
+                           make_queries(BenchConfig(num_docs=16384))[
+                               : cfg.batch], ks, ck_work,
+                           "(g) (1, 4) ShardedEngine, 16,384 docs")
+        if gr.launches["gather_add_rows"] == b3:
+            raise AssertionError("(g) the loaded ShardedEngine ran no B3")
+        del se
+    finally:
+        shutil.rmtree(ck_work)
 
     # (d) the k_local trim: on (1, 4) at k=100 with 50 a shard, exact;
     # then planted ties on (1, 8), where the exactness check must fall back
@@ -3741,15 +4107,19 @@ def sharded(torch, session, index, cfg) -> None:
     del dense
     torch.cuda.empty_cache()
 
-    # (e) two processes sharing the card over gloo
+    # (e) two processes sharing the card over gloo, each saving and
+    # loading its own shards of both engines' checkpoints
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = {**os.environ, "PYTHONPATH": HERE}
+    ck_work = tempfile.mkdtemp(prefix="chip_smoke_mh_",
+                               dir=os.path.join(HERE, "_scratch"))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, "-m", "bm25_tpu_torch.parallel._multihost_main",
-         str(pid), "2", str(port), "2", "--device", card.type], cwd=HERE,
+         str(pid), "2", str(port), "2", "--device", card.type,
+         "--checkpoint", os.path.join(ck_work, "ck")], cwd=HERE,
         env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for pid in range(2)]
@@ -3760,18 +4130,22 @@ def sharded(torch, session, index, cfg) -> None:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+        shutil.rmtree(ck_work, ignore_errors=True)
     for pid, (p, out) in enumerate(zip(procs, outs)):
         for line in out.splitlines():
-            if line.startswith(f"[p{pid}]") or "MULTIHOST" in line:
+            if line.startswith(f"[p{pid}]") or "MULTIHOST" in line \
+                    or "CHECKPOINT" in line:
                 log(f"[sharded] (e) {line}")
         if p.returncode != 0:
             raise AssertionError(f"(e) process {pid} exited "
                                  f"{p.returncode}:\n{out[-3000:]}")
-    if "MULTIHOST_OK" not in outs[0] or f"(gloo, {card.type}" not in outs[0]:
-        raise AssertionError(f"(e) no MULTIHOST_OK over gloo on the card:\n"
-                             f"{outs[0][-3000:]}")
+    if "MULTIHOST_OK" not in outs[0] or f"(gloo, {card.type}" not in outs[0] \
+            or "CHECKPOINT_OK" not in outs[0]:
+        raise AssertionError(f"(e) no MULTIHOST_OK and CHECKPOINT_OK over "
+                             f"gloo on the card:\n{outs[0][-3000:]}")
     log(f"[sharded] (e) 2 processes x 2 shards on the card over gloo (CUDA "
-        f"tensors in all_gather): MULTIHOST_OK in "
+        f"tensors in all_gather): MULTIHOST_OK, each process's shards "
+        f"saved and loaded bit-equal (CHECKPOINT_OK), in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # (f) the CLI
@@ -4131,6 +4505,9 @@ def drive(torch, dev) -> dict:
         torch.cuda.empty_cache()
     with Phase("4b. layout model and tail tier"):
         ratios = layout_and_tail(torch, session, index, BenchConfig())
+    with Phase("4c. union selection"):
+        union_selection(torch, session, index, BenchConfig())
+    torch.cuda.empty_cache()
     dense_main(torch, dev, BenchConfig(num_docs=DENSE_DOCS), gr, tk, session,
                record)
     torch.cuda.empty_cache()

@@ -401,13 +401,17 @@ def test_cuda_masked_search_matches_oracle(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_search_pipelined_syncs_only_on_its_events(cuda_device):
+@pytest.mark.parametrize("route", ["auto", False])
+def test_cuda_search_pipelined_syncs_only_on_its_events(cuda_device, route):
     """One pipelined call (weights, a mask on the card, ids only too) runs
     under set_sync_debug_mode("error"): nothing on the step's path syncs
-    the host; it equals the serial search of each batch, ids and scores
-    (a chunk's hot plan lists the hot tokens its own queries use, so the
-    hot products' order, and the last bits, follow the chunking)."""
+    the host, with cold-width routing (the default, which routes these
+    128-query batches) and without; it equals the serial search of each
+    batch, ids and scores (a chunk's hot plan lists the hot tokens its
+    own queries use, so the hot products' order, and the last bits,
+    follow the chunking)."""
     index, engine = sparse_engine_on_card()
+    engine.route_cold = route
     rng = np.random.default_rng(2)
     q = rng.integers(-1, 2000, (300, 8))
     w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
@@ -423,6 +427,7 @@ def test_cuda_search_pipelined_syncs_only_on_its_events(cuda_device):
 
     want = serial()
     want_m = serial(weights=w, doc_mask=mask)
+    assert (engine.plan_chunks(q[:128])[0] is not None) == (route == "auto")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -474,6 +479,111 @@ def test_cuda_hot_sums_do_not_depend_on_chunk_mates(cuda_device, k):
                                   batch[1][i : i + 1])
             scale = max(1.0, float(np.abs(batch[1][i]).max()))
             assert np.abs(one[1][0] - batch[1][i]).max() <= 2e-5 * scale
+
+
+# -- cold-width routing and union selection ---------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_c", [2, 4, 64])
+def test_cuda_routed_b1_matches_twin(cuda_device, t_c):
+    """B1 on a routed chunk: the scan reads (Q, T_c) cold ids (2 and 4
+    take the 128-query tables of the (128, 8, 4) build), the hot epilogue
+    the counts of the full ids; a row with no cold id is all -1 pads.
+    The ELL-only base bit-equal to the twin, the fused base and maxima
+    within 2e-5 x the row's largest |score|."""
+    from bm25_tpu_torch.bench.layout_sweep import routed_rows
+    from bm25_tpu_torch.models.sparse import hot_counts_for
+    from bm25_tpu_torch.utils.padding import next_pow2_at_least
+
+    index, engine = sparse_engine_on_card()
+    full, cold = routed_rows(index, engine.hot_table_host, 200, t_c,
+                             seed=t_c)
+    cold[0] = -1
+    width = next_pow2_at_least(max(full.shape[1], 8))
+    full = np.pad(full, ((0, 0), (0, width - full.shape[1])),
+                  constant_values=-1)
+    ids, cids = engine.session.put(full), engine.session.put(cold)
+    hc, hlo = hot_counts_for(ids, engine.hot_table, engine.hot_h)
+    plan, table = port.hot_plan(hc, hlo), port.scan_table(cids)
+    assert table.qp == (128 if t_c <= 4 else table.qp)
+    for b in engine.buckets:
+        args = (cids, b["tokT"], b["valT"], b["doc_ids"])
+        assert torch.equal(port.ell_score_fused(*args, table=table)[0],
+                           port.ell_score_fused_plain(*args)[0])
+        hot = (hc, b["hotT"], b["hotLo"])
+        got = port.ell_score_fused(*args, *hot, hot_counts_lo=hlo,
+                                   plan=plan, table=table)
+        want = port.ell_score_fused_plain(*args, *hot, hot_counts_lo=hlo)
+        within_row_scale(got[0], want[0])
+        within_row_scale(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 1000])
+def test_cuda_routed_matches_unrouted(cuda_device, k):
+    """A 512-query batch routed ("auto" engages) and not: both the
+    oracle's under the comparator, and each other's ids under it with
+    every score within 2e-5 x the row's largest |score| (a query's hot
+    sums follow its chunk-mates, ROADMAP.md section C 5); plain and
+    weighted."""
+    index, engine = sparse_engine_on_card()
+    ref = ReferenceEngine.from_scored_index(index)
+    rng = np.random.default_rng(11)
+    q = rng.integers(-1, 2000, (512, 8))
+    q[0] = -1
+    w = rng.uniform(0.1, 3.0, q.shape).astype(np.float32)
+    assert engine.plan_chunks(q, k=k)[0] is not None
+    for kw in ({}, {"weights": w}):
+        routed = engine.search(q, top_k=k, **kw)
+        engine.route_cold = False
+        unrouted = engine.search(q, top_k=k, **kw)
+        engine.route_cold = "auto"
+        assert_matches_oracle(*routed, *ref.search(q, top_k=k, **kw))
+        assert_matches_oracle(*routed, *unrouted)
+        scale = np.maximum(1.0, np.abs(unrouted[1]).max(axis=1,
+                                                         keepdims=True))
+        assert (np.abs(routed[1] - unrouted[1]) <= 2e-5 * scale).all()
+
+
+@pytest.mark.cuda
+def test_cuda_union_selection_bit_equal_and_tied_fallback(cuda_device):
+    """Union selection on the card: bit-equal to the per-bucket path over
+    four buckets at k=10 and 1000, through search and through the step
+    itself; on an all-tied corpus over two buckets the flag trips and the
+    fallback returns doc ids 0..9."""
+    from bm25_tpu_torch.models.sparse import (SparseEngine,
+                                              make_sparse_query_step)
+    from bm25_tpu_torch.scoring import build_scored_index
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    engine = create_engine(index, mode="sparse", session=Session("cuda"),
+                           hot_tokens=64, hot_budget_bytes=1 << 24,
+                           max_buckets=4)
+    assert len(engine.buckets) == 4
+    q = np.random.default_rng(12).integers(-1, 2000, (64, 8))
+    for k in (10, 1000):
+        per = engine.search(q, top_k=k)
+        engine.union_select = True
+        uni = engine.search(q, top_k=k)
+        engine.union_select = False
+        np.testing.assert_array_equal(uni[0], per[0])
+        np.testing.assert_array_equal(uni[1], per[1])
+        ids = engine.session.put(engine.plan_chunks(q)[1][0].padded)
+        args = (ids, engine.buckets, engine.offsets, engine.hot_table)
+        a = make_sparse_query_step(k, engine.hot_h)(*args)
+        b = make_sparse_query_step(k, engine.hot_h,
+                                   union_select=True)(*args)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    tied = build_scored_index([np.array([0, 1], np.int32)] * 2048,
+                              vocab_size=4)
+    te = SparseEngine.from_scored_index(tied, session=Session("cuda"),
+                                        max_buckets=2)
+    assert len(te.buckets) == 2
+    te.union_select = True
+    d, s = te.search(np.array([[0, 1]], np.int32), top_k=10)
+    np.testing.assert_array_equal(d[0], np.arange(10))
+    assert len(set(s[0].tolist())) == 1
 
 
 def three_tier_index():
@@ -1883,6 +1993,60 @@ def test_cuda_rebuild_hot_pair_bit_identical(cuda_device):
 
 
 # -- the sharded engines on the card -----------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_checkpoint_round_trip(cuda_device, tmp_path):
+    """A (1, 4) ShardedSparseEngine and ShardedEngine on the one card:
+    saved, loaded (each shard's hot pair rebuilt by two B2 launches, no
+    plain twin) and restored in place, every piece and the results bit-
+    equal to the saved engine; a mesh of another doc axis refused."""
+    from bm25_tpu_torch import (ShardedEngine, ShardedSparseEngine,
+                                load_device_checkpoint,
+                                save_device_checkpoint)
+    from bm25_tpu_torch.index.device_checkpoint import (
+        restore_device_checkpoint)
+    from bm25_tpu_torch.parallel import make_mesh
+
+    index = make_synthetic_index(BenchConfig(num_docs=20000, vocab=2000))
+    mesh = make_mesh(4, devices=[cuda_device] * 4)
+    q = np.random.default_rng(13).integers(-1, 2000, (64, 8))
+    plain = dict(port.plain_calls)
+    for engine in (ShardedSparseEngine.from_scored_index(
+                       index, mesh=mesh, hot_tokens=64,
+                       hot_budget_bytes=1 << 30, max_buckets=2),
+                   ShardedEngine.from_scored_index(index, mesh=mesh)):
+        path = str(tmp_path / type(engine).__name__)
+        save_device_checkpoint(path, engine)
+        b2 = port.launches["ell_score"]
+        loaded = load_device_checkpoint(path, mesh=mesh)
+        hot = sum("hotT" in b for b in getattr(engine, "buckets", []))
+        assert port.launches["ell_score"] - b2 == 2 * hot * 4
+        restore_device_checkpoint(path, loaded)
+        if hot:
+            pieces = {(i, key): t for i, b in enumerate(engine.buckets)
+                      for key, t in b.items()}
+            back = {(i, key): t for i, b in enumerate(loaded.buckets)
+                    for key, t in b.items()}
+            pieces[0, "hot_table"] = engine.hot_table
+            back[0, "hot_table"] = loaded.hot_table
+            assert np.array_equal(loaded.hot_table_host,
+                                  engine.hot_table_host)
+        else:
+            pieces, back = {"st": engine.st}, {"st": loaded.st}
+        assert sorted(back) == sorted(pieces)
+        for key, t in pieces.items():
+            for j in range(4):
+                assert back[key].on(0, j).is_cuda
+                assert torch.equal(back[key].on(0, j), t.on(0, j)), key
+        for k in (10, 1000):
+            got, want = loaded.search(q, top_k=k), engine.search(q, top_k=k)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        with pytest.raises(ValueError, match="restore mesh has 2"):
+            load_device_checkpoint(path, mesh=make_mesh(
+                2, devices=[cuda_device] * 2))
+    assert port.plain_calls == plain
 
 
 @pytest.mark.cuda

@@ -10,6 +10,14 @@ campaign comparator, the port's restore is bit-equal to its source
 (bf16 hot pairs included, rebuilt by two B2 scans a bucket) and the
 port's sidecar carries JAX's fields.  Then the refusals, and the hot
 pair's sparse form against JAX's arrays.
+
+The sharded engines (the counterparts of ``tests/test_aux.py``'s sharded
+checkpoint tests) are built by both packages on meshes of the same shape,
+JAX's on the 8 virtual CPU devices and the port's on ``[cpu] * 8``: each
+saves and loads (or restores in place) its own, the port's load is bit-
+equal piece by piece to its source, matches JAX's load under the
+comparator, rebuilds every shard's hot pair by two B2 scans and refills
+the routing's host table.
 """
 
 import importlib
@@ -25,6 +33,7 @@ from conftest import make_zipf_corpus
 import bm25_tpu.index.device_checkpoint as jax_dc
 import bm25_tpu.models.sparse as jax_sparse
 from bm25_tpu.models.dense import DenseEngine as JaxDenseEngine
+from bm25_tpu.reference import ReferenceEngine
 from bm25_tpu.scoring import BM25Params, build_scored_index
 from bm25_tpu.text.tokenizer import Tokenizer
 from bm25_tpu_torch import (DenseEngine, Session, SparseEngine,
@@ -32,6 +41,9 @@ from bm25_tpu_torch import (DenseEngine, Session, SparseEngine,
 from bm25_tpu_torch.index import device_checkpoint as dc
 from bm25_tpu_torch.models import sparse as port_sparse
 from bm25_tpu_torch.ops.gather_rows import doc_pad
+from bm25_tpu_torch.parallel.mesh import make_mesh
+from bm25_tpu_torch.parallel.sharded_engine import (ShardedEngine,
+                                                    ShardedSparseEngine)
 from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
 # bm25_tpu_torch.ops re-exports the function ell_score under its module's
@@ -186,10 +198,19 @@ def test_refusals(index, tmp_path):
         json.dump({**meta, "version": dc.CHECKPOINT_VERSION + 1}, f)
     with pytest.raises(ValueError, match="unsupported checkpoint version"):
         load_device_checkpoint(path, session=CPU)
-    with open(meta_path, "w") as f:
-        json.dump({**meta, "engine": "ShardedSparseEngine"}, f)
-    with pytest.raises(NotImplementedError, match="the sharded engines"):
-        load_device_checkpoint(path, session=CPU)
+    # a sharded checkpoint onto a mesh of another doc axis: JAX's refusal
+    mesh4 = make_mesh(4, devices=[torch.device("cpu")] * 4)
+    sharded = ShardedSparseEngine.from_scored_index(
+        index, mesh=mesh4, hot_tokens=8, hot_budget_bytes=1 << 24)
+    spath = str(tmp_path / "sk")
+    save_device_checkpoint(spath, sharded)
+    for docs in (2, 8):
+        other = make_mesh(docs, devices=[torch.device("cpu")] * docs)
+        with pytest.raises(ValueError, match=f"saved on a mesh with 4 doc "
+                           f"shards but the restore mesh has {docs}"):
+            load_device_checkpoint(spath, mesh=other)
+    with pytest.raises(ValueError, match="holds ShardedSparseEngine"):
+        dc.restore_device_checkpoint(spath, port)
     os.unlink(meta_path)
     with pytest.raises(ValueError, match="no metadata sidecar") as e:
         load_device_checkpoint(path, session=CPU)
@@ -197,11 +218,11 @@ def test_refusals(index, tmp_path):
     with pytest.raises(ValueError, match="no metadata sidecar"):
         dc.restore_device_checkpoint(path, port)
 
-    class ShardedEngine:
+    class Odd:
         pass
 
-    with pytest.raises(NotImplementedError, match="the sharded engines"):
-        save_device_checkpoint(str(tmp_path / "x"), ShardedEngine())
+    with pytest.raises(TypeError, match="snapshot.py"):
+        save_device_checkpoint(str(tmp_path / "x"), Odd())
 
     # an Orbax directory of the JAX package: refused by name, never read
     jax_engine = JaxDenseEngine.from_scored_index(index)
@@ -261,3 +282,189 @@ def test_hot_pair_sparse_form_equals_jax(index):
     np.testing.assert_array_equal(val.numpy(), jv)
     hi, lo = port_sparse.rebuild_hot_pair_from_sparse(4, 16, empty, CPU.put)
     assert not hi.any() and not lo.any() and hi.shape == (4, 16)
+
+
+# -- the sharded engines ------------------------------------------------------
+
+
+def sharded_pair(index, cls_name, data, docs):
+    """(JAX engine, port engine) of ``cls_name`` on meshes of one shape;
+    the sparse pair at 8 hot tokens and 2 buckets."""
+    import bm25_tpu.parallel.mesh as jax_mesh
+    import bm25_tpu.parallel.sharded_engine as jax_sharded
+
+    kw = ({} if cls_name == "ShardedEngine"
+          else dict(hot_tokens=8, max_buckets=2))
+    n = data * docs
+    jeng = getattr(jax_sharded, cls_name).from_scored_index(
+        index, mesh=jax_mesh.make_mesh(n, data=data), **kw)
+    if kw:
+        kw["hot_budget_bytes"] = 1 << 24
+    pmesh = make_mesh(n, data=data, devices=[torch.device("cpu")] * 8)
+    port = {"ShardedEngine": ShardedEngine,
+            "ShardedSparseEngine": ShardedSparseEngine}[cls_name]
+    return jeng, port.from_scored_index(index, mesh=pmesh, **kw)
+
+
+def sharded_leaves(engine) -> dict:
+    """Every (row, shard) piece of the engine's mesh tensors."""
+    fields = ({"st": engine.st, "offsets": engine.offsets}
+              if isinstance(engine, ShardedEngine) else
+              {"offsets": engine.offsets, "hot_table": engine.hot_table,
+               **{f"buckets.{i}.{k}": t for i, b in enumerate(engine.buckets)
+                  for k, t in b.items()}})
+    return {(key, r, j): t.on(r, j) for key, t in fields.items()
+            for r in range(engine.mesh.devices.shape[0])
+            for j in range(engine.mesh.local_docs)}
+
+
+@pytest.mark.parametrize("cls_name,data,docs", [
+    ("ShardedSparseEngine", 1, 4), ("ShardedSparseEngine", 2, 4),
+    ("ShardedEngine", 1, 4)])
+def test_sharded_round_trip_matches_jax(index, queries, tmp_path, cls_name,
+                                        data, docs):
+    from bm25_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    jeng, port = sharded_pair(index, cls_name, data, docs)
+    jax_path, path = str(tmp_path / "jax_ck"), str(tmp_path / "ck")
+    jax_dc.save_device_checkpoint(jax_path, jeng)
+    jax_loaded = jax_dc.load_device_checkpoint(
+        jax_path, mesh=jax_make_mesh(data * docs, data=data))
+    save_device_checkpoint(path, port)
+    before = ops.plain_calls["ell_score"]
+    loaded = load_device_checkpoint(path, mesh=port.mesh)
+    b2 = ops.plain_calls["ell_score"] - before
+    assert type(loaded) is type(port)
+    hot = sum("hotT" in b for b in getattr(port, "buckets", []))
+    assert (hot > 0) == (cls_name == "ShardedSparseEngine")
+    assert b2 == 2 * hot * docs  # hi and lo, on each shard
+    got, want = sharded_leaves(loaded), sharded_leaves(port)
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+    assert loaded.vocab == port.vocab
+    if cls_name == "ShardedSparseEngine":
+        np.testing.assert_array_equal(loaded.hot_table_host,
+                                      loaded.hot_table.numpy())
+        np.testing.assert_array_equal(loaded.hot_table_host,
+                                      np.asarray(jax_loaded.hot_table_host))
+    oracle_w = np.random.default_rng(2).uniform(
+        0.5, 2.0, queries.shape).astype(np.float32)
+    oracle = ReferenceEngine.from_scored_index(index)
+    for k, w in ((10, None), (100, oracle_w)):
+        d1, s1 = loaded.search(queries, top_k=k, weights=w)
+        d0, s0 = port.search(queries, top_k=k, weights=w)
+        np.testing.assert_array_equal(d1, d0)
+        np.testing.assert_array_equal(s1, s0)
+        assert_matches_oracle(d1, s1, *jax_loaded.search(
+            queries, top_k=k, weights=w))
+        assert_matches_oracle(d1, s1, *oracle.search(queries, top_k=k,
+                                                     weights=w))
+
+    with open(path + ".meta.json") as f:
+        meta = json.load(f)
+    with open(jax_path + ".meta.json") as f:
+        want_meta = json.load(f)
+    assert meta.pop("vocab") == want_meta.pop("vocab")
+    if cls_name == "ShardedEngine":
+        # the port pads each shard to doc_pad(d_local), JAX to its lanes
+        assert meta["tree"]["st"][0][0] == want_meta["tree"]["st"][0][0]
+        want_meta["tree"]["st"][0][1] = meta["tree"]["st"][0][1]
+    assert meta == want_meta
+
+
+def test_sharded_restore_in_place(index, queries, tmp_path):
+    """Counterparts of JAX's sharded restores: a fresh engine on the same
+    mesh, its ELL values and hot pairs zeroed, restored to the source's
+    pieces and results."""
+    _, port = sharded_pair(index, "ShardedSparseEngine", 1, 4)
+    path = str(tmp_path / "ck")
+    save_device_checkpoint(path, port)
+    fresh = ShardedSparseEngine.from_scored_index(
+        index, mesh=port.mesh, hot_tokens=8, max_buckets=2,
+        hot_budget_bytes=1 << 24)
+    for b in fresh.buckets:
+        for key in ("valT", "hotT", "hotLo"):
+            for t in b[key].pieces():
+                t.zero_()
+    fresh.hot_table_host = None
+    dc.restore_device_checkpoint(path, fresh)
+    got, want = sharded_leaves(fresh), sharded_leaves(port)
+    assert all(torch.equal(got[key], want[key]) for key in want)
+    np.testing.assert_array_equal(fresh.hot_table_host,
+                                  port.hot_table_host)
+    for k in (5, 50):
+        d1, s1 = fresh.search(queries, top_k=k)
+        d0, s0 = port.search(queries, top_k=k)
+        np.testing.assert_array_equal(d1, d0)
+        np.testing.assert_array_equal(s1, s0)
+
+
+def test_restore_refreshes_the_routing_host_table(index, tmp_path):
+    """JAX's test of the routing's host table: a restore in place of a
+    checkpoint whose hot tokens differ (same shapes) leaves the host copy
+    equal to the restored device table."""
+    kw = dict(hot_tokens=4, hot_budget_bytes=1 << 24)
+    e_a = SparseEngine.from_scored_index(index, session=CPU, **kw)
+    e_b = SparseEngine.from_scored_index(index, session=CPU, **kw)
+    tbl = e_a.hot_table_host.copy()
+    hot_ids = np.flatnonzero(tbl >= 0)
+    rolled = np.full_like(tbl, -1)
+    rolled[(hot_ids + 1) % (len(tbl) - 1)] = tbl[hot_ids]
+    e_a.hot_table = CPU.put(rolled)
+    e_a.hot_table_host = rolled
+    path = str(tmp_path / "ck")
+    save_device_checkpoint(path, e_a)
+    dc.restore_device_checkpoint(path, e_b)
+    np.testing.assert_array_equal(e_b.hot_table_host, rolled)
+    assert load_device_checkpoint(path, session=CPU).hot_table_host \
+        .tolist() == rolled.tolist()
+
+
+def test_cli_and_server_take_a_sharded_checkpoint(tmp_path, animal_corpus,
+                                                  capsys):
+    """The CLI's ``checkpoint --engine sharded_sparse`` writes a sharded
+    checkpoint (a (1, 1) mesh on the CPU session); ``warm`` and
+    ``Server(device_checkpoint=)`` restore it, as JAX's take theirs."""
+    import urllib.request
+
+    from bm25_tpu_torch import Server, create_engine, load_index
+    from bm25_tpu_torch.cli.main import main
+
+    corpus = tmp_path / "docs.txt"
+    corpus.write_text("\n".join(animal_corpus))
+    idx, ck = str(tmp_path / "idx"), str(tmp_path / "ck")
+    assert main(["index", str(corpus), "-o", idx]) == 0
+    assert main(["--device", "cpu", "checkpoint", idx, "-o", ck,
+                 "--engine", "sharded_sparse"]) == 0
+    with open(ck + ".meta.json") as f:
+        meta = json.load(f)
+    assert meta["engine"] == "ShardedSparseEngine"
+    assert meta["mesh_shape"] == {"data": 1, "docs": 1}
+    loaded = load_device_checkpoint(ck, session=CPU)
+    built = create_engine(load_index(idx), mode="sharded_sparse",
+                          session=CPU)
+    q = np.array([[0, 1, 2, -1], [3, 3, 4, 5]], np.int32)
+    for got, want in zip(loaded.search(q, top_k=3), built.search(q, top_k=3)):
+        np.testing.assert_array_equal(got, want)
+    capsys.readouterr()
+    assert main(["--device", "cpu", "warm", "--device-checkpoint", ck,
+                 "--top-k", "2", "--batch-sizes", "1"]) == 0
+    assert json.loads(capsys.readouterr().out)["shapes"] == 2
+    srv = Server(idx, port=0, device_checkpoint=ck,
+                 engine_kwargs={"session": CPU})
+    srv.start_background()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/search",
+            data=json.dumps({"queries": [animal_corpus[0]],
+                             "top_k": 1}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            hits = json.loads(r.read())["results"][0]
+    finally:
+        srv.shutdown()
+    assert type(srv._handler.runtime.engine).__name__ == \
+        "ShardedSparseEngine"
+    assert hits[0]["doc"] == 0

@@ -374,3 +374,31 @@ def test_layout_sweep_fit_recovers_the_terms(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "headline k=1000: model picks h=0 B=2" in out
     assert out.count("| headline |") == 16
+
+
+def test_route_sweep_fit_recovers_the_chunk_costs(tmp_path, capsys):
+    """``--fit-route`` on two passes' lines made from known chunk costs
+    returns them, fits each pass alone, and prints a grid a k with each
+    pass's reading over the model's."""
+    unit, c0, fixed = 1e-4, {100: 90.0, 1000: 130.0}, 16000.0
+    paths = []
+    for n, jitter in ((1, 1.0), (2, 1.0 + 1e-9)):
+        lines = [{"route": True, "height": q, "cold_width": t, "k": k,
+                  "ms": unit * jitter * (q * (c0[k] + 2 * t + 2) + fixed),
+                  "card": "test"}
+                 for q in layout_sweep.ROUTE_HEIGHTS
+                 for t in layout_sweep.ROUTE_COLD for k in (1000, 100)]
+        path = tmp_path / f"route_p{n}.jsonl"
+        path.write_text("\n".join(json.dumps(x) for x in lines) + "\n")
+        paths.append(str(path))
+    fitted = layout_sweep.fit_route(paths)
+    assert fitted["unit_ms"] == pytest.approx(unit, rel=1e-6)
+    assert fitted["CHUNK_FIXED_UNITS"] == pytest.approx(fixed, rel=1e-6)
+    for k, want in c0.items():
+        assert fitted["CHUNK_C0_UNITS"][k] == pytest.approx(want, rel=1e-6)
+    layout_sweep.report_route(paths)
+    out = capsys.readouterr().out
+    assert out.count(" alone: ") == 2
+    assert "k=1000: measured ms" in out and "k=100: measured ms" in out
+    assert out.count("\n| 512 |") == 2
+    assert "error over 120 readings: median 0.000" in out

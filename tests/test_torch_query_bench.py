@@ -54,10 +54,15 @@ def test_record_keys_match_jax(records):
     omitted = set(pe["omitted"])
     assert omitted == set(port_bench.OMITTED) | set(port_bench.CARD_ONLY)
     assert pe["device"] == {"type": "cpu"}
+    # the port records each row's planned chunks (routed ones carry a
+    # cold width)
     for got, want in [(pe["headline"], je["headline"])] + list(
             zip(pe["secondary"], je["secondary"])):
-        assert set(got) == set(want) - omitted
-    assert set(pe["longdoc"]) == set(je["longdoc"]) | {"layout"}
+        assert set(got) == (set(want) - omitted) | {"chunks"}
+    assert set(pe["longdoc"]) == set(je["longdoc"]) | {"layout", "chunks"}
+    for row in [pe["headline"], pe["longdoc"]] + pe["secondary"]:
+        assert row["chunks"] and all(
+            set(c) == {"rows", "height", "cold_width"} for c in row["chunks"])
     assert pe["memory_parity"].keys() == je["memory_parity"].keys()
     assert [r["point"] for r in pe["memory_trade"]] == ["parity", "mid",
                                                         "speed"]
@@ -128,7 +133,8 @@ def test_compact_headline_is_small(records):
 
 
 def test_step_bytes_and_timing_helpers():
-    """estimate_step_hbm_bytes sums b1_bytes over the batch's chunks;
+    """estimate_step_hbm_bytes sums b1_bytes over the plan's chunks,
+    scaled to the batch;
     measure_device_step_ms returns a time for the sparse engine only,
     measure_sharded_step_ms for the sharded one only; the shard-scaling
     curve (8 queries here) has JAX's keys at S = 1, 2, 4, 8, recall 1.0."""
@@ -141,17 +147,19 @@ def test_step_bytes_and_timing_helpers():
     cpu = Session("cpu")
     eng = create_engine(index, mode="sparse", session=cpu, hot_tokens=32,
                         hot_budget_bytes=1 << 20, max_buckets=2)
-    ids = np.resize(queries, (40, queries.shape[1]))
     want = 0
-    for _cq, padded, _w in eng.plan_chunks(ids):
-        want += sum(b.scan + b.epilogue
-                    for b in b1_bytes(eng, cpu.put(padded)))
-    assert port_bench.estimate_step_hbm_bytes(eng, 40, queries) == want > 0
+    put = lambda x: None if x is None else cpu.put(x)  # noqa: E731
+    plan = eng.plan_chunks(queries, k=10)
+    for c in plan[1]:
+        want += sum(b.scan + b.epilogue for b in b1_bytes(
+            eng, cpu.put(c.padded), cold_ids=put(c.cold_padded)))
+    want = want * 40 // len(queries)
+    assert port_bench.estimate_step_hbm_bytes(eng, 40, plan) == want > 0
     assert port_bench.measure_device_step_ms(eng, queries, 10,
                                              iters=2) >= 0
     dense = create_engine(index, mode="dense", session=cpu)
     assert port_bench.measure_device_step_ms(dense, queries, 10) is None
-    assert port_bench.estimate_step_hbm_bytes(dense, 40, queries) is None
+    assert port_bench.estimate_step_hbm_bytes(dense, 40, None) is None
     assert port_bench.measure_sharded_step_ms(eng, queries, 10) is None
     sharded = create_engine(index, mode="sharded_sparse", session=cpu)
     assert port_bench.measure_sharded_step_ms(sharded, queries, 10,

@@ -742,6 +742,39 @@ def test_reload_window_503_has_retry_after(server):
     assert _post(server, {"queries": ["cat"], "top_k": 1})["results"][0]
 
 
+def test_reload_window_503_reads_the_body_first(server):
+    """A /search in a drop-mode reload window is answered only after its
+    body is read: a socket closed over unread bytes resets the
+    connection, and the client may lose the 503 (seen once on the card
+    under load).  The body follows the headers 0.3 s late here: no answer
+    may come before it, and the whole 503 after it."""
+    old_rt = server._handler.runtime
+    server._handler.runtime = EngineRuntime(
+        engine=None, tokenizer=old_rt.tokenizer, vocab=old_rt.vocab,
+        corpus=old_rt.corpus, stats=dict(old_rt.stats, reloading=True))
+    body = json.dumps({"queries": ["cat"], "top_k": 1}).encode()
+    try:
+        with socket.create_connection(("127.0.0.1", server.port),
+                                      timeout=10) as sock:
+            sock.sendall(b"POST /search HTTP/1.0\r\n"
+                         b"Content-Type: application/json\r\n"
+                         b"Content-Length: " + str(len(body)).encode()
+                         + b"\r\n\r\n")
+            sock.settimeout(0.3)
+            with pytest.raises(socket.timeout):
+                sock.recv(1)
+            sock.settimeout(10)
+            sock.sendall(body)
+            reply = b""
+            while chunk := sock.recv(1 << 16):
+                reply += chunk
+    finally:
+        server._handler.runtime = old_rt
+    head, _, payload = reply.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.0 503") and b"Retry-After" in head
+    assert "retry" in json.loads(payload)["error"]
+
+
 @pytest.mark.parametrize("mode", ["sparse", "dense"])
 def test_search_include_scores_false(tmp_path_factory, animal_corpus, mode):
     d = _build(tmp_path_factory, animal_corpus, f"idx_ro_{mode}")

@@ -31,6 +31,7 @@ from bm25_tpu.reference import ReferenceEngine
 from bm25_tpu.scoring import BM25Params, build_scored_index
 from bm25_tpu.text.tokenizer import Tokenizer
 from bm25_tpu_torch import Session
+from bm25_tpu_torch.models import sparse as port_sparse
 from bm25_tpu_torch.parallel import distributed as port_dist
 from bm25_tpu_torch.parallel import sharded_engine as port_sharded
 from bm25_tpu_torch.parallel.mesh import make_mesh
@@ -42,6 +43,8 @@ from bm25_tpu_torch.utils.parity import assert_matches_oracle
 
 CPU = torch.device("cpu")
 MESHES = [(1, 8), (2, 4), (4, 2), (8, 1)]
+# JAX's chunk DP costs (v5e), which the port's tests pass explicitly
+JAX_C0_UNITS = {100: 10.0, 1000: 32.0}
 
 
 def meshes(data, docs):
@@ -216,7 +219,7 @@ def test_sharded_sparse_multibucket_chunked_matches_oracle():
     assert len(eng.buckets) >= 2
     eng.chunk_queries = jeng.chunk_queries = 8
     queries = rng.integers(-1, vocab, size=(17, 5), dtype=np.int32)
-    assert len(eng._plan(queries, None, 9)) == 3
+    assert len(eng._plan(queries, None, 9)[1]) == 3
     check(eng.search(queries, top_k=9), jeng.search(queries, top_k=9),
           ReferenceEngine.from_scored_index(idx).search(queries, top_k=9),
           exact=True)
@@ -255,27 +258,47 @@ def test_sharded_sparse_long_query_dedup_matches_oracle(setup):
     queries = np.take_along_axis(base.astype(np.int32), pick, axis=1)
     assert queries.shape[1] >= eng.dedup_min_width
     # dedup engages: the planned chunk is the deduplicated, weighted one
-    (_cq, padded, wpadded), = eng._plan(queries, None, 9)
+    (_cq, padded, wpadded, _cold, _wc), = eng._plan(queries, None, 9)[1]
     assert padded.shape[1] < queries.shape[1] and wpadded is not None
     check(eng.search(queries, top_k=9), jeng.search(queries, top_k=9),
           oracle.search(queries, top_k=9), rtol=2e-5, atol=2e-5)
 
 
-def test_sharded_sparse_cold_routing_matches_oracle(setup):
-    """JAX routes wide batches through a cold-width scan; the port keeps
-    ``route_cold`` and does not route, with the same results."""
+def test_sharded_sparse_cold_routing_matches_oracle(setup, monkeypatch):
+    """Forced cold-width routing: at JAX's chunk costs the port plans
+    JAX's routed chunks (the same permutation and cold ids), every step
+    scans the cold ids, and the results are JAX's and the oracle's."""
+    monkeypatch.setattr(port_sparse, "CHUNK_C0_UNITS", JAX_C0_UNITS)
+    monkeypatch.setattr(port_sparse, "CHUNK_FIXED_UNITS", 550.0)
     idx, oracle = setup
     eng, jeng = both("ShardedSparseEngine", idx, 2, 4, hot_tokens=32)
     eng.route_cold = jeng.route_cold = True
     rng = np.random.default_rng(71)
     queries = rng.integers(-1, idx.vocab_size, size=(24, 8), dtype=np.int32)
     queries[0] = -1
+    perm, chunks = eng._plan(queries, None, 9)
+    jperm, jchunks = jeng._plan(queries, None, 9)
+    np.testing.assert_array_equal(perm, jperm)
+    assert len(chunks) == len(jchunks)
+    for got, want in zip(chunks, jchunks):
+        assert got.cq == want[0] and got.cold_padded is not None
+        np.testing.assert_array_equal(got.padded, want[1])
+        np.testing.assert_array_equal(got.cold_padded, want[3])
+    calls = []
+    step = eng._step_fn
+
+    def spy(*a, **kw):
+        fn = step(*a, **kw)
+        return lambda hot, qs, m=None: calls.append(qs.cold) or fn(hot, qs, m)
+
+    eng._step_fn = spy
     check(eng.search(queries, top_k=9), jeng.search(queries, top_k=9),
           oracle.search(queries, top_k=9), rtol=2e-5, atol=2e-5)
     w = rng.uniform(0.2, 2.0, size=queries.shape).astype(np.float32)
     check(eng.search(queries, top_k=9, weights=w),
           jeng.search(queries, top_k=9, weights=w),
           oracle.search(queries, top_k=9, weights=w), rtol=5e-5, atol=5e-5)
+    assert calls and all(c is not None for c in calls)
 
 
 def test_k_local_trim_exact_with_fallback(zipf_corpus_small):
@@ -507,8 +530,8 @@ def test_bench_step_fn_shares_dispatch_cache(setup):
     rng = np.random.default_rng(11)
     queries = rng.integers(-1, idx.vocab_size, size=(16, 6), dtype=np.int32)
     fn, args, n_chunks = eng.bench_step_fn(queries, top_k=9)
-    (cq, padded, wpadded), = eng._plan(queries, None, 9)
-    assert n_chunks == 1 and wpadded is None
+    (cq, padded, wpadded, cold, _wc), = eng._plan(queries, None, 9)[1]
+    assert n_chunks == 1 and wpadded is None and cold is None
     np.testing.assert_array_equal(args[1].padded, padded)
     (s, d), = fn(*args)
     dd, ds = eng.search(queries, top_k=9)
@@ -523,7 +546,7 @@ def test_bench_step_fn_shares_dispatch_cache(setup):
         eng.dedup_min_width // 2, axis=1,
     )
     fn, args, _ = eng.bench_step_fn(wide, top_k=9)
-    (_cq, padded, wpadded), = eng._plan(wide, None, 9)
+    (_cq, padded, wpadded, _c, _wc), = eng._plan(wide, None, 9)[1]
     np.testing.assert_array_equal(args[1].padded, padded)
     np.testing.assert_array_equal(args[1].wpadded, wpadded)
     assert args[1].padded.shape[1] < wide.shape[1]
@@ -580,7 +603,7 @@ def test_bf16_scores_round_before_the_offsets(zipf_corpus_small, method):
 
     # the device's merged f32 scores, without the offsets, and the
     # offsets as the engine sums them on the host (over the padded ids)
-    (_cq, padded, _w), = eng._plan(queries, None, 10)
+    (_cq, padded, *_), = eng._plan(queries, None, 10)[1]
     step = port_sharded.make_sharded_ell_step(eng.mesh, 10, eng.hot_h,
                                               eng.buckets)
     raw = np.concatenate([s.numpy() for s, _ in step(

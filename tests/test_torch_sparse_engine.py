@@ -263,7 +263,7 @@ def test_empty_batch_and_chunking(lucene_index):
     # a budget that fits 8 queries per chunk: five chunks, same answers
     rows = max(b["doc_ids"].shape[0] for b in eng.buckets)
     eng.score_buffer_budget = 4 * rows * 8
-    assert len(eng.plan_chunks(q)) == 5
+    assert len(eng.plan_chunks(q)[1]) == 5
     chunked = eng.search(q, top_k=12)
     np.testing.assert_array_equal(chunked[0], whole[0])
     np.testing.assert_array_equal(chunked[1], whole[1])

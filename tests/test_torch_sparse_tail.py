@@ -149,7 +149,7 @@ def test_plan_chunks_counts_the_tail_transients(setup):
     per_q = 4 * rows + 8 * 8 * c * p * 4
     port.score_buffer_budget = per_q * 16
     q = np.zeros((40, 6), np.int32)
-    assert [c[0] for c in port.plan_chunks(q)] == [16, 16, 8]
+    assert [c[0] for c in port.plan_chunks(q)[1]] == [16, 16, 8]
 
 
 # -- search --------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """The port's warmers (runtime/warmup.py) against the JAX package's, on the
 CPU.
 
-The port's ``SparseEngine`` has no cold-width routing, so its plan must be
-the one JAX makes for an engine built with ``route_cold=False``, over the
-cases of ``tests/test_warmup.py``; ``warm_engine`` reports every task with
-its first-use work, and the CLI's ``warm`` prints the JAX CLI's report.
+The port's plan must be the one JAX makes for the same engine, routed
+(the default) and built with ``route_cold=False``, over the cases of
+``tests/test_warmup.py``; ``warm_engine`` reports every task with its
+first-use work, and the CLI's ``warm`` prints the JAX CLI's report.
 """
 
 import json
@@ -34,7 +34,6 @@ def engines(request):
     idx = build_scored_index(out.ids, vocab_size=len(out.vocab))
     jax_engine = jax_sparse.SparseEngine.from_scored_index(
         idx, hot_tokens=16)
-    jax_engine.route_cold = False
     return jax_engine, SparseEngine.from_scored_index(
         idx, session=CPU, hot_tokens=16, hot_budget_bytes=1 << 22)
 
@@ -54,14 +53,23 @@ PLAN_CASES = [
 ]
 
 
+@pytest.mark.parametrize("routed", [True, False])
 @pytest.mark.parametrize("case", range(len(PLAN_CASES)))
-def test_default_plan_equals_jax_unrouted(engines, case):
+def test_default_plan_equals_jax_unrouted(engines, case, routed,
+                                          monkeypatch):
+    """JAX's default engine plans its routed family, one built with
+    ``route_cold=False`` the unrouted one; the port's plans are JAX's."""
     jax_engine, port = engines
+    if not routed:
+        monkeypatch.setattr(jax_engine, "route_cold", False)
+        monkeypatch.setattr(port, "route_cold", False)
     kw = PLAN_CASES[case]
     want = jax_warmup.default_plan(jax_engine, **kw)
     got = default_plan(port, **kw)
     assert got == want and got
-    assert all(t["cold"] is None for t in got)
+    assert any(t["cold"] is not None for t in got) == (
+        routed and any(q >= 32 for q in (*kw.get("batch_sizes", (1, 8, 32)),
+                                         kw.get("routed_batch", 512))))
 
 
 def test_default_plan_without_routing_equals_jax():
@@ -76,10 +84,12 @@ def test_default_plan_without_routing_equals_jax():
 
 
 def test_query_matrix_equals_jax_unrouted(engines):
+    """The warm queries at a cold-width class (each row's cold count
+    pinned by the hot table) and without one: JAX's."""
     jax_engine, port = engines
     for cold in (None, 3):
         got = _query_matrix(port, 16, 8, cold, np.random.default_rng(0))
-        want = jax_warmup._query_matrix(jax_engine, 16, 8, None,
+        want = jax_warmup._query_matrix(jax_engine, 16, 8, cold,
                                         np.random.default_rng(0))
         np.testing.assert_array_equal(got, want)
         assert got.dtype == np.int32 and got.max() < port.vocab_size
