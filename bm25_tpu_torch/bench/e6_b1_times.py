@@ -140,7 +140,7 @@ def b1_times(es, dev, rng, out: dict, ablate: bool) -> None:
             if takes_plan:
                 kw["plan"] = es.hot_plan(hc)
                 out[f"plan_q{q}"] = cuda_ms(lambda: es.hot_plan(hc), 20)
-                out[f"used_q{q}"] = int(kw["plan"].n_used.item())
+                out[f"listed_q{q}"] = int(kw["plan"].n_used.item())
             if takes_table:
                 skw["table"] = es.scan_table(ids)
                 out[f"table_q{q}"] = cuda_ms(lambda: es.scan_table(ids), 20)

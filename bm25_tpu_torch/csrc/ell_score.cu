@@ -75,13 +75,20 @@
 // operand, K-major as they lie ((Q, H) rows):
 //   - K runs over the hot tokens the chunk uses, not all H: the wrapper's
 //     hot plan (ops/ell_score.py::hot_plan, on the device, no host sync)
-//     lists the used tokens first and the counts' columns in that order,
-//     zero past them, and n_used says how many K steps of HOT_BK run.  A
-//     query uses at most T tokens, so an 8-query chunk reads at most 64
-//     hot rows where a dense product would read all H.  A block keeps
-//     the list in shared memory beside its ring (H up to about 32,000;
-//     two blocks fit an SM up to H of about 3,000): a global load per
-//     stage put an L2 round trip before each stage's copies.
+//     lists, ascending, each aligned group of 16 hot ranks (one k16 step)
+//     in which some query counts a token, every rank at its own offset
+//     in its group (-1 where no query counts it: a row not read), and the
+//     counts' columns in that order, zero past them; n_used (16 x the
+//     groups) says how many K steps of HOT_BK run.  So a query's nonzero
+//     counts meet the same lanes of the same sequence of k16 steps
+//     whatever its chunk-mates are: the steps and lanes only mates use
+//     add exact zero products, and its sums keep their bits.  A query
+//     uses at most T tokens, so an 8-query chunk reads at most 64 hot
+//     rows, in at most 64 groups, where a dense product would read all
+//     H.  A block keeps the list in shared memory beside its ring (H up
+//     to about 32,000; two blocks fit an SM up to H of about 3,000): a
+//     global load per stage put an L2 round trip before each stage's
+//     copies.
 //   - TMA has no row gather, so a producer warp stages each used hot
 //     row's run of the block's HOT_BM doc rows by 16-byte cp.async (one
 //     warp instruction copies two rows' 256 bytes), completing on the
@@ -91,11 +98,11 @@
 //     H100; deeper rings were no faster.  The
 //     consumers read the rows with ldmatrix.trans straight into wgmma's A
 //     fragments (the rows are M-contiguous: the transpose happens on the
-//     way into registers).  Rows past n_used and units past the bucket's
-//     rows are zero-filled by the copy (a zero count times stale shared
-//     memory could be NaN).  The counts come by TMA in the 128-byte
-//     swizzle, one box of HOT_BK tokens by BQ queries a stage, E4's
-//     descriptor.
+//     way into registers).  Rows past n_used or listed as -1, and units
+//     past the bucket's rows, are zero-filled by the copy (a zero count
+//     times stale shared memory could be NaN).  The counts come by TMA
+//     in the 128-byte swizzle, one box of HOT_BK tokens by BQ queries a
+//     stage, E4's descriptor.
 //   - A block covers BQ = 128 queries (16 for chunks of at most 16) and
 //     HOT_BM = 128 doc rows in two consumer warpgroups, two blocks an SM
 //     (three stages each), so one block's base reads, stores and stage
@@ -106,9 +113,11 @@
 //     against hc_lo), in that order, streamed through one ring of stages.
 //     The sums round where the tensor cores round them, not after each
 //     product sum as the twin does; tests/test_torch_cuda.py holds the
-//     result within the bound, 64 weighted hot tokens a query included.  Keeping the three sums apart
-//     took a second accumulator and so one block an SM, and ran slower
-//     on an H100, as did blocks of 256 queries (they spilled).
+//     result within the bound, 64 weighted hot tokens a query included,
+//     and a query's results bit-equal alone and in any chunk (BQ = 16 or
+//     128 alike).  Keeping the three sums apart took a second
+//     accumulator and so one block an SM, and ran slower on an H100, as
+//     did blocks of 256 queries (they spilled).
 //
 // What bounds it on an H100.  The scan must read the slots' tokens once
 // and the values of the slots that match, and write the (Q, rows) base
@@ -715,8 +724,8 @@ struct HotArgs {
   const float* base;              // (Q, rows) ELL-only base; null: +0
   const __nv_bfloat16* hotT;      // (H, rows) high parts
   const __nv_bfloat16* hotLo;     // (H, rows) residuals
-  const int* tokens;              // (H,) the used hot tokens first
-  const int* n_used;              // (1,) how many
+  const int* tokens;              // (kp,) the listed ranks, -1: zeros
+  const int* n_used;              // (1,) how many are listed
   const int* doc_ids;             // (rows,)
   int q_count, rows;
   float* out;   // (Q, rows); may be base
@@ -814,7 +823,7 @@ ell_hot_kernel(const __grid_constant__ CUtensorMap map_c,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the used tokens, read once
+  // the listed hot ranks, read once
   for (int i = threadIdx.x; i < n_used; i += blockDim.x)
     s_tok[i] = __ldg(a.tokens + i);
   __syncthreads();
@@ -994,7 +1003,7 @@ int bm25_ell_score(const int* table, int qp, int cap_log2, int q_count,
 // B1: B2 (the tables may carry weights) plus the pad-row mask from
 // doc_ids (rows,) and gmax (Q, rows / 8), and, where h_count > 0, the hot
 // tier: the hot plan's (Q, kp) bf16 counts (and their residual), tokens
-// (H,) and n_used (1,) x (H, rows) bf16 hi/lo.  l_pad may be 0 (a bucket
+// (kp,) and n_used (1,) x (H, rows) bf16 hi/lo.  l_pad may be 0 (a bucket
 // with no cold postings).
 int bm25_ell_score_fused(const int* table, int qp, int cap_log2,
                          int q_count, int t_count, const int* tokT,

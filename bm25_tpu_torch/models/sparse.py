@@ -1104,7 +1104,8 @@ def b1_bytes(engine: "SparseEngine", ids: torch.Tensor,
     if engine.hot_h:
         hc, hlo = hot_counts_for(ids, engine.hot_table, engine.hot_h, w)
         plan = hot_plan(hc, hlo)
-        used = int(plan.n_used.item())
+        nonzero = hc != 0 if hlo is None else (hc != 0) | (hlo != 0)
+        used = int(nonzero.any(dim=0).sum())
         counts = sum(_nbytes(c) for c in (plan.counts, plan.counts_lo)
                      if c is not None)
     if cold_ids is not None:
@@ -1721,6 +1722,11 @@ class SparseEngine:
         total += self.offsets.nbytes + self.hot_table.nbytes
         return total + sum(getattr(self, key).nbytes for key in _TAIL_KEYS
                            if getattr(self, key) is not None)
+
+    @property
+    def total_positions(self) -> int:
+        """Doc rows over every bucket, pad rows included."""
+        return sum(b["doc_ids"].shape[0] for b in self.buckets)
 
     @property
     def _tail(self) -> dict | None:

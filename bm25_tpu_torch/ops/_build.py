@@ -3,6 +3,7 @@
 Each ``csrc/<name>.cu`` compiles on first use into a shared library with a
 plain C interface, keyed by a hash of its source, the headers of ``csrc/``
 (``*.cuh``) and the flags, in the build directory (``build_dir()``:
+``runtime.session.enable_persistent_compile_cache``'s directory, else
 ``$BM25_TPU_TORCH_BUILD_DIR``, else ``bm25_tpu_torch/_build/``; the build
 cache that ``runtime/cache.py`` exports and imports).  A library found
 there is loaded as it is: the name does not hash the nvcc or the driver
@@ -95,12 +96,18 @@ def find_nvcc() -> str:
     )
 
 
+# the directory runtime/session.py::enable_persistent_compile_cache set;
+# it wins over the environment
+_dir: str | None = None
+
+
 def build_dir() -> str:
     """The directory the kernel libraries are built into and loaded from:
+    the one ``enable_persistent_compile_cache`` set, else
     ``$BM25_TPU_TORCH_BUILD_DIR`` where it is set, else ``BUILD_DIR``.
     Read at each build, so a process started with the variable set reads
     and fills that directory."""
-    return os.environ.get(BUILD_DIR_ENV) or BUILD_DIR
+    return _dir or os.environ.get(BUILD_DIR_ENV) or BUILD_DIR
 
 
 def library_path(name: str) -> str:

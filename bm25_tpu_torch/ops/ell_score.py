@@ -53,11 +53,15 @@ NEG_INF = float("-inf")
 # hot tokens a stage of the hot kernel: the plan pads the counts' columns
 # to a multiple of it
 HOT_BK = 64
+# hot ranks a group of the hot plan: the K of one bf16 wgmma step
+# (m64nNk16) of the hot kernel, so a listed token keeps its lane within
+# the step whatever else the plan lists (not HOT_BK, the stage width)
+HOT_GROUP = 16
 # the hot kernel's shared memory at 128 queries a block
 # (csrc/ell_score.cu, HotShape<128>::smem): an alignment pad, 3 stages of
 # 128 x 128 bytes of counts beside 64 staged hot rows of 2 x 128 + 16
 # bytes (rounded to 1 KB), the stages' mbarriers, then 4 bytes a hot
-# token of the used-token list
+# rank of the plan's list
 HOT_SMEM_FIXED = 1024 + 3 * 33792 + 2 * 3 * 8
 
 # the scan (csrc/ell_score.cu): 128 threads a block, as 128 / rows groups
@@ -346,44 +350,61 @@ def table_contents(table: ScanTable) -> list[dict[int, list[tuple[int, float]]]]
 
 
 class HotPlan(NamedTuple):
-    """The hot tokens a chunk uses, as B1's hot kernel takes them."""
+    """The groups of HOT_GROUP hot ranks a chunk uses, as B1's hot kernel
+    takes them."""
 
     counts: torch.Tensor  # (Q, KP) bf16: hot_counts' columns in tokens order
     counts_lo: torch.Tensor | None  # the same of hot_counts_lo
-    tokens: torch.Tensor  # (H,) int32: the used tokens ascending, then the rest
-    n_used: torch.Tensor  # (1,) int32: how many are used
+    tokens: torch.Tensor  # (KP,) int32: the listed groups' used ranks, or -1
+    n_used: torch.Tensor  # (1,) int32: HOT_GROUP x the listed groups
 
 
 def hot_plan(hot_counts: torch.Tensor,
              hot_counts_lo: torch.Tensor | None = None) -> HotPlan:
-    """List the hot tokens some query of the chunk counts (nonzero in
-    ``hot_counts`` or ``hot_counts_lo``), on the counts' device and with no
-    host sync.  ``counts`` holds their columns first, in ``tokens`` order,
-    and zeros after, KP = H rounded up to HOT_BK columns; so ``counts[:,
-    :n] @ hotT[tokens[:n]]`` is ``hot_counts @ hotT`` for n = n_used."""
+    """List the aligned groups of HOT_GROUP hot ranks ([16 g, 16 g + 16))
+    in which some query of the chunk counts a token (nonzero in
+    ``hot_counts`` or ``hot_counts_lo``), ascending, each rank at its own
+    offset in its group: the rank where some query counts it, else -1 (a
+    row the kernel does not read: zeros), and -1 after the listed groups.
+    On the counts' device, with no host sync.  ``counts`` holds the
+    matching columns in ``tokens`` order and zeros after, KP = H rounded
+    up to HOT_BK columns; so ``counts[:, :n] @ hotT[tokens[:n]]`` (a -1
+    row as zeros) is ``hot_counts @ hotT`` for n = n_used.
+
+    A query's nonzero counts thus sit at the same lane of a k16 step, in
+    the same order of steps, whatever its chunk-mates: the steps and
+    lanes only mates use add exact zeros, so its hot sums do not depend
+    on them."""
     q, h = hot_counts.shape
-    used = (hot_counts != 0).any(dim=0)
-    if hot_counts_lo is not None:
-        used |= (hot_counts_lo != 0).any(dim=0)
-    tokens = torch.argsort((~used).to(torch.int32), stable=True)
     kp = next_multiple(max(h, 1), HOT_BK)
 
-    def compact(c):
+    def padded(c):
         if c is None:
             return None
         out = c.new_zeros((q, kp))
-        out[:, :h] = c[:, tokens]
+        out[:, :h] = c
         return out
 
-    return HotPlan(compact(hot_counts), compact(hot_counts_lo),
-                   tokens.to(torch.int32),
-                   used.sum(dtype=torch.int32).reshape(1))
+    hc, hc_lo = padded(hot_counts), padded(hot_counts_lo)
+    used = (hc != 0).any(dim=0)
+    if hc_lo is not None:
+        used |= (hc_lo != 0).any(dim=0)
+    used = used.reshape(-1, HOT_GROUP)  # (groups, HOT_GROUP) ranks
+    order = torch.argsort((~used.any(dim=1)).to(torch.int32), stable=True)
+    ranks = torch.arange(kp, dtype=torch.int32,
+                         device=hot_counts.device).reshape(used.shape)
+    # an unlisted group's columns are zero in every query, and its ranks -1
+    cols = ranks[order].reshape(-1).long()
+    return HotPlan(hc[:, cols], None if hc_lo is None else hc_lo[:, cols],
+                   torch.where(used, ranks, -1)[order].reshape(-1),
+                   (used.any(dim=1).sum(dtype=torch.int32)
+                    * HOT_GROUP).reshape(1))
 
 
 def max_hot_tokens() -> int:
     """The widest hot tier B1's hot kernel takes: its block keeps the
-    chunk's used-token list (4 bytes a hot token, H rounded up to HOT_BK)
-    in shared memory beside its ring, within one block's opt-in limit."""
+    plan's list of hot ranks (4 bytes a rank, H rounded up to HOT_BK) in
+    shared memory beside its ring, within one block's opt-in limit."""
     return (SMEM_ONE_BLOCK - HOT_SMEM_FIXED) // 4 // HOT_BK * HOT_BK
 
 
@@ -575,7 +596,7 @@ def ell_score_fused(
         if plan.counts_lo is not None:
             _expect(plan.counts_lo, "plan.counts_lo", torch.bfloat16,
                     (q, kp), device)
-        _expect(plan.tokens, "plan.tokens", torch.int32, (h,), device)
+        _expect(plan.tokens, "plan.tokens", torch.int32, (kp,), device)
         _expect(plan.n_used, "plan.n_used", torch.int32, (1,), device)
     else:
         plan = HotPlan(None, None, None, None)

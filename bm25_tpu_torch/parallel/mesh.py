@@ -20,7 +20,11 @@ port's counterpart of JAX's ``jax_num_cpu_devices``.
 In a process group (``parallel/distributed.py``) the doc axis spans the
 ranks: each process's grid holds its own shards, and ``shape`` counts the
 shards of every rank, as a JAX mesh over ``jax.devices()`` holds every
-process's devices.  A data axis across processes is not supported.
+process's devices.  A data axis across processes is not supported, as
+JAX's engines do not support it: its mesh takes such a layout, but its
+sharded engine's fetch (``jax.device_get`` of an array that spans other
+processes' devices) raises, so no search returns; the port raises when
+the mesh is made.
 
 JAX's ``index_sharding``, ``replicated`` and ``query_sharding`` name
 ``NamedSharding`` s for ``device_put``; the port places each shard's
@@ -51,8 +55,10 @@ class Mesh:
                              f"got shape {devices.shape}")
         if process_count > 1 and devices.shape[0] > 1:
             raise NotImplementedError(
-                "a data axis across processes is not supported (ROADMAP.md: "
-                "a data axis across processes)")
+                "a data axis across processes is not supported: JAX's "
+                "sharded engines cannot return results over such a mesh "
+                "(jax.device_get of an array that spans non-addressable "
+                "devices raises), and the port keeps that limit")
         self.devices = devices
         self.process_index = process_index
         self.process_count = process_count

@@ -14,14 +14,24 @@ import torch
 def weighted_counts(ids: torch.Tensor, w: torch.Tensor,
                     width: int) -> torch.Tensor:
     """Exact f32 (Q, width) weighted counts: cf[q, v] = sum of w[q, t] over
-    t with ids[q, t] == v.  Negative ids (pad/OOV/cold) contribute nothing.
+    t with ids[q, t] == v, added from +0 in t order (JAX's scatter-add
+    order on the CPU).  Negative ids (pad/OOV/cold) contribute nothing.
+
+    On the CPU ``scatter_add_`` adds in that order; on CUDA it adds by
+    atomics, whose order (so the bits of three or more weights of one id)
+    varies from run to run, so the card takes ``index_put_(accumulate=
+    True)``, which sorts the indices stably and adds each run in order.
     """
     q = ids.shape[0]
     valid = ids >= 0
     safe = torch.where(valid, ids, width).long()  # extra column catches pads
     wm = torch.where(valid, w.float(), torch.zeros((), device=w.device))
     cf = torch.zeros((q, width + 1), dtype=torch.float32, device=ids.device)
-    cf.scatter_add_(1, safe, wm)
+    if ids.is_cuda:
+        rows = torch.arange(q, device=ids.device)[:, None].expand_as(safe)
+        cf.index_put_((rows, safe), wm, accumulate=True)
+    else:
+        cf.scatter_add_(1, safe, wm)
     return cf[:, :width]
 
 

@@ -54,8 +54,12 @@ Phases (any failure raises and exits nonzero; nothing is caught):
    chunks of cold widths 2, 4 and 64 against its twin; cold-width
    routing (``route_cold="auto"``, which routes these batches) against
    ``route_cold=False`` at 512 x 8 and 512 x 64 and k=1000 and k=100,
-   both against the oracle and each other, with the plan's chunks and
-   each device step in turns; last, masked batches at k=1000 and k=100 (a random
+   both against the oracle and each other bit for bit, with the plan's
+   chunks and each device step in turns; 16 of the batch's queries
+   searched alone and in the chunks of 8 and 16 holding them, bit-equal
+   to their rows of the batch at k=1000, 100 and 10, unweighted and
+   weighted, on ``SparseEngine`` and a (1, 4) ``ShardedSparseEngine`` at
+   the same layout (``[alone]`` lines); last, masked batches at k=1000 and k=100 (a random
    mask, and one leaving 500 docs eligible, a whole group of 8 eligible
    beside a dropped one) against the oracle, the shortfall doc -1 / score
    0 exactly, and 512 queries of 64 Zipf tokens at k=1000 with dedup off,
@@ -1029,7 +1033,10 @@ def sparse_main(torch, dev, cfg, ops, session, record):
     hc, _ = hot_counts_for(ids, engine.hot_table, engine.hot_h)
     plan = hot_plan(hc)  # once per chunk, as the query step makes it
     table = ops.scan_table(ids)  # the same
-    used = int(plan.n_used.item())
+    # hot tokens some query counts, and the ranks the plan lists (whole
+    # groups of 16)
+    used = int((hc != 0).any(dim=0).sum())
+    listed = int(plan.n_used.item())
     t0 = time.perf_counter()
     plain_table = ops.scan_table_plain(ids.cpu())
     table_plain_ms = (time.perf_counter() - t0) * 1e3
@@ -1130,7 +1137,8 @@ def sparse_main(torch, dev, cfg, ops, session, record):
         hot_plain = cuda_ms(torch, lambda: ops.ell_score_fused_plain(
             ids, None, None, *args[3:]), 2)
         log(f"[kernels] B1 at ids {tuple(ids.shape)} x bucket {i} "
-            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h} ({used} used), "
+            f"{tuple(b['tokT'].shape)} + hot {engine.hot_h} ({used} used, "
+            f"{listed} listed), "
             f"{pairs} matching (query, cold posting) pairs on {matched} "
             f"slots: kernel {ms:.4f} ms; torch.profiler a launch: scan "
             f"{scan_ms:.4f} + hot epilogue {hot_ms:.4f} ms (the masked scan "
@@ -1161,7 +1169,7 @@ def sparse_main(torch, dev, cfg, ops, session, record):
         ms8 = cuda_ms(torch, b1_call8, 50)
         scan8, hot8 = launch_ms(torch, b1_call8, b1_kernels, 10)
         log(f"[kernels] B1 at 8 queries x bucket {i} "
-            f"({int(plan8.n_used.item())} hot tokens used): kernel "
+            f"({int(plan8.n_used.item())} hot ranks listed): kernel "
             f"{ms8:.4f} ms; torch.profiler a launch: scan {scan8:.4f} + hot "
             f"epilogue {hot8:.4f} ms; the 8-query chunk matches the twin")
     b0 = engine.buckets[0]
@@ -1208,6 +1216,7 @@ def sparse_main(torch, dev, cfg, ops, session, record):
                                         table_plain_ms, bound(table_bytes))
     routed_b1(torch, ops, engine, index)
     routed_vs_unrouted(torch, engine, ref, cfg)
+    alone_vs_batch(torch, engine, index, cfg)
     masked_and_dedup(torch, engine, ref, cfg)
     pipeline_busy(torch, engine, cfg)
     return index, timings
@@ -1282,19 +1291,17 @@ def plan_step_ms(torch, engine, plan, k: int, step=None,
     return _time_enqueued(enqueue, engine.session.device, iters)
 
 
-def within_chunk_mates(got, want, what: str) -> float:
-    """Two runs of one batch whose chunks differ (routed and not): ids
-    equal under the comparator, scores within 2e-5 x max(1, the row's
-    largest |score|): the hot sums' order follows a query's chunk-mates
-    (ROADMAP.md section C 5).  Returns the largest |difference|."""
-    from bm25_tpu_torch.utils.parity import assert_matches_oracle
-
-    assert_matches_oracle(*got, *want)
-    scale = np.maximum(1.0, np.abs(want[1]).max(axis=1, keepdims=True))
-    diff = np.abs(got[1] - want[1])
-    if not (diff <= 2e-5 * scale).all():
-        raise AssertionError(f"{what}: scores differ by {diff.max():.3e}")
-    return float(diff.max())
+def bit_equal(got, want, what: str) -> None:
+    """Two searches of the same queries whose chunks differ (routed and
+    not; alone, in a small chunk and in the batch): ids and scores equal
+    bit for bit, as a query's hot sums do not depend on its chunk-mates."""
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(np.asarray(got[1]).view(np.uint32),
+                               np.asarray(want[1]).view(np.uint32))):
+        diff = np.abs(np.asarray(got[1]) - np.asarray(want[1]))
+        raise AssertionError(f"{what}: not bit-equal (ids equal: "
+                             f"{np.array_equal(got[0], want[0])}, scores "
+                             f"differ by up to {diff.max():.3e})")
 
 
 def routed_vs_unrouted(torch, engine, ref, cfg) -> None:
@@ -1302,7 +1309,7 @@ def routed_vs_unrouted(torch, engine, ref, cfg) -> None:
     layout, where JAX's "auto" rule engages: 512 x 8 and 512 x 64 Zipf
     queries at k=1000 and k=100, routed (``route_cold="auto"``) and not
     (False), each against ``ReferenceEngine`` (first 64 queries) and
-    against each other (``within_chunk_mates``), with the plan's chunks,
+    against each other bit for bit (``bit_equal``), with the plan's chunks,
     the host ms of the plan alone (``plan_chunks``, median of 5: the
     routed plan runs JAX's chunk DP a row at a time), the device step of
     the whole batch (``plan_step_ms``) and the wall ms of ``search``
@@ -1338,8 +1345,8 @@ def routed_vs_unrouted(torch, engine, ref, cfg) -> None:
             if plans["auto"][0] is None:
                 raise AssertionError(f"{t}-token batch at k={k}: 'auto' "
                                      "did not route")
-            diff = within_chunk_mates(res["auto"], res[False],
-                                      f"routed vs unrouted, T={t}, k={k}")
+            bit_equal(res["auto"], res[False],
+                      f"routed vs unrouted, T={t}, k={k}")
             chunks = [(c.cq, c.padded.shape[0], c.cold_padded.shape[1])
                       for c in plans["auto"][1]]
             log(f"[routing] {len(q)} x {t} queries (planned {qd.shape[1]} "
@@ -1352,8 +1359,71 @@ def routed_vs_unrouted(torch, engine, ref, cfg) -> None:
                 f"{plan_ms[False]:.3f} ms, step "
                 f"{', '.join(f'{x:.4f}' for x in ms[False])} ms, wall "
                 f"{', '.join(f'{x:.3f}' for x in wall[False])} ms; both match "
-                f"ReferenceEngine (first {CHECKED_QUERIES}), each other "
-                f"within {diff:.3e}")
+                f"ReferenceEngine (first {CHECKED_QUERIES}) and each other "
+                f"bit for bit")
+
+
+# rows of phase 4's batch searched alone, in chunks of 8 and 16
+ALONE_ROWS = (0, 1, 2, 7, 8, 15, 16, 63, 64, 127, 128, 255, 256, 383, 384,
+              511)
+
+
+def alone_vs_batch(torch, engine, index, cfg) -> None:
+    """Phase 4: a query's results do not depend on the queries it is
+    searched with.  At the explicit h=1024 / 2-bucket layout, on
+    ``SparseEngine`` and on a (1, 4) ``ShardedSparseEngine`` over the card
+    at the same layout: the batch's 512 x 8 queries at k=1000, 100 and
+    10, unweighted and weighted (seeded uniform weights), each searched
+    whole (routed: "auto" engages), and ``ALONE_ROWS`` searched one at a
+    time, and in the chunks of 8 and of 16 rows holding them: ids and
+    scores bit-equal to their rows of the batch (``bit_equal``)."""
+    from bm25_tpu_torch import ShardedSparseEngine
+    from bm25_tpu_torch.bench import make_queries
+    from bm25_tpu_torch.parallel import make_mesh
+
+    queries = make_queries(cfg)[: cfg.batch]
+    w = np.random.default_rng(4).uniform(
+        0.1, 3.0, queries.shape).astype(np.float32)
+    t0 = time.perf_counter()
+    sharded = ShardedSparseEngine.from_scored_index(
+        index, mesh=make_mesh(4, devices=[engine.session.device] * 4),
+        hot_tokens=HOT_TOKENS, hot_budget_bytes=HOT_TOKENS * index.num_docs
+        * 4, max_buckets=MAX_BUCKETS)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for name, eng in (("SparseEngine", engine),
+                      ("(1, 4) ShardedSparseEngine", sharded)):
+        if eng.hot_h != HOT_TOKENS:
+            raise AssertionError(f"{name}: hot_h {eng.hot_h}")
+        searches = 0
+        t0 = time.perf_counter()
+        for k in (cfg.top_k, cfg.top_k2, 10):
+            plan = eng.plan_chunks(queries, k=k) if eng is engine else \
+                eng._plan(queries, None, k)
+            if plan[0] is None:
+                raise AssertionError(f"{name} k={k}: the batch not routed")
+            for kw in ({}, {"weights": w}):
+                batch = eng.search(queries, top_k=k, **kw)
+                spans = {(i, i + 1) for i in ALONE_ROWS}
+                spans |= {(i // n * n, i // n * n + n) for i in ALONE_ROWS
+                          for n in (8, 16)}
+                for a, b in sorted(spans):
+                    got = eng.search(queries[a:b], top_k=k, **{
+                        n: v[a:b] for n, v in kw.items()})
+                    bit_equal(got, (batch[0][a:b], batch[1][a:b]),
+                              f"{name} rows {a}:{b} of the batch, k={k}"
+                              f"{', weighted' if kw else ''}")
+                    searches += 1
+        log(f"[alone] {name} at h={eng.hot_h}, {len(eng.buckets)} buckets"
+            + (f" (built in {build_s:.2f} s)" if eng is sharded else "")
+            + f": {len(ALONE_ROWS)} of the batch's {len(queries)} x "
+            f"{queries.shape[1]} queries alone, and the chunks of 8 and 16 "
+            f"holding them ({searches} searches, {time.perf_counter() - t0:.1f}"
+            f" s), at k={cfg.top_k}, {cfg.top_k2} and 10, unweighted and "
+            "weighted: ids and scores bit-equal to their rows of the "
+            "routed batch")
+    del sharded
+    torch.cuda.empty_cache()
 
 
 def union_selection(torch, session, index, cfg) -> None:
@@ -3763,9 +3833,8 @@ def warm_restart(torch, session, index, cfg, work, start_s, harness_result):
 def sharded_vs_single(got, want, what: str) -> float:
     """A sharded engine's (docs, scores) against the single-device
     engine's at the same layout: ids equal, scores within 2e-5 x max(1,
-    the row's largest |score|) (where a data row's chunk plans another hot
-    token list: the hot sums' order, ROADMAP.md section C 5).  Returns the
-    largest |difference|."""
+    the row's largest |score|).  Returns the largest |difference|, which
+    the phase logs."""
     gd, gs = got
     wd, ws = want
     if not np.array_equal(gd, wd):

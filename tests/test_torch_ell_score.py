@@ -184,39 +184,67 @@ def test_wrapper_refuses_other_devices():
         port.ell_score(ids, tok, val)
 
 
+def plan_groups(plan):
+    """The plan's listed groups: (n_used // 16, 16) ranks (-1: none)."""
+    n = int(plan.n_used)
+    return plan.tokens[:n].reshape(-1, port.HOT_GROUP)
+
+
 @pytest.mark.parametrize("name", ["hot", "pad_rows_oov_ragged_q_hot",
                                   "weighted_hot_split_counts"])
 def test_hot_plan_products_match_jax(name):
-    """hot_plan (B1's hot kernel runs over the tokens it lists) lists the
-    used hot tokens first, ascending, and the counts' columns in that order
-    with zeros after; its products over the first n_used tokens, added to
-    the ELL-only base in the kernel's order, match the JAX kernel."""
+    """hot_plan (B1's hot kernel runs over the ranks it lists) lists,
+    ascending, exactly the aligned groups of 16 hot ranks some query
+    counts a token in, each rank at its own offset (-1 where no query
+    counts it, past H included), then -1; the counts' columns follow that
+    order with zeros after; its products over the first n_used ranks (a
+    -1 row as zeros), added to the ELL-only base in the kernel's order,
+    match the JAX kernel."""
     ids, tokT, valT, did, hot, extra = make_case(4, *CASES[name])
     hc, hi, lo = (to_torch(x) for x in hot)
     hc_lo = to_torch(extra["hot_counts_lo"]) if "hot_counts_lo" in extra \
         else None
     hc[0] = 0  # a query with no hot token
-    plan = port.hot_plan(hc, hc_lo)
     q, h = hc.shape
-    used = (hc != 0).any(0) if hc_lo is None else \
-        (hc != 0).any(0) | (hc_lo != 0).any(0)
+    g = port.HOT_GROUP
+    if h > g:  # a group no query uses, and a rank no query counts
+        hc[:, : g + 1] = 0
+        if hc_lo is not None:
+            hc_lo[:, : g + 1] = 0
+    plan = port.hot_plan(hc, hc_lo)
+    kp = -(-h // port.HOT_BK) * port.HOT_BK
+    nonzero = (hc != 0) if hc_lo is None else (hc != 0) | (hc_lo != 0)
+    used_groups = [x for x in range(kp // g)
+                   if nonzero[:, x * g : (x + 1) * g].any()]
     n = int(plan.n_used)
-    assert n == int(used.sum())
-    assert plan.counts.shape == (q, -(-h // port.HOT_BK) * port.HOT_BK)
-    assert torch.equal(plan.tokens[:n].long(), torch.nonzero(used)[:, 0])
-    assert sorted(plan.tokens.tolist()) == list(range(h))
+    assert n == g * len(used_groups)
+    assert plan.tokens.shape == (kp,) and plan.counts.shape == (q, kp)
+    groups = plan_groups(plan)
+    counted = nonzero.any(0).tolist()
+    for x, row in zip(used_groups, groups.tolist()):
+        assert row == [r if r < h and counted[r] else -1
+                       for r in range(x * g, x * g + g)]
+    assert (plan.tokens[n:] == -1).all()
+    cols = torch.tensor([r for x in used_groups
+                         for r in range(x * g, x * g + g)], dtype=torch.long)
     for c, want in ((plan.counts, hc), (plan.counts_lo, hc_lo)):
         if want is None:
             assert c is None
             continue
-        assert torch.equal(c[:, :n], want[:, plan.tokens[:n].long()])
+        padded = torch.nn.functional.pad(want, (0, kp - h))
+        assert torch.equal(c[:, :n], padded[:, cols])
         assert not c[:, n:].any()
     rows_used = plan.tokens[:n].long()
     weights = {k: to_torch(v) for k, v in extra.items() if k == "weights"}
     base = port.ell_score_fused_plain(to_torch(ids), to_torch(tokT),
                                       to_torch(valT), to_torch(did),
                                       **weights)[0]
-    hi_u, lo_u = hi[rows_used].float(), lo[rows_used].float()
+
+    def listed(x):  # the hot rows the kernel stages: -1 as zeros
+        return torch.where(rows_used[:, None] >= 0,
+                           x[rows_used.clamp(min=0)].float(), 0.0)
+
+    hi_u, lo_u = listed(hi), listed(lo)
     got = base + plan.counts[:, :n].float() @ hi_u
     got = got + plan.counts[:, :n].float() @ lo_u
     if hc_lo is not None:
@@ -232,6 +260,78 @@ def test_hot_plan_products_match_jax(name):
         jnp.asarray(hot[1]), jnp.asarray(hot[2]), interpret=True, **jax_kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(base_j), rtol=1e-5,
                                atol=1e-5)
+
+
+def k16_positions(plan, row):
+    """(k16 step's group rank, lane, count[, count_lo]) of each nonzero
+    count of query ``row``, in the order the hot kernel's steps meet
+    them."""
+    g = port.HOT_GROUP
+    groups = plan_groups(plan)
+    out = []
+    for j in range(int(plan.n_used)):
+        c = [float(plan.counts[row, j])]
+        if plan.counts_lo is not None:
+            c.append(float(plan.counts_lo[row, j]))
+        if any(c):
+            rank = int(groups[j // g, j % g])
+            assert rank // g * g + j % g == rank  # its own lane
+            out.append((rank // g, j % g, *c))
+    return out
+
+
+def k16_sums(plan, hot_rows, base):
+    """The hot kernel's pass over hi as its steps add: each k16 step adds
+    its 16 products (exact in f32), summed in lane order, to the running
+    f32 sum, which starts at ``base``."""
+    g = port.HOT_GROUP
+    rows = plan.tokens[: int(plan.n_used)].long()
+    a = torch.where(rows[:, None] >= 0, hot_rows[rows.clamp(min=0)].float(),
+                    0.0)
+    acc = base.clone()
+    for s in range(0, len(rows), g):
+        prods = plan.counts[:, s : s + g].float()[:, :, None] * a[s : s + g]
+        step = prods[:, 0]
+        for lane in range(1, g):
+            step = step + prods[:, lane]
+        acc = acc + step
+    return acc
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_hot_plan_positions_do_not_depend_on_chunk_mates(weighted):
+    """For each query of a batch and the same query planned alone, its
+    nonzero counts meet the hot kernel at the same (k16 step's group
+    rank, lane) in the same order, with the same counts: the invariant
+    B1's bit-equality rests on.  A model of the kernel's summation (a
+    step's products in lane order, then the running sum) then gives each
+    query the same bits in both plans."""
+    from bm25_tpu_torch.models.sparse import hot_counts_for
+
+    rng = np.random.default_rng(3 + weighted)
+    h, q = 1024, 48
+    hot_table = torch.arange(h, dtype=torch.int32)
+    ids = torch.from_numpy(np.minimum(rng.zipf(1.2, (q, 8)) - 1, 4 * h)
+                           .astype(np.int32))
+    ids = torch.where(ids < h, ids, -1)
+    ids[0] = -1
+    w = torch.from_numpy(rng.uniform(0.1, 3.0, (q, 8)).astype(np.float32)) \
+        if weighted else None
+    hc, hlo = hot_counts_for(ids, hot_table, h, w)
+    assert (hlo is not None) == weighted
+    batch = port.hot_plan(hc, hlo)
+    hot_rows = torch.from_numpy(rng.standard_normal((h, 64))).bfloat16()
+    base = torch.from_numpy(rng.standard_normal((q, 64)).astype(np.float32))
+    sums = k16_sums(batch, hot_rows, base)
+    for i in range(q):
+        alone = port.hot_plan(hc[i : i + 1],
+                              None if hlo is None else hlo[i : i + 1])
+        assert k16_positions(alone, 0) == k16_positions(batch, i)
+        assert int(alone.n_used) <= int(batch.n_used)
+        one = k16_sums(alone, hot_rows, base[i : i + 1])[0]
+        assert torch.equal(one, sums[i])
+    # the batch's Zipf tokens crowd into the low groups
+    assert int(batch.n_used) < h
 
 
 def scan_with_table(tiles, qp, q, tokT, valT, rows):

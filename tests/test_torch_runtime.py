@@ -173,3 +173,113 @@ def test_step_timer_percentiles():
     for p in (0, 50, 90, 99, 100):
         assert t.percentile(p) == ref.percentile(p)
     assert t.summary() == ref.summary()
+
+
+# -- JAX's session API: accelerator_count, get_device, Session.create /
+# platform / compile, enable_persistent_compile_cache ----------------------
+
+
+def test_accelerator_count_and_get_device_off_the_card():
+    from bm25_tpu_torch.runtime import accelerator_count, get_device
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the machine with no CUDA card")
+    assert accelerator_count() == 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_device(prefer="gpu")
+    assert get_device(prefer="cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        get_device(1, prefer="cpu")
+    with pytest.raises(ValueError, match="'tpu'"):
+        get_device(prefer="tpu")
+
+
+def test_session_create_and_platform_match_jax_names():
+    from bm25_tpu.runtime.session import Session as JaxSession
+
+    s = Session.create(prefer="cpu")
+    assert s.device == torch.device("cpu") and s.platform == "cpu"
+    assert s.platform == JaxSession.create(prefer="cpu").platform
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            Session.create()
+
+
+def test_session_compile_builds_once_for_racing_threads():
+    s = Session("cpu")
+    builds, start = [], threading.Barrier(8)
+
+    def build():
+        builds.append(1)
+        return lambda x: x + 1
+
+    got = []
+
+    def worker():
+        start.wait()
+        got.append(s.compile(("step", 10), build))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and len(got) == 8
+    assert all(f is got[0] for f in got) and got[0](1) == 2
+    assert s.compile(("step", 100), build) is not got[0]
+    assert len(builds) == 2
+
+
+def test_enable_persistent_compile_cache_sets_the_build_dir(monkeypatch,
+                                                            tmp_path):
+    from bm25_tpu_torch.runtime import session as sess
+
+    monkeypatch.setattr(sess, "_cache_configured", False)
+    monkeypatch.setattr(_build, "_dir", None)
+    monkeypatch.delenv(_build.BUILD_DIR_ENV, raising=False)
+    # no path, no variable: the package's default, and the call latches
+    sess.enable_persistent_compile_cache()
+    assert _build.build_dir() == _build.BUILD_DIR
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "env"))
+    sess.enable_persistent_compile_cache()  # latched: no effect
+    assert _build.build_dir() == str(tmp_path / "env")
+    # an explicit path wins over the earlier call and the variable
+    sess.enable_persistent_compile_cache(str(tmp_path / "a"))
+    assert _build.build_dir() == str(tmp_path / "a")
+    assert (tmp_path / "a").is_dir()
+    assert os.path.dirname(_build.library_path("topk")) == str(tmp_path / "a")
+    sess.enable_persistent_compile_cache()  # an implicit call defers
+    assert _build.build_dir() == str(tmp_path / "a")
+    sess.enable_persistent_compile_cache(str(tmp_path / "b"))
+    assert _build.build_dir() == str(tmp_path / "b")
+    # an empty string disables it: a temporary directory of this process
+    sess.enable_persistent_compile_cache("")
+    off = _build.build_dir()
+    assert os.path.isdir(off) and off not in (
+        _build.BUILD_DIR, str(tmp_path / "b"))
+    # the variable set to "" disables it too, on the first implicit call
+    monkeypatch.setattr(sess, "_cache_configured", False)
+    monkeypatch.setattr(_build, "_dir", None)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, "")
+    sess.enable_persistent_compile_cache()
+    assert _build.build_dir() not in (_build.BUILD_DIR, off)
+    monkeypatch.setattr(_build, "_dir", None)
+    monkeypatch.delenv(_build.BUILD_DIR_ENV)
+    assert _build.build_dir() == _build.BUILD_DIR
+
+
+def test_sparse_engine_total_positions_matches_jax():
+    from bm25_tpu.models.sparse import SparseEngine as JaxSparseEngine
+
+    from bm25_tpu_torch.bench import BenchConfig, make_synthetic_index
+
+    idx = make_synthetic_index(BenchConfig(num_docs=3000, vocab=400))
+    for kw in ({"max_buckets": 1}, {"max_buckets": 3, "hot_tokens": 16,
+                                     "hot_budget_bytes": 1 << 24}):
+        port = SparseEngine.from_scored_index(idx, session=CPU, **kw)
+        jax_eng = JaxSparseEngine.from_scored_index(idx, **kw)
+        assert port.total_positions == jax_eng.total_positions
+        assert port.total_positions == sum(
+            b["doc_ids"].shape[0] for b in port.buckets) >= idx.num_docs
