@@ -12,20 +12,22 @@ import inspect
 from bm25_tpu_torch.scoring import ScoredIndex
 from bm25_tpu_torch.models.dense import DenseEngine, table_bytes
 from bm25_tpu_torch.models.sparse import SparseEngine, device_hbm_bytes
+from bm25_tpu_torch.runtime.profiling import span
 from bm25_tpu_torch.runtime.session import get_session
 
 
 def _build(cls, index, kwargs, filter_kwargs: bool):
-    if not filter_kwargs:
-        # explicit modes keep strict kwargs: a typo or an option the
-        # chosen engine doesn't support must raise, not silently no-op
+    """The engine ``cls`` built from ``index``: the span ``build.engine``."""
+    # explicit modes keep strict kwargs: a typo or an option the chosen
+    # engine doesn't support must raise, not silently no-op
+    if filter_kwargs:
+        # mode="auto": keep only the kwargs the chosen engine understands,
+        # so engine-specific options (e.g. the sparse engine's hot_tokens
+        # and score_dtype) compose
+        params = inspect.signature(cls.from_scored_index).parameters
+        kwargs = {k: v for k, v in kwargs.items() if k in params}
+    with span("build.engine"):
         return cls.from_scored_index(index, **kwargs)
-    # mode="auto": keep only the kwargs the chosen engine understands, so
-    # engine-specific options (e.g. the sparse engine's hot_tokens and
-    # score_dtype) compose
-    params = inspect.signature(cls.from_scored_index).parameters
-    return cls.from_scored_index(
-        index, **{k: v for k, v in kwargs.items() if k in params})
 
 
 def create_engine(

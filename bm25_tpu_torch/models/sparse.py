@@ -59,6 +59,7 @@ from bm25_tpu_torch.ops.ell_score import (BLOCK_ROWS, GROUP, NEG_INF,
 from bm25_tpu_torch.ops.topk import (DOC_SENTINEL, gather_group_candidates,
                                      select_top_k, top_k_tree_with_maxes,
                                      union_group_select)
+from bm25_tpu_torch.runtime.profiling import count, enabled, span
 from bm25_tpu_torch.runtime.session import Session, get_session
 from bm25_tpu_torch.utils.counts import split_bf16, weighted_counts
 
@@ -913,19 +914,24 @@ def union_top_k(buckets: list, bases: list, gmaxes: list, k: int,
     and picking by ``torch.where``, with no host read, was slower on the
     card: PERF.md section 5).
     """
-    gpos, ok = union_group_select(gmaxes, k)
+    with span("step.select"):
+        gpos, ok = union_group_select(gmaxes, k)
     dids = [b["doc_ids"] for b in buckets]
 
     def fast():
-        return two_key_merge(*gather_group_candidates(bases, dids, gpos,
-                                                      GROUP), k)
+        with span("step.merge"):
+            return two_key_merge(*gather_group_candidates(bases, dids, gpos,
+                                                          GROUP), k)
 
     def per_bucket():
-        cand = [bucket_select(base, gmax, k)
-                for base, gmax in zip(bases, gmaxes)]
-        return two_key_merge(torch.cat([s for s, _ in cand], dim=1),
-                             torch.cat([d[p] for d, (_, p)
-                                        in zip(dids, cand)], dim=1), k)
+        cand = []
+        for base, gmax in zip(bases, gmaxes):
+            with span("step.select"):
+                cand.append(bucket_select(base, gmax, k))
+        with span("step.merge"):
+            return two_key_merge(torch.cat([s for s, _ in cand], dim=1),
+                                 torch.cat([d[p] for d, (_, p)
+                                            in zip(dids, cand)], dim=1), k)
 
     if union_select == "unsafe":
         return fast()
@@ -943,16 +949,25 @@ def buckets_top_k(buckets: list, ids: torch.Tensor, k: int,
     step run it."""
     args = (hot_counts, hot_lo, w, mask, plan, table)
     if union_applies(union_select, buckets, k, mask):
-        bases, gmaxes = zip(*(bucket_base(b, ids, *args) for b in buckets))
-        return union_top_k(buckets, list(bases), list(gmaxes), k,
-                           union_select)
+        bases, gmaxes = [], []
+        for b in buckets:
+            with span("step.scan"):
+                base, gmax = bucket_base(b, ids, *args)
+            bases.append(base)
+            gmaxes.append(gmax)
+        return union_top_k(buckets, bases, gmaxes, k, union_select)
     cand_s, cand_i = [], []
     for b in buckets:
-        s, pos = bucket_select(*bucket_base(b, ids, *args), k)
-        cand_s.append(s)
-        cand_i.append(b["doc_ids"][pos])
-    return two_key_merge(torch.cat(cand_s, dim=1), torch.cat(cand_i, dim=1),
-                         k)
+        with span("step.scan"):
+            base, gmax = bucket_base(b, ids, *args)
+        with span("step.select"):
+            s, pos = bucket_select(base, gmax, k)
+            del base, gmax  # free this bucket's tile before the next
+            cand_s.append(s)
+            cand_i.append(b["doc_ids"][pos])
+    with span("step.merge"):
+        return two_key_merge(torch.cat(cand_s, dim=1),
+                             torch.cat(cand_i, dim=1), k)
 
 
 def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
@@ -983,18 +998,21 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
 
     def step(ids, buckets, offsets, hot_table, w=None, mask=None, tail=None,
              cold_ids=None, w_cold=None):
-        valid = ids >= 0
-        safe = torch.where(valid, ids, 0).long()
-        zero = torch.zeros((), dtype=offsets.dtype, device=offsets.device)
-        if w is not None:
-            w = torch.where(valid, w.float(), zero)
-            qoff = (offsets[safe] * w).sum(dim=1)
-        else:
-            qoff = torch.where(valid, offsets[safe], zero).sum(dim=1)
+        with span("step.offsets"):
+            valid = ids >= 0
+            safe = torch.where(valid, ids, 0).long()
+            zero = torch.zeros((), dtype=offsets.dtype,
+                               device=offsets.device)
+            if w is not None:
+                w = torch.where(valid, w.float(), zero)
+                qoff = (offsets[safe] * w).sum(dim=1)
+            else:
+                qoff = torch.where(valid, offsets[safe], zero).sum(dim=1)
         hot_counts = hot_lo = plan = None
         if hot_h:
-            hot_counts, hot_lo = hot_counts_for(ids, hot_table, hot_h, w)
-            plan = hot_plan(hot_counts, hot_lo)  # once for every bucket
+            with span("step.hot"):
+                hot_counts, hot_lo = hot_counts_for(ids, hot_table, hot_h, w)
+                plan = hot_plan(hot_counts, hot_lo)  # once for every bucket
         if cold_ids is not None:
             # from here on only the cold ids matter
             ids, w = cold_ids, w_cold
@@ -1002,7 +1020,8 @@ def make_sparse_query_step(k: int, hot_h: int = 0, ids_only: bool = False,
                 w = torch.where(ids >= 0, w.float(), zero)
         # the card's scan tables, once for every bucket (the CPU twins
         # read none)
-        table = scan_table(ids, w) if ids.is_cuda else None
+        with span("step.table"):
+            table = scan_table(ids, w) if ids.is_cuda else None
         if tail is None:
             ms, docs = buckets_top_k(buckets, ids, k, hot_counts, hot_lo, w,
                                      mask, plan, table, union_select)
@@ -1033,26 +1052,31 @@ def _tail_step(buckets, tail, ids, k, hot_counts, hot_lo, w, mask, plan,
     """The buckets' top k merged with the tail tier's exact candidates:
     each tail candidate's base (its ELL and hot sums) is looked up in the
     bucket that holds its doc, before that bucket's base is freed."""
-    is_cand, cand_docs, cand_tail, gpos = tail_candidates(tail, ids, w, mask)
-    cand_base = torch.zeros_like(cand_tail)
+    with span("step.tail"):
+        is_cand, cand_docs, cand_tail, gpos = tail_candidates(tail, ids, w,
+                                                              mask)
+        cand_base = torch.zeros_like(cand_tail)
     cand_s, cand_i = [], []
     r0 = 0
     for b in buckets:
-        base, gmax = bucket_base(b, ids, hot_counts, hot_lo, w, mask, plan,
-                                 table)
-        rows_b = base.shape[1]
-        rel = gpos - r0
-        in_b = (rel >= 0) & (rel < rows_b) & is_cand
-        look = torch.gather(base, 1, torch.where(in_b, rel, 0).long())
-        cand_base = cand_base + torch.where(in_b, look, 0.0)
-        r0 += rows_b
-        s, pos = bucket_select(base, gmax, k)
-        del base, gmax  # free this bucket's tile before the next
-        cand_s.append(s)
-        cand_i.append(b["doc_ids"][pos])
-    return _merge_with_tail(
-        cand_s, cand_i, cand_docs,
-        torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
+        with span("step.scan"):
+            base, gmax = bucket_base(b, ids, hot_counts, hot_lo, w, mask,
+                                     plan, table)
+            rows_b = base.shape[1]
+            rel = gpos - r0
+            in_b = (rel >= 0) & (rel < rows_b) & is_cand
+            look = torch.gather(base, 1, torch.where(in_b, rel, 0).long())
+            cand_base = cand_base + torch.where(in_b, look, 0.0)
+            r0 += rows_b
+        with span("step.select"):
+            s, pos = bucket_select(base, gmax, k)
+            del base, gmax  # free this bucket's tile before the next
+            cand_s.append(s)
+            cand_i.append(b["doc_ids"][pos])
+    with span("step.merge"):
+        return _merge_with_tail(
+            cand_s, cand_i, cand_docs,
+            torch.where(is_cand, cand_tail + cand_base, NEG_INF), k)
 
 
 def _merge_with_tail(cand_s, cand_i, cand_docs, totals, k: int):
@@ -1172,16 +1196,20 @@ def maybe_dedup(
     per slot and the weighted one (which dedup switches to) ``3T_u+2``, so
     under ``"auto"`` the swap engages only when ``3*T_u + 2 < 2*T + 2``
     (and the width is at least ``min_width``).  ``dedup=True`` forces it
-    on any shrink.  Only unweighted batches are deduplicated.
+    on any shrink.  Only unweighted batches are deduplicated.  Counts
+    ``dedup.checked`` where the rows were sorted and ``dedup.applied``
+    where the deduplicated rows were kept.
     """
     if weights is not None or not (
         dedup is True
         or (dedup == "auto" and queries.shape[1] >= min_width)
     ):
         return queries, weights
+    count("dedup.checked")
     ids_u, counts = dedup_query_rows(queries)
     t, t_u = queries.shape[1], ids_u.shape[1]
     if t_u < t and (dedup is True or 3 * t_u + 2 < 2 * t + 2):
+        count("dedup.applied")
         return ids_u, counts
     return queries, weights
 
@@ -1341,7 +1369,9 @@ def plan_query_dispatch(
     ``max_q``-row slices.  Returns
     ``(perm, chunks)``: ``perm`` is the routing permutation (or None) and
     each chunk a ``Chunk`` ``(cq, padded_ids, padded_weights,
-    cold_padded, wc_padded)``.
+    cold_padded, wc_padded)``.  Counts the cells of the ids the scan
+    reads (the cold ids where routed): ``plan.cells_real`` (ids >= 0) and
+    ``plan.cells_padded`` (Q_pad x T_pad over the chunks).
     """
     queries = queries.astype(np.int32)
     if c0_units is None:
@@ -1375,11 +1405,14 @@ def plan_query_dispatch(
         # padding waste and the fixed cost of a chunk; fixed-size cuts are
         # inside its search space
         cls = 1 << np.ceil(np.log2(np.maximum(counts, 2))).astype(np.int64)
-        bounds = _chunk_bounds_dp(cls, max_q, q_align, c0_units, fixed_units)
+        with span("plan.route_dp"):
+            bounds = _chunk_bounds_dp(cls, max_q, q_align, c0_units,
+                                      fixed_units)
     q_real, t_real = queries.shape
     if bounds is None:
         bounds = list(range(0, q_real, max_q)) + [q_real]
     chunks = []
+    cells = 0
     for i, j in zip(bounds[:-1], bounds[1:]):
         chunk = queries[i : j]
         cq = len(chunk)
@@ -1409,7 +1442,12 @@ def plan_query_dispatch(
             if wc is not None:
                 wc_padded = np.zeros((q_pad, t_pad_c), dtype=np.float32)
                 wc_padded[:cq, : wc.shape[1]] = wc
+        cells += (padded if cold_padded is None else cold_padded).size
         chunks.append(Chunk(cq, padded, wpadded, cold_padded, wc_padded))
+    if enabled():
+        count("plan.cells_real",
+              int(counts.sum() if split else (queries >= 0).sum()))
+        count("plan.cells_padded", cells)
     return perm, chunks
 
 
@@ -1503,6 +1541,9 @@ class SparseEngine:
         tail tier, rows of ``tail_width`` slots.  ``score_dtype``
         ("float32" or "bfloat16") is the type the returned scores are
         rounded to.
+
+        Its spans: ``build.hot_choice``, ``build.split``, ``build.tail``,
+        ``build.ell`` and ``build.hot_pair``.
         """
         session = session or get_session()
         _score_sdt(score_dtype)  # validate early, at build time
@@ -1516,67 +1557,74 @@ class SparseEngine:
                 raise ValueError("overhead_target must be positive")
         csc_bytes = (index.data.nbytes + index.indices.nbytes
                      + index.indptr.nbytes)
-        if hot_tokens == "auto":
-            h = choose_hot_tokens(
-                index, max_buckets=max_buckets,
-                budget_bytes=hot_budget_bytes, tail_cap=tail_cap,
-                device=session.device, overhead_target=overhead_target,
-            )
-            # surface the memory trade the auto policy is making
-            logger.info(
-                "hot-auto: h=%d -> hot tier %.2f GB on a %.1f GB device "
-                "(resident cap %.2f GB; raw CSC %.2f GB)",
-                h, h * index.num_docs * 4 / 2**30,
-                device_hbm_bytes(session.device) / 2**30,
-                _auto_resident_cap(session.device, index.num_docs) / 2**30,
-                csc_bytes / 2**30,
-            )
-        else:
-            if isinstance(hot_tokens, str):
-                raise ValueError(
-                    f"hot_tokens must be an integer or 'auto', got "
-                    f"{hot_tokens!r}")
-            if hot_tokens < 0:
-                raise ValueError(f"hot_tokens must be >= 0, got {hot_tokens}")
-            budget = (csc_bytes if hot_budget_bytes is None
-                      else hot_budget_bytes)
-            max_h = budget // max(index.num_docs * 4, 1)
-            kernel_h = max_hot_tokens()
-            h = int(min(hot_tokens, max_h, index.vocab_size, kernel_h))
-            if h < min(int(hot_tokens), index.vocab_size):
-                logger.info("hot_tokens=%s clamped to %d (memory budget %d "
-                            "B, hot kernel cap %d)", hot_tokens, h, budget,
-                            kernel_h)
-        if h > 0:
-            hot_ids, cold_csr, hot_csr = split_hot_cold_csr(index, h)
-            h = len(hot_ids)
-        else:
-            hot_ids, hot_csr = np.zeros(0, np.int32), None
-            cold_csr = index.to_csc().tocsr()
+        with span("build.hot_choice"):
+            if hot_tokens == "auto":
+                h = choose_hot_tokens(
+                    index, max_buckets=max_buckets,
+                    budget_bytes=hot_budget_bytes, tail_cap=tail_cap,
+                    device=session.device, overhead_target=overhead_target,
+                )
+                # surface the memory trade the auto policy is making
+                logger.info(
+                    "hot-auto: h=%d -> hot tier %.2f GB on a %.1f GB device "
+                    "(resident cap %.2f GB; raw CSC %.2f GB)",
+                    h, h * index.num_docs * 4 / 2**30,
+                    device_hbm_bytes(session.device) / 2**30,
+                    _auto_resident_cap(session.device, index.num_docs)
+                    / 2**30,
+                    csc_bytes / 2**30,
+                )
+            else:
+                if isinstance(hot_tokens, str):
+                    raise ValueError(
+                        f"hot_tokens must be an integer or 'auto', got "
+                        f"{hot_tokens!r}")
+                if hot_tokens < 0:
+                    raise ValueError(
+                        f"hot_tokens must be >= 0, got {hot_tokens}")
+                budget = (csc_bytes if hot_budget_bytes is None
+                          else hot_budget_bytes)
+                max_h = budget // max(index.num_docs * 4, 1)
+                kernel_h = max_hot_tokens()
+                h = int(min(hot_tokens, max_h, index.vocab_size, kernel_h))
+                if h < min(int(hot_tokens), index.vocab_size):
+                    logger.info("hot_tokens=%s clamped to %d (memory budget "
+                                "%d B, hot kernel cap %d)", hot_tokens, h,
+                                budget, kernel_h)
+        with span("build.split"):
+            if h > 0:
+                hot_ids, cold_csr, hot_csr = split_hot_cold_csr(index, h)
+                h = len(hot_ids)
+            else:
+                hot_ids, hot_csr = np.zeros(0, np.int32), None
+                cold_csr = index.to_csc().tocsr()
 
         # tail tier: low-DF tokens leave the ELL entirely
         tail = None
         if tail_cap > 0:
-            tail, is_tail = build_token_tail(index, hot_ids, tail_cap,
-                                             width=tail_width)
-            if tail is not None:
-                cold_csr = _filter_csr(
-                    cold_csr, ~is_tail[cold_csr.indices], index.num_docs)
+            with span("build.tail"):
+                tail, is_tail = build_token_tail(index, hot_ids, tail_cap,
+                                                 width=tail_width)
+                if tail is not None:
+                    cold_csr = _filter_csr(
+                        cold_csr, ~is_tail[cold_csr.indices], index.num_docs)
 
-        if cold_csr.nnz > 0:
-            host_buckets = build_ell_buckets_from_csr(
-                cold_csr, index.num_docs, max_buckets=max_buckets,
-                row_align=BLOCK_ROWS,
-            )
-        else:
-            # no mid tier: one identity bucket (original doc order)
-            # carrying only the hot matrix and the doc mask
-            n_pad = next_multiple(max(index.num_docs, 1), BLOCK_ROWS)
-            doc_ids = np.full(n_pad, -1, dtype=np.int32)
-            doc_ids[: index.num_docs] = np.arange(index.num_docs,
-                                                  dtype=np.int32)
-            host_buckets = [EllBucket(tok=None, val=None, doc_ids=doc_ids,
-                                      num_real=index.num_docs)]
+        with span("build.ell"):
+            if cold_csr.nnz > 0:
+                host_buckets = build_ell_buckets_from_csr(
+                    cold_csr, index.num_docs, max_buckets=max_buckets,
+                    row_align=BLOCK_ROWS,
+                )
+            else:
+                # no mid tier: one identity bucket (original doc order)
+                # carrying only the hot matrix and the doc mask
+                n_pad = next_multiple(max(index.num_docs, 1), BLOCK_ROWS)
+                doc_ids = np.full(n_pad, -1, dtype=np.int32)
+                doc_ids[: index.num_docs] = np.arange(index.num_docs,
+                                                      dtype=np.int32)
+                host_buckets = [EllBucket(tok=None, val=None,
+                                          doc_ids=doc_ids,
+                                          num_real=index.num_docs)]
 
         v = index.vocab_size
         hot_table = np.full((v + 1,), -1, dtype=np.int32)
@@ -1590,20 +1638,23 @@ class SparseEngine:
         for b in host_buckets:
             entry = {"doc_ids": session.put(b.doc_ids)}
             if b.tok is not None:
-                l_pad = next_multiple(b.tok.shape[1], 8)
-                tok_t = np.full((l_pad, b.tok.shape[0]), PAD_TOK,
-                                dtype=np.int32)
-                tok_t[: b.tok.shape[1]] = b.tok.T
-                val_t = np.zeros((l_pad, b.val.shape[0]), dtype=np.float32)
-                val_t[: b.val.shape[1]] = b.val.T
+                with span("build.ell"):
+                    l_pad = next_multiple(b.tok.shape[1], 8)
+                    tok_t = np.full((l_pad, b.tok.shape[0]), PAD_TOK,
+                                    dtype=np.int32)
+                    tok_t[: b.tok.shape[1]] = b.tok.T
+                    val_t = np.zeros((l_pad, b.val.shape[0]),
+                                     dtype=np.float32)
+                    val_t[: b.val.shape[1]] = b.val.T
                 entry["tokT"] = session.put(tok_t)
                 entry["valT"] = session.put(val_t)
             if h > 0:
                 # the hot (H, rows) pair in this bucket's row order, built
                 # on the device from the sparse hot postings
-                htok, hval = hot_ell_for_rows(hot_csr, b.doc_ids)
-                entry["hotT"], entry["hotLo"] = build_hot_pair_device(
-                    hot_ids_dev, session.put(htok), session.put(hval))
+                with span("build.hot_pair"):
+                    htok, hval = hot_ell_for_rows(hot_csr, b.doc_ids)
+                    entry["hotT"], entry["hotLo"] = build_hot_pair_device(
+                        hot_ids_dev, session.put(htok), session.put(hval))
             real = b.doc_ids >= 0
             gpos_host[b.doc_ids[real]] = r0 + np.flatnonzero(real).astype(
                 np.int32)
@@ -1839,15 +1890,20 @@ class SparseEngine:
         results start their copy into pinned host memory, and one event
         recorded after the last marks them all fetched.  Returns
         ``(perm, futures, event)`` for ``_collect_batch``."""
-        queries, weights = maybe_dedup(queries, weights, self.dedup_queries,
-                                       self.dedup_min_width)
-        perm, chunks = self.plan_chunks(queries, weights, k=k)
+        with span("plan.dedup"):
+            queries, weights = maybe_dedup(queries, weights,
+                                           self.dedup_queries,
+                                           self.dedup_min_width)
+        with span("plan.chunks"):
+            perm, chunks = self.plan_chunks(queries, weights, k=k)
         futures = []
         for chunk in chunks:
-            res = self._query_chunk(chunk, k, ids_only, dmask)
+            with span("step.launch"):
+                res = self._query_chunk(chunk, k, ids_only, dmask)
             res = (res,) if ids_only else res
-            futures.append((chunk.cq,
-                            [self.session.fetch_async(x) for x in res]))
+            with span("fetch.enqueue"):
+                futures.append((chunk.cq,
+                                [self.session.fetch_async(x) for x in res]))
         return perm, futures, self.session.record_event()
 
     @staticmethod
@@ -1855,26 +1911,32 @@ class SparseEngine:
         """Wait for one dispatched batch's event and assemble its results
         in the caller's row order: ``(docs, scores)``, scores None with
         ``ids_only``."""
-        if event is not None:
-            event.synchronize()
-        docs = unpermute(perm, np.concatenate(
-            [Session.get(res[-1])[:cq] for cq, res in futures]))
-        if ids_only:
-            return docs, None
-        return docs, unpermute(perm, np.concatenate(
-            [Session.get(res[0])[:cq] for cq, res in futures]))
+        with span("batch.wait"):
+            if event is not None:
+                event.synchronize()
+        with span("batch.assemble"):
+            docs = unpermute(perm, np.concatenate(
+                [Session.get(res[-1])[:cq] for cq, res in futures]))
+            if ids_only:
+                return docs, None
+            return docs, unpermute(perm, np.concatenate(
+                [Session.get(res[0])[:cq] for cq, res in futures]))
 
     def _search_impl(self, queries, top_k: int, weights, ids_only: bool,
                      doc_mask):
-        queries, weights, k, dmask = self._prepare(queries, top_k, weights,
-                                                   doc_mask)
-        if len(queries) == 0 or k <= 0:
-            if ids_only:  # the (docs, None) convention of the hot path
-                return empty_results(len(queries), k, ids_only=True), None
-            return empty_results(len(queries), k)
-        return self._collect_batch(
-            *self._dispatch_batch(queries, k, weights, ids_only, dmask),
-            ids_only)
+        with span("search.call"):
+            with span("search.prepare"):
+                queries, weights, k, dmask = self._prepare(
+                    queries, top_k, weights, doc_mask)
+            if len(queries) == 0 or k <= 0:
+                if ids_only:  # the (docs, None) convention of the hot path
+                    return empty_results(len(queries), k,
+                                         ids_only=True), None
+                return empty_results(len(queries), k)
+            with span("batch.dispatch", batch=0):
+                dispatched = self._dispatch_batch(queries, k, weights,
+                                                  ids_only, dmask)
+            return self._collect_batch(*dispatched, ids_only)
 
     def search_pipelined(
         self, queries: np.ndarray, top_k: int = 100, batch: int = 512,
@@ -1887,28 +1949,32 @@ class SparseEngine:
         the host plans, launches and copies out one batch while the card
         computes the next.  The same contract as :meth:`search`; with
         ``ids_only`` it returns the ids alone, as :meth:`search_ids`."""
-        queries, weights, k, dmask = self._prepare(queries, top_k, weights,
-                                                   doc_mask)
-        if len(queries) == 0 or k <= 0:
-            return empty_results(len(queries), k, ids_only=ids_only)
-        out_docs, out_scores = [], []
-        pending = None
-        for i in range(0, len(queries), batch):
-            wb = None if weights is None else weights[i : i + batch]
-            dispatched = self._dispatch_batch(queries[i : i + batch], k, wb,
-                                              ids_only, dmask)
-            if pending is not None:
-                d, s = self._collect_batch(*pending, ids_only)
-                out_docs.append(d)
-                out_scores.append(s)
-            pending = dispatched
-        d, s = self._collect_batch(*pending, ids_only)
-        out_docs.append(d)
-        out_scores.append(s)
-        docs = np.concatenate(out_docs)
-        if ids_only:
-            return docs
-        return docs, np.concatenate(out_scores)
+        with span("search.call"):
+            with span("search.prepare"):
+                queries, weights, k, dmask = self._prepare(
+                    queries, top_k, weights, doc_mask)
+            if len(queries) == 0 or k <= 0:
+                return empty_results(len(queries), k, ids_only=ids_only)
+            out_docs, out_scores = [], []
+            pending = None
+            for i in range(0, len(queries), batch):
+                wb = None if weights is None else weights[i : i + batch]
+                with span("batch.dispatch", batch=i // batch):
+                    dispatched = self._dispatch_batch(
+                        queries[i : i + batch], k, wb, ids_only, dmask)
+                if pending is not None:
+                    d, s = self._collect_batch(*pending, ids_only)
+                    out_docs.append(d)
+                    out_scores.append(s)
+                pending = dispatched
+            d, s = self._collect_batch(*pending, ids_only)
+            out_docs.append(d)
+            out_scores.append(s)
+            with span("search.concat"):
+                docs = np.concatenate(out_docs)
+                if ids_only:
+                    return docs
+                return docs, np.concatenate(out_scores)
 
     def get_scores(self, query_ids) -> np.ndarray:
         """(num_docs,) f32 scores of one query (every doc ranked)."""

@@ -2215,3 +2215,84 @@ def test_cuda_sharded_engines_match_single_device(cuda_device, data, docs):
         torch.cuda.set_sync_debug_mode("default")
     assert_matches_oracle(*got, *want)
     assert (dict(port.plain_calls), dict(gr.plain_calls)) == plain
+
+
+@pytest.mark.cuda
+def test_a_span_encloses_its_launch_on_the_profilers_clock(cuda_device):
+    """The tracer's clock is the profiler's: under a profile of the device
+    alone, a span around the launch of ``torch.cuda._sleep`` encloses that
+    launch's runtime event, and the sleep kernel, matched to its launch by
+    correlation id, falls in that span and no other."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bm25_tpu_torch.runtime import profiling
+
+    def host_work(seconds):
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            pass
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profiling.tracing() as trace, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.span("before"):
+            host_work(2e-4)
+        with profiling.span("launch"):
+            host_work(2e-4)
+            torch.cuda._sleep(1_000_000)
+            host_work(2e-4)
+        with profiling.span("after"):
+            host_work(2e-4)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    (kernel,) = [e for e in events if "spin_kernel" in e.name()
+                 and e.device_type() == torch.autograd.DeviceType.CUDA]
+    (launch,) = [e for e in events if e.correlation_id()
+                 == kernel.correlation_id() and e.name().startswith("cuda")]
+    spans = {s["name"]: s for s in trace.records()}
+    inside = [name for name, s in spans.items()
+              if s["start_ns"] <= launch.start_ns() <= s["end_ns"]]
+    assert inside == ["launch"]
+    s = spans["launch"]
+    assert s["start_ns"] <= launch.start_ns() < launch.end_ns() \
+        <= s["end_ns"]
+    print(f"launch {launch.start_ns() - s['start_ns']} ns after the span's "
+          f"start, {s['end_ns'] - launch.end_ns()} ns before its end")
+
+
+@pytest.mark.cuda
+def test_a_record_function_inside_a_span_starts_with_it_on_the_card(
+        cuda_device):
+    """Under a profile of the host and the card, a ``record_function``
+    opened right inside a span starts a few µs after it and ends a few µs
+    before it: the tracer's clock and kineto's agree to within the least
+    of those gaps, which bounds the error of matching a launch to a
+    span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bm25_tpu_torch.runtime import profiling
+
+    n = 200
+    x = torch.ones(1024, device=cuda_device)
+    with profiling.tracing() as trace, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            with profiling.span(f"s{i}"):
+                with record_function(f"r{i}"):
+                    x.add_(1)
+        torch.cuda.synchronize()
+    ops = {e.name(): e for e in prof.profiler.kineto_results.events()
+           if e.device_type() != torch.autograd.DeviceType.CUDA}
+    spans = {r["name"]: r for r in trace.records()}
+    after = sorted(ops[f"r{i}"].start_ns() - spans[f"s{i}"]["start_ns"]
+                   for i in range(n))
+    before = sorted(spans[f"s{i}"]["end_ns"] - ops[f"r{i}"].end_ns()
+                    for i in range(n))
+    print(f"record_function starts {after[0]}-{after[n // 2]}-{after[-1]} "
+          f"ns after its span (least, median, most) and ends "
+          f"{before[0]}-{before[n // 2]}-{before[-1]} ns before it")
+    assert after[0] >= 0 and before[0] >= 0
+    assert max(after[0], before[0]) < 20_000
